@@ -1,0 +1,347 @@
+"""One front door: ``GraphSpec -> plan() -> generate()``, on the card.
+
+The JAX package's ``repro.api`` in torch:
+
+    from repro_torch import api
+
+    spec = api.preset("paper_smoke")
+    pl = api.plan(spec)            # validated, inspectable; nothing runs
+    res = api.generate(pl)         # EdgeList of torch tensors + GenStats
+
+Entry points run on the current CUDA device and raise when there is none;
+``plan(spec, device="cpu")`` / ``generate(spec, device="cpu")`` run the
+plain PyTorch path on the CPU. The device is a keyword, not a spec field:
+every field of a spec is part of its digest.
+
+Ported so far: ``model="pba"`` with ``execution="host"`` (P logical
+processors on one device) into memory. Everything else raises
+``NotImplementedError`` naming the ROADMAP item that will port it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.core import factions as factions_lib
+from repro_torch.core import pba as pba_lib
+from repro_torch.core.factions import FactionSpec, FactionTable, validate_table
+from repro_torch.core.graph import EdgeList, GenStats
+from repro_torch.core.pba import PBAConfig
+from repro_torch.core.spec import EXECUTIONS, MODELS, SINKS, GraphSpec
+from repro_torch.runtime import spmd, streaming
+from repro_torch.runtime.topology import Topology
+
+__all__ = ["GraphSpec", "GenPlan", "GenResult", "plan", "generate",
+           "preset", "PRESETS", "Topology", "FactionSpec"]
+
+_NOT_PORTED = {
+    "pk": "ROADMAP Queue 1 item 11 (PK)",
+    "ba_cfree": "ROADMAP Queue 1 item 10 (communication-free family)",
+    "rmat": "ROADMAP Queue 1 item 10 (communication-free family)",
+    "er": "ROADMAP Queue 1 item 10 (communication-free family)",
+    "streamed": "ROADMAP Queue 1 items 6 and 8 (streams and the "
+                "device-resident streamed round)",
+    "sharded": "ROADMAP Queue 1 item 9 (multi-GPU)",
+    "shards": "ROADMAP Queue 1 item 6 (streams and storage)",
+}
+
+
+def _not_ported(what: str, key: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet: {_NOT_PORTED[key]}")
+
+
+# --- plan ---------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GenPlan:
+    """A validated, inspectable compilation of a :class:`GraphSpec`.
+
+    The same fields as the JAX package's GenPlan (executor, topology and
+    P = lp * D, derived budgets, byte estimates), plus the ``device`` the
+    plan was made for: the derived pair capacity reads its memory.
+    """
+
+    spec: GraphSpec
+    model: str
+    execution: str              # resolved: host
+    sink: str
+    executor: str               # internal entry point the plan dispatches to
+    topology: Topology
+    num_procs: int              # logical processors P
+    lp: int                     # logical procs per device (P = lp * D)
+    num_vertices: int
+    requested_edges: int
+    pair_capacity: int          # per-(sender, receiver) budget C
+    exchange_rounds: int        # configured rounds R (1 = single-shot)
+    round_capacity: int         # C_r = ceil(C / R)
+    urn_budget: int             # phase-2 urn slots per proc
+    device_bytes: int           # rough per-device working set
+    host_bytes: int             # rough host-RAM working set
+    disk_bytes: int             # rough on-disk size (0 for memory sink)
+    config: PBAConfig
+    table: Optional[FactionTable] = None
+    seed_graph: None = None
+    block_bytes: int = 0
+    overlap_bytes: int = 0
+    device: Optional[torch.device] = None
+
+    def describe(self) -> str:
+        """Human-readable resolved plan."""
+        d = self.topology.num_devices
+        return "\n".join([
+            f"GraphSpec[{self.model}] seed={self.config.seed} -> "
+            f"{self.num_vertices:,} vertices, "
+            f"{self.requested_edges:,} edges",
+            f"  executor:  {self.executor} (execution={self.execution}, "
+            f"sink={self.sink}, device={self.device})",
+            f"  topology:  {self.topology.label}  "
+            f"P = lp*D = {self.lp} * {d} = {self.num_procs}",
+            f"  exchange:  pair_capacity={self.pair_capacity}, "
+            f"rounds={self.exchange_rounds}, C_r={self.round_capacity}, "
+            f"urn_budget={self.urn_budget}",
+            f"  bytes:     device ~{_fmt_bytes(self.device_bytes)}, "
+            f"host ~{_fmt_bytes(self.host_bytes)}, "
+            f"disk ~{_fmt_bytes(self.disk_bytes)}",
+        ])
+
+
+@dataclasses.dataclass
+class GenResult:
+    """What ``generate`` returns: the plan it ran, stats and the edges."""
+
+    plan: GenPlan
+    stats: GenStats
+    edges: EdgeList
+
+
+def _fmt_bytes(n: int) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if n < 1024 or unit == "TiB":
+            return f"{n:.1f}{unit}" if unit != "B" else f"{n}B"
+        n /= 1024
+    return f"{n}B"
+
+
+def _resolve_factions(spec: GraphSpec) -> FactionTable:
+    f = spec.factions
+    p = spec.procs
+    if isinstance(f, FactionTable):
+        table = f
+    elif isinstance(f, FactionSpec):
+        table = factions_lib.make_factions(p, f)
+    elif isinstance(f, str):
+        if f == "hub":
+            table = factions_lib.hub_factions(p)
+        elif f.startswith("block:"):
+            table = factions_lib.block_factions(p, int(f.split(":", 1)[1]))
+        else:
+            raise ValueError(
+                f"unknown faction layout {f!r}: use 'hub', 'block:<size>', "
+                "a FactionSpec, or a FactionTable")
+    elif f is None:
+        table = factions_lib.make_factions(
+            p, FactionSpec(max(p // 2, 1), min(2, p),
+                           min(max(p // 2, 2), p), seed=1))
+    else:
+        raise ValueError(f"cannot build factions from {type(f).__name__}")
+    validate_table(table)
+    if table.num_procs != p:
+        raise ValueError(
+            f"faction table covers {table.num_procs} processors but the "
+            f"spec asks for procs={p}")
+    return table
+
+
+def _device_count(device: torch.device) -> int:
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _resolve_execution(spec: GraphSpec, divisible: bool,
+                       device: torch.device) -> str:
+    """Pick the execution path for ``auto`` as the JAX package does; raise
+    for the paths not ported yet."""
+    ex = spec.execution
+    if ex not in EXECUTIONS:
+        raise ValueError(f"unknown execution {ex!r}: one of {EXECUTIONS}")
+    topo = spec.topology
+    if ex == "auto":
+        if spec.sink == "shards":
+            ex = "streamed"
+        elif topo is not None and topo.is_host:
+            ex = "host"
+        else:
+            d = topo.num_devices if topo is not None \
+                else _device_count(device)
+            ex = "sharded" if d > 1 and divisible else "host"
+    if ex == "host" and topo is not None and not topo.is_host:
+        raise ValueError(
+            f"host execution cannot run over device topology "
+            f"{topo.label}; use execution='sharded'")
+    if ex == "sharded" and topo is not None and topo.is_host:
+        raise ValueError(
+            "sharded execution needs a device topology, got "
+            "Topology.host(); use execution='host'")
+    if ex != "host":
+        raise _not_ported(f"execution={ex!r}", ex)
+    return ex
+
+
+def _plan_pba(spec: GraphSpec, device: torch.device) -> GenPlan:
+    if spec.procs < 1 or spec.vertices_per_proc < 1 \
+            or spec.edges_per_vertex < 1:
+        raise ValueError(
+            "pba scale incomplete: procs, vertices_per_proc and "
+            f"edges_per_vertex must all be >= 1, got ({spec.procs}, "
+            f"{spec.vertices_per_proc}, {spec.edges_per_vertex})")
+    table = _resolve_factions(spec)
+    cfg = PBAConfig(vertices_per_proc=spec.vertices_per_proc,
+                    edges_per_vertex=spec.edges_per_vertex,
+                    interfaction_prob=spec.interfaction_prob,
+                    pair_capacity=spec.pair_capacity,
+                    exchange_rounds=spec.exchange_rounds,
+                    total_capacity_factor=spec.total_capacity_factor,
+                    seed=spec.seed)
+    p = spec.procs
+    execution = _resolve_execution(
+        spec, divisible=p % _device_count(device) == 0
+        if spec.topology is None else True, device=device)
+    if spec.sink == "shards":
+        raise _not_ported("sink='shards'", "shards")
+
+    pair_capacity = pba_lib._derived_pair_capacity(cfg, table, device)
+    rounds = cfg.exchange_rounds or 1
+    c_r = streaming.round_capacity(pair_capacity, rounds)
+    e = cfg.edges_per_proc
+    t_cap = cfg.total_capacity_factor * e
+    requested = p * e
+    # Rough working sets (int32 everywhere), as the JAX package counts
+    # them: edges, counts, one round buffer and the pool per processor.
+    per_proc = 4 * (4 * e + p + p * c_r + (e + t_cap))
+    return GenPlan(spec=spec, model="pba", execution=execution,
+                   sink=spec.sink, executor="generate_pba_host",
+                   topology=Topology.host(), num_procs=p, lp=p,
+                   num_vertices=p * cfg.vertices_per_proc,
+                   requested_edges=requested, pair_capacity=pair_capacity,
+                   exchange_rounds=rounds, round_capacity=c_r,
+                   urn_budget=t_cap, device_bytes=p * per_proc,
+                   host_bytes=8 * requested, disk_bytes=0,
+                   config=cfg, table=table, device=device)
+
+
+def plan(spec: GraphSpec, *, device=None) -> GenPlan:
+    """Compile a :class:`GraphSpec` into a validated :class:`GenPlan` for
+    ``device`` (default: the current CUDA device; raises without one).
+
+    Pure resolution: nothing is generated. Raises ``ValueError`` for an
+    invalid spec and ``NotImplementedError`` for a valid one whose path
+    is not ported yet.
+    """
+    device = spmd.resolve_device(device)
+    if spec.model not in MODELS:
+        raise ValueError(f"unknown model {spec.model!r}: one of {MODELS}")
+    if spec.sink not in SINKS:
+        raise ValueError(f"unknown sink {spec.sink!r}: one of {SINKS}")
+    if spec.sink == "shards" and not spec.out_dir:
+        raise ValueError("sink='shards' needs out_dir")
+    if spec.model != "pba":
+        raise _not_ported(f"model={spec.model!r}", spec.model)
+    return _plan_pba(spec, device)
+
+
+# --- generate -----------------------------------------------------------------
+
+def generate(plan_or_spec: Union[GenPlan, GraphSpec], *,
+             device=None) -> GenResult:
+    """Execute a plan (or plan a spec for ``device`` and execute it).
+
+    Bit-identical to the JAX package's ``generate`` for the same spec and
+    pair capacity. A plan runs on the device it was made for; passing
+    another ``device`` with a plan raises.
+    """
+    if isinstance(plan_or_spec, GenPlan):
+        pl = plan_or_spec
+        if device is not None and spmd.resolve_device(device) != pl.device:
+            raise ValueError(
+                f"plan was made for {pl.device}, not {device}: plan the "
+                "spec again for that device")
+    else:
+        pl = plan(plan_or_spec, device=device)
+    edges, stats = pba_lib.generate_pba_host(pl.config, pl.table,
+                                             device=pl.device)
+    return GenResult(plan=pl, stats=stats, edges=edges)
+
+
+# --- presets ------------------------------------------------------------------
+
+def _preset_paper_1b_5b() -> GraphSpec:
+    """The paper's headline run: 1000 ranks, 1B vertices, 5B edges,
+    streamed out-of-core."""
+    return GraphSpec(model="pba", procs=1000, vertices_per_proc=1_000_000,
+                     edges_per_vertex=5, exchange_rounds=8, seed=7,
+                     execution="streamed")
+
+
+def _preset_pod_1000rank() -> GraphSpec:
+    """P=1000 logical ranks over whatever devices are present."""
+    return GraphSpec(model="pba", procs=1000, vertices_per_proc=40,
+                     edges_per_vertex=2, pair_capacity=8, seed=7)
+
+
+def _preset_paper_smoke() -> GraphSpec:
+    """Small end-to-end PBA smoke."""
+    return GraphSpec(model="pba", procs=8, vertices_per_proc=2000,
+                     edges_per_vertex=4, seed=7)
+
+
+def _preset_hub_stress() -> GraphSpec:
+    """Adversarial hub factions + streamed exchange: zero drops."""
+    return GraphSpec(model="pba", procs=8, vertices_per_proc=300,
+                     edges_per_vertex=4, factions="hub", pair_capacity=16,
+                     exchange_rounds=4, total_capacity_factor=8, seed=5)
+
+
+def _preset_pk_smoke() -> GraphSpec:
+    """Small PK expansion (star-clique seed, 9^5 edges)."""
+    return GraphSpec(model="pk", levels=5, noise=0.05, seed=3)
+
+
+def _preset_pk_3b() -> GraphSpec:
+    """Paper-scale PK: ~3.5B edges, streamed slab by slab."""
+    return GraphSpec(model="pk", levels=10, seed=3, execution="streamed")
+
+
+def _preset_rmat_smoke() -> GraphSpec:
+    """Small communication-free R-MAT (2^14 vertices, 2^16 edges)."""
+    return GraphSpec(model="rmat", cfree_vertices=1 << 14,
+                     cfree_edges=1 << 16, seed=7)
+
+
+def _preset_ba_cfree_1b() -> GraphSpec:
+    """Paper-scale communication-free BA: 250M vertices x degree 4."""
+    return GraphSpec(model="ba_cfree", cfree_vertices=250_000_000,
+                     ba_degree=4, seed=7, execution="streamed")
+
+
+PRESETS = {
+    "paper_1b_5b": _preset_paper_1b_5b,
+    "pod_1000rank": _preset_pod_1000rank,
+    "paper_smoke": _preset_paper_smoke,
+    "hub_stress": _preset_hub_stress,
+    "pk_smoke": _preset_pk_smoke,
+    "pk_3b": _preset_pk_3b,
+    "rmat_smoke": _preset_rmat_smoke,
+    "ba_cfree_1b": _preset_ba_cfree_1b,
+}
+
+
+def preset(name: str, **overrides) -> GraphSpec:
+    """A named scenario as a one-liner; overrides are applied on top."""
+    try:
+        spec = PRESETS[name]()
+    except KeyError:
+        raise ValueError(
+            f"unknown preset {name!r}: one of {sorted(PRESETS)}") from None
+    return spec.replace(**overrides) if overrides else spec

@@ -1,0 +1,54 @@
+"""Carry generation state across from the JAX package's objects.
+
+This system has no weights: its state is the faction table and the
+config. These helpers rebuild the port's objects from the reference's
+numpy arrays and dataclass fields (plain Python values), without importing
+the reference, so a test can feed both packages the same state.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core.factions import FactionSpec, FactionTable
+from repro_torch.core.pba import PBAConfig
+from repro_torch.core.spec import GraphSpec, SeedGraph
+from repro_torch.runtime.topology import Topology
+
+# Dataclasses a spec may nest, by class name (the names the digest uses).
+_PORT_CLASSES = {c.__name__: c
+                 for c in (FactionSpec, FactionTable, SeedGraph, Topology)}
+
+
+def faction_table_from_numpy(procs, s, factions=()) -> FactionTable:
+    """A FactionTable from the reference's (P, max_s) ``procs`` and (P,)
+    ``s`` arrays (and its raw faction lists, which the digest covers)."""
+    return FactionTable(procs=np.asarray(procs, np.int32),
+                        s=np.asarray(s, np.int32),
+                        factions=tuple(tuple(int(x) for x in f)
+                                       for f in factions))
+
+
+def pba_config_from_fields(fields: dict) -> PBAConfig:
+    """A PBAConfig from the reference PBAConfig's field values."""
+    return PBAConfig(**fields)
+
+
+def _port_value(value):
+    """A reference dataclass value rebuilt as the port's class of the same
+    name (recursively); other values pass through."""
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        cls = _PORT_CLASSES.get(type(value).__name__)
+        if cls is None:
+            raise TypeError(
+                f"no port counterpart for {type(value).__name__}")
+        return cls(**{f.name: _port_value(getattr(value, f.name))
+                      for f in dataclasses.fields(value)})
+    return value
+
+
+def spec_from_fields(fields: dict) -> GraphSpec:
+    """A GraphSpec from the reference GraphSpec's field values (nested
+    FactionSpec / FactionTable / SeedGraph / Topology values included)."""
+    return GraphSpec(**{k: _port_value(v) for k, v in fields.items()})

@@ -1,0 +1,392 @@
+"""Parallel Barabási–Albert (PBA) generator: two-phase preferential
+attachment, on the host topology (P logical processors on one device).
+
+The JAX package's ``core/pba.py`` in torch, bit-identical to it for the
+same config, faction table and pair capacity:
+
+  phase 1 (local):  per-processor Pólya urn over *processor ids*, seeded
+                    with the processor's faction members, resolved by
+                    pointer doubling (the resolve kernel), then counted
+                    per target processor (the histogram kernel).
+  exchange 1:       the (P, P) counts transpose.
+  phase 2 (local):  per-processor Pólya urn over local endpoint slots (the
+                    pool), granted to requesters in request order (the
+                    gather kernel).
+  exchange 2:       single-shot (P, C) buffers, or R >= 1 streamed rounds
+                    of (P, C_r) buffers.
+  substitution:     each local edge's processor tag is replaced by the
+                    next endpoint received from that processor, by
+                    occurrence rank (the gather kernel).
+
+Where the JAX package vmaps a per-rank body, this module draws the random
+words one rank at a time (``blocking.map_logical``: a whole (P, n) draw
+would hold several (P, n) int64 temporaries) and runs everything after
+the draws, the kernels included, on the whole (lp, n) batch at once.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import rng as rng_lib
+from repro_torch.core.factions import FactionTable, validate_table
+from repro_torch.core.graph import EdgeList, GenStats
+from repro_torch.kernels import ops
+from repro_torch.runtime import blocking, spmd, streaming
+from repro_torch.runtime.topology import Topology
+
+_I32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class PBAConfig:
+    """PBA generation parameters (the JAX package's PBAConfig).
+
+    vertices_per_proc: local vertex count V (global = V * P).
+    edges_per_vertex: the BA ``k``, edges attached per new vertex.
+    interfaction_prob: probability that a phase-1 slot picks a uniformly
+      random processor instead of copying an earlier slot.
+    pair_capacity: static per-(sender, receiver) endpoint budget C. None ->
+      derived from faction sizes and device memory.
+    exchange_rounds: None -> single fixed-capacity exchange 2 (pairs
+      needing more than C endpoints overflow into counted drops). R >= 1 ->
+      streamed exchange in rounds of C_r = ceil(C / R) per pair, repeated
+      until every pair's residual is zero.
+    total_capacity_factor: phase-2 urn budget as a multiple of E_local.
+    seed: global RNG seed.
+    """
+
+    vertices_per_proc: int
+    edges_per_vertex: int
+    interfaction_prob: float = 0.05
+    pair_capacity: Optional[int] = None
+    exchange_rounds: Optional[int] = None
+    total_capacity_factor: int = 2
+    seed: int = 0
+
+    @property
+    def edges_per_proc(self) -> int:
+        return self.vertices_per_proc * self.edges_per_vertex
+
+
+# Fraction of device memory the live exchange buffer may claim (1/16), and
+# the per-round floor on the pair capacity.
+_EXCHANGE_MEM_DIVISOR = 16
+_MIN_ROUND_CAPACITY = 16
+
+
+def default_pair_capacity(edges_per_proc: int, min_s: int,
+                          num_procs: int = 0,
+                          exchange_rounds: Optional[int] = None,
+                          memory_bytes: Optional[int] = None,
+                          device=None) -> int:
+    """Static per-pair capacity heuristic (the JAX package's rule).
+
+    A generous multiple of E/s, clipped to E_local; with ``num_procs``
+    given, clamped so each logical processor's (P, C_r) int32 round buffer
+    fits 1/16 of the device memory (``memory_bytes``, else probed from
+    ``device``), with C_r >= 16 on streamed runs. The probed memory makes
+    the default device-dependent, and the capacity is part of the graph's
+    identity: runs compared across devices pin ``pair_capacity``.
+    """
+    c = 8 * edges_per_proc // max(min_s, 1)
+    c = int(min(max(c, 64), edges_per_proc))
+    if num_procs:
+        mem = (memory_bytes if memory_bytes is not None
+               else spmd.device_memory_bytes(device))
+        budget = max(mem // _EXCHANGE_MEM_DIVISOR, 1)
+        rounds = max(exchange_rounds or 1, 1)
+        cap = (budget // (4 * num_procs)) * rounds
+        if exchange_rounds is not None:
+            cap = max(cap, _MIN_ROUND_CAPACITY * rounds)
+        c = int(max(min(c, cap), 1))
+    return c
+
+
+def _all_terminal(terminal: torch.Tensor, p: torch.Tensor) -> bool:
+    """Whether every entry of every row of ``p`` points at a terminal slot.
+
+    Checked row by row, so the int64 index copy is one row long.
+    ``terminal`` is (rows, m), or (m,) shared by every row."""
+    for i in range(p.shape[0]):
+        t = terminal[i] if terminal.ndim == 2 else terminal
+        if not bool(t[p[i].long()].all()):
+            return False
+    return True
+
+
+def resolve_pointers(ptr: torch.Tensor, terminal: torch.Tensor,
+                     max_rounds: int = 64) -> torch.Tensor:
+    """Path-compress ``ptr`` (rows, m) until every entry lands on a
+    terminal slot.
+
+    ``ptr`` points strictly downward (ptr[j] < j for non-terminals) and
+    terminal slots are fixed points, so ``ptr <- ptr[ptr]`` doubles chain
+    progress per round. One round counter is shared by all rows and the
+    loop runs while any row is unresolved, as the JAX package's vmapped
+    while_loop does; a resolved row is a fixed point of the pass, so
+    passing it again changes nothing.
+    """
+    rounds = 0
+    while rounds < max_rounds and not _all_terminal(terminal, ptr):
+        ptr = ops.resolve_step(ptr)
+        rounds += 1
+    return ptr
+
+
+def occurrence_rank(a: torch.Tensor) -> torch.Tensor:
+    """occ[..., j] = #{j' < j : a[..., j'] == a[..., j]} along the last
+    axis: the rank of each entry within its equal-value group."""
+    n = a.shape[-1]
+    sa, idx = torch.sort(a, dim=-1, stable=True)
+    pos = torch.arange(n, dtype=_I32, device=a.device).expand_as(a)
+    is_start = torch.ones_like(a, dtype=torch.bool)
+    is_start[..., 1:] = sa[..., 1:] != sa[..., :-1]
+    group_start = torch.cummax(torch.where(is_start, pos, 0), dim=-1).values
+    return torch.empty_like(a).scatter_(-1, idx, pos - group_start)
+
+
+def _phase1_urn(rank: int, faction_row: torch.Tensor, s: torch.Tensor,
+                cfg: PBAConfig, num_procs: int):
+    """One processor's phase-1 urn: (ptr, terminal, base) rows of E."""
+    e_local = cfg.edges_per_proc
+    dev = faction_row.device
+    max_s = faction_row.shape[0]
+    j = torch.arange(e_local, dtype=_I32, device=dev)
+
+    urn_key = rng_lib.device_key(cfg.seed, rng_lib.STREAM_PBA_URN, rank)
+    r = rng_lib.uniform_slots(urn_key, e_local, j.clamp(min=1))  # U[0, j)
+
+    coin_key = rng_lib.device_key(
+        cfg.seed, rng_lib.STREAM_PBA_INTERFACTION_COIN, rank)
+    inter = rng_lib.coin(coin_key, e_local, cfg.interfaction_prob,
+                         dev) & (j >= s)
+    proc_key = rng_lib.device_key(
+        cfg.seed, rng_lib.STREAM_PBA_INTERFACTION_PROC, rank)
+    rand_proc = rng_lib.uniform_ints(proc_key, e_local, num_procs, dev)
+
+    seeded = j < s
+    terminal = seeded | inter
+    base = torch.where(
+        seeded, faction_row[j.clamp(max=max_s - 1).long()],
+        torch.where(inter, rand_proc, -1))
+    return torch.where(terminal, j, r), terminal, base
+
+
+def _phase1(ranks: torch.Tensor, procs_blk: torch.Tensor,
+            s_blk: torch.Tensor, cfg: PBAConfig, num_procs: int):
+    """The local processor-tag lists A (lp, E) and per-target counts
+    (lp, P) of the block's processors."""
+    ptr, terminal, base = blocking.map_logical(
+        lambda r, fr, ss: _phase1_urn(r, fr, ss, cfg, num_procs),
+        ranks, procs_blk, s_blk)
+    ptr = resolve_pointers(ptr, terminal)
+    del terminal
+    a = torch.gather(base, -1, ptr.long())
+    return a, ops.histogram(a, num_procs)
+
+
+def _phase2_pool_urn(rank: int, cfg: PBAConfig, t_cap: int,
+                     device) -> torch.Tensor:
+    """One processor's unresolved phase-2 urn pointers (E + t_cap,)."""
+    e_local = cfg.edges_per_proc
+    jj = torch.arange(e_local + t_cap, dtype=_I32, device=device)
+    key = rng_lib.device_key(cfg.seed, rng_lib.STREAM_PBA_PHASE2_URN, rank)
+    r = rng_lib.uniform_slots(key, e_local + t_cap, jj.clamp(min=1))
+    return torch.where(jj < e_local, jj, r)
+
+
+def _phase2_pool(ranks: torch.Tensor, cfg: PBAConfig,
+                 t_cap: Optional[int] = None) -> torch.Tensor:
+    """Resolve the block's phase-2 urns once: slot -> *global* vertex id.
+
+    Returns (lp, E + t_cap) int32. A pool depends only on (seed, rank,
+    t_cap), not on the demand, so the single-shot and streamed grant paths
+    draw identical endpoints for the same slot at the same budget. The
+    first E slots are the k out-edges of each local vertex (a uniform slot
+    is a degree-proportional vertex); later slots copy a uniformly chosen
+    earlier slot.
+    """
+    e_local = cfg.edges_per_proc
+    if t_cap is None:
+        t_cap = cfg.total_capacity_factor * e_local
+    ptr = blocking.map_logical(
+        lambda r: _phase2_pool_urn(r, cfg, t_cap, ranks.device), ranks)
+    terminal = torch.arange(e_local + t_cap, device=ranks.device) < e_local
+    ptr = resolve_pointers(ptr, terminal)
+    local_vertex = torch.div(ptr, cfg.edges_per_vertex,
+                             rounding_mode="floor")
+    return ranks[:, None] * cfg.vertices_per_proc + local_vertex
+
+
+def _phase2(pool: torch.Tensor, recv_counts: torch.Tensor, cfg: PBAConfig,
+            pair_capacity: int):
+    """One provider's single-shot grant: per-pair demand clipped to
+    ``pair_capacity``. Returns out_buf (P, C) of global vertex ids, -1 in
+    unused slots, and the number granted."""
+    e_local = cfg.edges_per_proc
+    t_cap = cfg.total_capacity_factor * e_local
+    cc = recv_counts.clamp(max=pair_capacity)
+    offsets = torch.cumsum(cc, 0, dtype=_I32) - cc  # exclusive prefix
+    c_idx = torch.arange(pair_capacity, dtype=_I32, device=pool.device)
+    flat_idx = offsets[:, None] + c_idx[None, :]
+    valid = (c_idx[None, :] < cc[:, None]) & (flat_idx < t_cap)
+    vals = pool[(e_local + flat_idx.clamp(0, t_cap - 1)).long()]
+    out_buf = torch.where(valid, vals, -1)
+    return out_buf, valid.sum(dtype=_I32)
+
+
+def _grant_round(pool: torch.Tensor, recv_counts: torch.Tensor, r: int,
+                 round_cap: int, e_local: int, t_cap: int) -> torch.Tensor:
+    """Round ``r`` of the streamed grant: ranks [r*C_r, (r+1)*C_r) per pair.
+
+    ``pool`` (m,) with ``recv_counts`` (P,) for one provider, or (lp, m)
+    with (lp, P) for a block; returns (..., P, C_r). Offsets come from the
+    *unclipped* demand, so a pair's endpoints occupy one contiguous pool
+    run across rounds. Slots past the urn budget ``t_cap`` emit -1.
+    """
+    offsets = torch.cumsum(recv_counts, -1, dtype=_I32) - recv_counts
+    window = streaming.round_window(recv_counts, r, round_cap)
+    c_idx = torch.arange(round_cap, dtype=_I32, device=pool.device)
+    flat_idx = offsets[..., None] + r * round_cap + c_idx
+    valid = (c_idx < window[..., None]) & (flat_idx < t_cap)
+    idx = e_local + flat_idx.clamp(0, t_cap - 1)
+    if pool.ndim == 1:
+        vals = ops.gather(pool, idx)
+    else:
+        vals = ops.gather(pool, idx.reshape(pool.shape[0], -1)) \
+            .reshape(idx.shape)
+    return torch.where(valid, vals, -1)
+
+
+def pba_logical_block(ranks: torch.Tensor, procs_blk: torch.Tensor,
+                      s_blk: torch.Tensor, cfg: PBAConfig, num_procs: int,
+                      pair_capacity: int, topo: Topology):
+    """Run a device's block of lp logical PBA processors.
+
+    ranks: (lp,) int32 global logical ids; procs_blk: (lp, max_s) faction
+    rows; s_blk: (lp,) faction sizes. Returns (u (lp, E), v (lp, E),
+    dropped over all procs, granted (lp,), rounds run). Host path:
+    ``Topology.host()`` with lp == P.
+    """
+    a, counts = _phase1(ranks, procs_blk, s_blk, cfg, num_procs)
+    recv_counts = blocking.transpose_counts(counts, topo)
+    lp = a.shape[0]
+    occ = occurrence_rank(a)
+
+    if cfg.exchange_rounds is None:
+        # Single fixed-capacity exchange: per-pair overflow (occ >= C) is
+        # dropped and counted.
+        pool = _phase2_pool(ranks, cfg)
+        out_buf, granted = blocking.map_logical(
+            lambda r, p, rc: _phase2(p, rc, cfg, pair_capacity),
+            ranks, pool, recv_counts)                      # (lp, P, C)
+        del pool
+        in_buf = blocking.transpose_payload(out_buf, topo)
+        v = ops.gather(in_buf.reshape(lp, num_procs * pair_capacity),
+                       a * pair_capacity + occ.clamp(max=pair_capacity - 1))
+        v = torch.where(occ < pair_capacity, v, -1)
+        rounds = 1
+    else:
+        v, granted, rounds = _streamed_exchange2(
+            a, occ, counts, recv_counts, ranks, cfg, pair_capacity,
+            num_procs, topo)
+
+    j = torch.arange(cfg.edges_per_proc, dtype=_I32, device=a.device)
+    u = (ranks[:, None] * cfg.vertices_per_proc
+         + torch.div(j, cfg.edges_per_vertex, rounding_mode="floor")[None])
+    u = torch.where(v >= 0, u, -1)
+    dropped = blocking.all_reduce_sum(int((v < 0).sum()), topo)
+    return u, v, dropped, granted, rounds
+
+
+def _streamed_exchange2(a, occ, counts, recv_counts, ranks, cfg: PBAConfig,
+                        pair_capacity: int, num_procs: int, topo: Topology):
+    """Exchange 2 as a multi-round stream (``runtime/streaming.py``).
+
+    Round r serves request ranks [r*C_r, (r+1)*C_r) of every pair; the
+    requester writes the received band into its edge list by occurrence
+    rank. Rounds repeat until the all-reduced grantable residual is zero,
+    so no edge is dropped for pair capacity; only urn-budget exhaustion
+    (t_cap) can still emit -1.
+    """
+    lp = a.shape[0]
+    e_local = cfg.edges_per_proc
+    t_cap = cfg.total_capacity_factor * e_local
+    c_r = streaming.round_capacity(pair_capacity, cfg.exchange_rounds)
+    max_rounds = streaming.rounds_needed(e_local, c_r)
+    pool = _phase2_pool(ranks, cfg)
+
+    # Terminate on what the urn can actually grant, not raw demand.
+    offsets = torch.cumsum(recv_counts, 1, dtype=_I32) - recv_counts
+    grantable = torch.minimum(recv_counts, t_cap - offsets).clamp(min=0)
+
+    def emit(r):
+        return _grant_round(pool, recv_counts, r, c_r, e_local, t_cap)
+
+    def consume(r, recv, v):
+        band = (occ >= r * c_r) & (occ < (r + 1) * c_r)
+        idx = a * c_r + (occ - r * c_r).clamp(0, c_r - 1)
+        vals = ops.gather(recv.reshape(lp, num_procs * c_r), idx)
+        return torch.where(band, vals, v)
+
+    v0 = torch.full((lp, e_local), -1, dtype=_I32, device=a.device)
+    v, rounds = streaming.run_exchange(
+        grantable, c_r, max_rounds, emit, consume, v0, topo)
+
+    # Provider-side grants: pair q was served min(demand, rounds*C_r)
+    # ranks, of which those within the urn budget yielded endpoints.
+    served = recv_counts.clamp(max=rounds * c_r)
+    granted = torch.minimum(served, t_cap - offsets).clamp(min=0) \
+        .sum(1, dtype=_I32)
+    return v, granted, rounds
+
+
+def _derived_pair_capacity(cfg: PBAConfig, table: FactionTable,
+                           device) -> int:
+    """The capacity every generator path uses for (cfg, table) on
+    ``device``."""
+    return cfg.pair_capacity or default_pair_capacity(
+        cfg.edges_per_proc, int(table.s.min()), num_procs=table.num_procs,
+        exchange_rounds=cfg.exchange_rounds, device=device)
+
+
+def generate_pba_host(cfg: PBAConfig, table: FactionTable,
+                      topology: Optional[Topology] = None, *,
+                      device=None) -> tuple[EdgeList, GenStats]:
+    """Run the P-logical-processor PBA program on one device.
+
+    ``device`` defaults to the current CUDA device and raises when there is
+    none; ``device="cpu"`` runs the plain PyTorch path. The exchanges are
+    transposes of the (P, P, ...) block. Bit-identical to the JAX
+    package's ``generate_pba_host`` for the same (cfg, table) and pair
+    capacity. ``topology``, if given, must be ``Topology.host()``.
+    """
+    validate_table(table)
+    if topology is not None and not topology.is_host:
+        raise ValueError(
+            f"generate_pba_host runs the host topology, got {topology.label}")
+    device = spmd.resolve_device(device)
+    num_procs = table.num_procs
+    num_vertices = num_procs * cfg.vertices_per_proc
+    if num_vertices > 2**31 - 1:
+        raise ValueError(
+            f"P * vertices_per_proc = {num_vertices} exceeds the int32 "
+            "vertex-id space")
+    pair_capacity = _derived_pair_capacity(cfg, table, device)
+    procs = torch.from_numpy(table.procs).to(device)
+    s = torch.from_numpy(table.s).to(device)
+    ranks = torch.arange(num_procs, dtype=_I32, device=device)
+
+    u, v, dropped, _, rounds = pba_logical_block(
+        ranks, procs, s, cfg, num_procs, pair_capacity, Topology.host())
+    requested = num_procs * cfg.edges_per_proc
+    return (EdgeList(src=u, dst=v, num_vertices=num_vertices),
+            GenStats(requested_edges=requested,
+                     emitted_edges=requested - dropped,
+                     dropped_edges=dropped, num_vertices=num_vertices,
+                     exchange_rounds=rounds,
+                     pair_capacity=pair_capacity,
+                     fallback_counts=ops.fallback_counts()))

@@ -1,0 +1,128 @@
+"""Gather kernel for PBA urn resolution, grants and receives.
+
+The primitive is ``values = src[clip(idx)]`` along the last axis: one
+pointer-doubling pass (``ptr'[j] = ptr[ptr[j]]``) is the case src == idx,
+the grant and receive lookups are the general case. One CUDA kernel,
+``csrc/gather.cu``, serves every entry point here.
+
+Replaces: the JAX package's ``kernels/edge_resolve.py`` —
+``resolve_step_pallas`` (:87), ``gather_pallas`` (:110) and
+``gather_chunked_pallas`` (:194). Those keep the source in TPU VMEM, whole
+(up to ~2M entries) or in slabs whose partial gathers are summed. On the
+card L2 and device memory serve the whole source, so the kernel has no
+size cap and no slabs; ``gather_chunked`` stays as an entry point so the
+contract can be held at the chunked regime's sizes.
+
+Bound: bytes. A random 4-byte read of ``src`` per output plus a streamed
+read of ``idx`` and a streamed write of ``out``; see the source's note.
+
+Each wrapper runs the plain version (from ``kernels/ref.py``) for a CPU
+tensor, launches the kernel for a CUDA tensor (counting the launch in
+:data:`launches`), and raises on anything the kernel does not take. It
+launches on the current stream, does not synchronise, and allocates its
+output with ``torch.empty``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.dispatch import mode
+# The plain versions the wrappers run for CPU tensors (and the kernel is
+# held against on the card).
+from repro_torch.kernels.ref import gather_ref, resolve_step_ref
+
+#: Kernel launches per wrapper since the last reset (plain integers).
+launches = {"resolve_step": 0, "gather": 0}
+
+_c_fn = None
+
+
+def _fn():
+    global _c_fn
+    if _c_fn is None:
+        lib = _build.library("gather")
+        fn = lib.repro_gather_i32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.repro_gather_error.argtypes = [ctypes.c_int]
+        lib.repro_gather_error.restype = ctypes.c_char_p
+        _c_fn = (fn, lib.repro_gather_error)
+    return _c_fn
+
+
+def _check_operand(name: str, t: torch.Tensor, device) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must lie on {device}, got {t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(src: torch.Tensor, idx: torch.Tensor, rows: int, m: int,
+            n: int, src_stride: int) -> torch.Tensor:
+    _check_operand("src", src, src.device)
+    _check_operand("idx", idx, src.device)
+    if m < 1:
+        raise ValueError("gather from an empty source")
+    out = torch.empty(idx.shape, dtype=torch.int32, device=idx.device)
+    fn, err = _fn()
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, m,
+                  n, src_stride, stream)
+    if code:
+        raise RuntimeError(
+            f"gather kernel launch failed: {err(code).decode()} ({code})")
+    return out
+
+
+def resolve_step(ptr: torch.Tensor) -> torch.Tensor:
+    """One ptr[ptr] pass along the last axis of ptr (m,) or (rows, m).
+
+    Writes a new tensor: the pass must read only the old pointers."""
+    if ptr.ndim not in (1, 2):
+        raise ValueError(f"resolve_step takes (m,) or (rows, m), got "
+                         f"{tuple(ptr.shape)}")
+    if mode(ptr) == "ref":
+        return resolve_step_ref(ptr)
+    rows = 1 if ptr.ndim == 1 else ptr.shape[0]
+    m = ptr.shape[-1]
+    out = _launch(ptr, ptr, rows, m, m, m)
+    launches["resolve_step"] += 1
+    return out
+
+
+def gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values = src[..., clip(idx)] along the last axis.
+
+    Two forms: a 1-D shared source with indices of any rank (the result
+    has idx's shape), or batched rows, src (rows, m) with idx (rows, n).
+    """
+    if src.ndim == 1:
+        flat = idx.reshape(-1)
+        if mode(src) == "ref":
+            return gather_ref(src, flat).reshape(idx.shape)
+        out = _launch(src, flat, 1, src.shape[0], flat.shape[0], 0)
+        launches["gather"] += 1
+        return out.reshape(idx.shape)
+    if src.ndim == 2 and idx.ndim == 2 and src.shape[0] == idx.shape[0]:
+        if mode(src) == "ref":
+            return gather_ref(src, idx)
+        out = _launch(src, idx, src.shape[0], src.shape[1], idx.shape[1],
+                      src.shape[1])
+        launches["gather"] += 1
+        return out
+    raise ValueError(f"gather: unsupported shapes {tuple(src.shape)} / "
+                     f"{tuple(idx.shape)}")
+
+
+def gather_chunked(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The chunked regime's entry point: the same contract and the same
+    kernel as :func:`gather` (its launches count as gather launches)."""
+    return gather(src, idx)

@@ -1,0 +1,105 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs a CUDA device and skips without one. This file
+imports neither JAX nor the JAX package, so it also runs on a GPU machine
+that has only torch: ``PYTHONPATH=src python -m pytest -m cuda
+tests/test_torch_cuda.py``. Integer kernels: equality is exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api
+from repro_torch.kernels import _build, ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _int32(rng, shape, lo, hi, dev):
+    return torch.from_numpy(
+        rng.integers(lo, hi, shape).astype(np.int32)).to(dev)
+
+
+def test_kernels_build(dev):
+    _build.build()
+    for name in _build.SOURCES:
+        assert _build.library_path(name).exists()
+
+
+@pytest.mark.parametrize("rows,m", [(1, 1), (1, 1025), (3, 4097),
+                                    (5, 100_003)])
+def test_resolve_step_matches_plain(dev, rows, m):
+    rng = np.random.default_rng(rows * m)
+    ptr = _int32(rng, (rows, m), 0, m, dev)
+    before = ops.launch_counts()["resolve_step"]
+    got = ops.resolve_step(ptr)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["resolve_step"] == before + 1
+    assert torch.equal(got, ref.resolve_step_ref(ptr))
+    assert torch.equal(ops.resolve_step(ptr[0]), ref.resolve_step_ref(ptr[0]))
+
+
+@pytest.mark.parametrize("m,n", [(1, 7), (999, 1), (70_001, 123_457)])
+def test_gather_forms_match_plain(dev, m, n):
+    rng = np.random.default_rng(m + n)
+    src = _int32(rng, (4, m), -2**31, 2**31 - 1, dev)
+    idx = _int32(rng, (4, n), -9, m + 9, dev)      # both ends clip
+    assert torch.equal(ops.gather(src, idx), ref.gather_ref(src, idx))
+    idx3 = idx.reshape(2, 2, n)
+    got = ops.gather(src[1], idx3)
+    assert got.shape == idx3.shape
+    assert torch.equal(got.reshape(-1),
+                       ref.gather_ref(src[1], idx3.reshape(-1)))
+
+
+@pytest.mark.parametrize("rows,n,nbins", [(1, 1, 1), (3, 5000, 64),
+                                          (2, 300_001, 12_288),
+                                          (2, 70_000, 70_000)])
+def test_histogram_matches_plain(dev, rows, n, nbins):
+    rng = np.random.default_rng(n + nbins)
+    vals = _int32(rng, (rows, n), -2, nbins + 2, dev)
+    assert torch.equal(ops.histogram(vals, nbins),
+                       ref.histogram_ref(vals, nbins))
+    assert torch.equal(ops.histogram(vals[0], nbins),
+                       ref.histogram_ref(vals[0], nbins))
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    t = torch.zeros((4, 6), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        ops.gather(t.long(), t)
+    with pytest.raises(ValueError):
+        ops.gather(t, t.t())               # rows mismatch
+    with pytest.raises(ValueError):
+        ops.gather(t, t[:, ::2])           # non-contiguous indices
+    with pytest.raises(ValueError):
+        ops.gather(t, t.cpu())             # devices differ
+    with pytest.raises(TypeError):
+        ops.histogram(t.long(), 3)
+    with pytest.raises(ValueError):
+        ops.histogram(t[:, ::2], 3)
+
+
+@pytest.mark.parametrize("name,overrides", [
+    ("paper_smoke", dict(vertices_per_proc=500, pair_capacity=128)),
+    ("hub_stress", {}),
+    ("paper_smoke", dict(procs=16, vertices_per_proc=300, exchange_rounds=8,
+                         pair_capacity=64)),
+])
+def test_generate_on_the_card_equals_the_cpu(dev, name, overrides):
+    spec = api.preset(name, **overrides)
+    ops.reset_launch_counts()
+    on_card = api.generate(spec, device=dev)
+    launches = ops.launch_counts()
+    on_cpu = api.generate(spec, device="cpu")
+    assert min(launches.values()) > 0, launches
+    assert torch.equal(on_card.edges.src.cpu(), on_cpu.edges.src)
+    assert torch.equal(on_card.edges.dst.cpu(), on_cpu.edges.dst)
+    assert on_card.stats == on_cpu.stats

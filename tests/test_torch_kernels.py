@@ -1,0 +1,157 @@
+"""The port's plain kernel versions against the JAX package's Pallas
+kernels (interpret mode on the CPU, as the JAX package's own kernel tests
+run them), bit-exact, at the kernel registry's small sizes; plus the
+wrapper dispatch rules. The CUDA kernels themselves are held against the
+plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.kernels.edge_resolve import (BLOCK, gather_chunked_pallas,
+                                        gather_pallas, resolve_step_pallas)
+from repro.kernels.histogram import histogram_pallas
+from repro_torch.kernels import _build, dispatch, edge_resolve, ops, ref
+from repro_torch.kernels import histogram as thist
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers per machine; torch's intra-op thread
+    pool then oversubscribes the cores (a 10^5-word draw went from 0.3 s
+    to 30 s). One thread per worker keeps the CPU path's time stable."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _pair(a):
+    """The same int32 array for both packages."""
+    return jnp.asarray(a), torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("m", [1, 127, 1000, 4097])
+def test_resolve_step_matches_pallas(m):
+    rng = np.random.default_rng(1000 + m)
+    pj, pt = _pair(rng.integers(0, m, m).astype(np.int32))
+    want = np.asarray(resolve_step_pallas(pj, interpret=True))
+    np.testing.assert_array_equal(ref.resolve_step_ref(pt).numpy(), want)
+    np.testing.assert_array_equal(ops.resolve_step(pt).numpy(), want)
+
+
+@pytest.mark.parametrize("m,n", [(1, 5), (300, 2048), (4097, 1500)])
+def test_gather_matches_pallas(m, n):
+    rng = np.random.default_rng(m * 7 + n)
+    sj, st = _pair(rng.integers(-2**31, 2**31 - 1, m).astype(np.int32))
+    # indices past both ends exercise the clip contract
+    ij, it = _pair(rng.integers(-5, m + 5, n).astype(np.int32))
+    want = np.asarray(gather_pallas(sj, ij, interpret=True))
+    np.testing.assert_array_equal(ref.gather_ref(st, it).numpy(), want)
+    np.testing.assert_array_equal(ops.gather(st, it).numpy(), want)
+
+
+@pytest.mark.parametrize("m,n", [(4097, 4097), (3000, 777)])
+def test_gather_chunked_multi_slab_matches_pallas(m, n):
+    """Forced tiny slabs run the JAX package's multi-slab path."""
+    rng = np.random.default_rng(m + n)
+    sj, st = _pair(rng.integers(0, 2**30, m).astype(np.int32))
+    ij, it = _pair(rng.integers(-3, m + 3, n).astype(np.int32))
+    want = np.asarray(gather_chunked_pallas(sj, ij, slab=BLOCK,
+                                            dst_block=BLOCK, interpret=True))
+    np.testing.assert_array_equal(
+        edge_resolve.gather_chunked(st, it).numpy(), want)
+
+
+def test_gather_rows_and_any_rank_forms():
+    """Batched rows equal a per-row Pallas gather; a 1-D source with 3-D
+    indices equals one flattened Pallas gather."""
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, 10**6, (3, 500)).astype(np.int32)
+    idx = rng.integers(-2, 502, (3, 700)).astype(np.int32)
+    want = np.stack([np.asarray(gather_pallas(jnp.asarray(s), jnp.asarray(i),
+                                              interpret=True))
+                     for s, i in zip(src, idx)])
+    got = ops.gather(torch.from_numpy(src), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    idx3 = rng.integers(0, 500, (4, 5, 6)).astype(np.int32)
+    want3 = np.asarray(gather_pallas(jnp.asarray(src[0]),
+                                     jnp.asarray(idx3.reshape(-1)),
+                                     interpret=True)).reshape(idx3.shape)
+    got3 = ops.gather(torch.from_numpy(src[0]), torch.from_numpy(idx3))
+    assert got3.shape == idx3.shape
+    np.testing.assert_array_equal(got3.numpy(), want3)
+
+
+@pytest.mark.parametrize("m,nbins", [(1, 1), (2048, 512), (5003, 700),
+                                     (8192, 1537)])
+def test_histogram_matches_pallas(m, nbins):
+    rng = np.random.default_rng(m * 31 + nbins)
+    # -1 and past-the-end values must be ignored, as the census relies on
+    vals = rng.integers(-1, nbins + 3, m).astype(np.int32)
+    vj, vt = _pair(vals)
+    want = np.asarray(histogram_pallas(vj, nbins, interpret=True))
+    np.testing.assert_array_equal(ref.histogram_ref(vt, nbins).numpy(), want)
+    np.testing.assert_array_equal(ops.histogram(vt, nbins).numpy(), want)
+
+
+def test_histogram_rows():
+    rng = np.random.default_rng(11)
+    vals = rng.integers(-1, 70, (4, 3000)).astype(np.int32)
+    want = np.stack([np.asarray(histogram_pallas(jnp.asarray(r), 64,
+                                                 interpret=True))
+                     for r in vals])
+    got = ops.histogram(torch.from_numpy(vals), 64)
+    assert got.dtype == torch.int32 and got.shape == (4, 64)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    ops.reset_launch_counts()
+    t = torch.arange(10, dtype=torch.int32)
+    ops.resolve_step(t)
+    ops.gather(t, t)
+    ops.histogram(t, 4)
+    assert ops.launch_counts() == {"resolve_step": 0, "gather": 0,
+                                   "histogram": 0}
+    assert ops.fallback_counts() == {}
+
+
+def test_dispatch_modes():
+    t = torch.zeros(3, dtype=torch.int32)
+    assert dispatch.mode(t) == "ref"
+    with dispatch.forced_mode("ref"):
+        assert dispatch.mode(t) == "ref"
+    with pytest.raises(ValueError):
+        with dispatch.forced_mode("cuda"):
+            pass
+    with pytest.raises(ValueError):
+        dispatch.mode(torch.zeros(3, device="meta"))
+
+
+def test_wrappers_reject_bad_shapes():
+    t = torch.zeros((2, 3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        thist.histogram(t, 4)
+    with pytest.raises(ValueError):
+        thist.histogram(t[0], 0)
+    with pytest.raises(ValueError):
+        ops.gather(t[0], t[1, :1])
+    with pytest.raises(ValueError):
+        ops.resolve_step(t)
+
+
+def test_build_paths_are_content_hashed_and_ignored(monkeypatch):
+    for name in _build.SOURCES:
+        p = _build.library_path(name)
+        assert p.parent == _build.BUILD_DIR and p.name.startswith(f"lib{name}_")
+        assert (_build.CSRC / f"{name}.cu").exists()
+    assert _build.library_path("gather") != _build.library_path("histogram")
+    gitignore = (_build.CSRC.parents[3] / ".gitignore").read_text()
+    assert "src/repro_torch/kernels/build/" in gitignore.split()
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", str(_build.CSRC / "no_such_toolkit"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc()

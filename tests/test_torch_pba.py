@@ -1,0 +1,152 @@
+"""repro_torch PBA on the host topology against repro.core.pba, bit-exact
+(tolerance 0): the generator end to end with ``pair_capacity`` pinned,
+and its stages one by one. Both packages get the same faction table and
+config; the port runs its plain path on the CPU.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import api as japi
+from repro.core import pba as jpba
+from repro.runtime import streaming as jstreaming
+from repro_torch import convert
+from repro_torch.core import pba as tpba
+from repro_torch.runtime import streaming as tstreaming
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers per machine; torch's intra-op thread
+    pool then oversubscribes the cores (a 10^5-word draw went from 0.3 s
+    to 30 s). One thread per worker keeps the CPU path's time stable."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _pinned(name, **overrides):
+    """(JAX config, table) and the port's, for a preset with the
+    reference-derived pair capacity pinned."""
+    pl = japi.plan(japi.preset(name, **overrides))
+    cfg = dataclasses.replace(pl.config, pair_capacity=pl.pair_capacity)
+    tcfg = convert.pba_config_from_fields(dataclasses.asdict(cfg))
+    ttab = convert.faction_table_from_numpy(pl.table.procs, pl.table.s,
+                                            pl.table.factions)
+    return cfg, pl.table, tcfg, ttab
+
+
+@pytest.mark.parametrize("name,overrides", [
+    ("paper_smoke", {}),                                  # single-shot
+    ("hub_stress", {}),                                   # streamed, R=4
+    ("paper_smoke", dict(procs=16, vertices_per_proc=500,  # streamed, R=8
+                         exchange_rounds=8, pair_capacity=64)),
+], ids=["paper_smoke", "hub_stress", "p16_r8"])
+def test_generate_pba_host_matches_reference(name, overrides):
+    cfg, table, tcfg, ttab = _pinned(name, **overrides)
+    je, js = jpba.generate_pba_host(cfg, table)
+    te, ts = tpba.generate_pba_host(tcfg, ttab, device="cpu")
+    np.testing.assert_array_equal(te.src.numpy(), np.asarray(je.src))
+    np.testing.assert_array_equal(te.dst.numpy(), np.asarray(je.dst))
+    assert te.src.dtype == te.dst.dtype == torch.int32
+    for field in ("requested_edges", "emitted_edges", "dropped_edges",
+                  "num_vertices", "exchange_rounds", "pair_capacity"):
+        assert getattr(ts, field) == getattr(js, field), field
+    assert ts.fallback_counts == {}
+    if overrides.get("exchange_rounds") or name == "hub_stress":
+        assert ts.exchange_rounds > 1 and ts.dropped_edges == 0
+
+
+def test_occurrence_rank_matches_reference():
+    rng = np.random.default_rng(3)
+    a = rng.integers(-1, 9, (4, 5000)).astype(np.int32)
+    want = np.asarray(jax.vmap(jpba.occurrence_rank)(jnp.asarray(a)))
+    got = tpba.occurrence_rank(torch.from_numpy(a))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_resolve_pointers_matches_reference():
+    """Batched rows with different chain depths: the shared round counter
+    must not disturb rows that resolved early."""
+    rng = np.random.default_rng(4)
+    m = 6000
+    j = np.arange(m)
+    terminal = np.zeros((3, m), bool)
+    terminal[:, 0] = True
+    terminal[0, rng.random(m) < 0.5] = True      # shallow chains
+    terminal[2, rng.random(m) < 0.01] = True
+    ptr = np.where(terminal, j, rng.integers(0, np.maximum(j, 1))
+                   ).astype(np.int32)
+    want = np.asarray(jax.vmap(jpba.resolve_pointers)(
+        jnp.asarray(ptr), jnp.asarray(terminal)))
+    got = tpba.resolve_pointers(torch.from_numpy(ptr),
+                                torch.from_numpy(terminal))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert terminal[np.arange(3)[:, None], got.numpy()].all()
+
+
+def test_phase1_and_pool_match_reference():
+    cfg, table, tcfg, ttab = _pinned("paper_smoke", vertices_per_proc=700)
+    p = table.num_procs
+    ranks = torch.arange(p, dtype=torch.int32)
+    a, counts = tpba._phase1(ranks, torch.from_numpy(ttab.procs),
+                             torch.from_numpy(ttab.s), tcfg, p)
+    pool = tpba._phase2_pool(ranks, tcfg)
+    phase1 = jax.jit(jpba._phase1, static_argnums=(3, 4))
+    phase2_pool = jax.jit(jpba._phase2_pool, static_argnums=(1,))
+    for r in range(p):
+        ja, jc = phase1(jnp.int32(r), jnp.asarray(table.procs[r]),
+                        jnp.int32(table.s[r]), cfg, p)
+        np.testing.assert_array_equal(a[r].numpy(), np.asarray(ja))
+        np.testing.assert_array_equal(counts[r].numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(
+            pool[r].numpy(), np.asarray(phase2_pool(jnp.int32(r), cfg)))
+
+
+@pytest.mark.parametrize("e,min_s,procs,rounds,mem", [
+    (8000, 3, 0, None, None), (20, 1, 4, None, 1 << 20),
+    (5_000_000, 33, 64, 8, 8 << 30), (5_000_000, 33, 64, 8, 80 << 30),
+    (100, 2, 1000, 4, 1 << 16), (40, 1, 1000, None, 1 << 12)])
+def test_default_pair_capacity_matches_reference(e, min_s, procs, rounds,
+                                                 mem):
+    assert tpba.default_pair_capacity(e, min_s, procs, rounds, mem) == \
+        jpba.default_pair_capacity(e, min_s, procs, rounds, mem)
+
+
+def test_cpu_pair_capacity_probe_matches_reference():
+    """On the CPU both packages budget the same fixed device memory."""
+    assert tpba.default_pair_capacity(5_000_000, 33, 64, 8, device=CPU) == \
+        jpba.default_pair_capacity(5_000_000, 33, 64, 8)
+
+
+def test_streaming_round_math_matches_reference():
+    rng = np.random.default_rng(9)
+    counts = rng.integers(0, 300, (5, 5)).astype(np.int32)
+    for r in range(6):
+        np.testing.assert_array_equal(
+            tstreaming.round_window(torch.from_numpy(counts), r, 64).numpy(),
+            np.asarray(jstreaming.round_window(jnp.asarray(counts), r, 64)))
+        np.testing.assert_array_equal(
+            tstreaming.residual_counts(torch.from_numpy(counts), r,
+                                       64).numpy(),
+            np.asarray(jstreaming.residual_counts(jnp.asarray(counts), r,
+                                                  64)))
+    for total, rounds in [(1, 1), (17, 4), (262144, 8)]:
+        assert tstreaming.round_capacity(total, rounds) == \
+            jstreaming.round_capacity(total, rounds)
+        assert tstreaming.rounds_needed(5_000_000, rounds) == \
+            jstreaming.rounds_needed(5_000_000, rounds)
+
+
+def test_host_rejects_device_topology():
+    from repro_torch.runtime.topology import Topology
+    _, _, tcfg, ttab = _pinned("paper_smoke", vertices_per_proc=10)
+    with pytest.raises(ValueError, match="host topology"):
+        tpba.generate_pba_host(tcfg, ttab, Topology.flat(2), device="cpu")
