@@ -14,7 +14,9 @@ plain PyTorch path on the CPU. The device is a keyword, not a spec field:
 every field of a spec is part of its digest.
 
 Ported so far: ``model="pba"`` with ``execution="host"`` (P logical
-processors on one device) into memory. Everything else raises
+processors on one device) and ``execution="streamed"`` (the host-driven
+stream, or the device-resident stream on ``Topology.flat(1)``), into
+memory or into resumable shards. Everything else raises
 ``NotImplementedError`` naming the ROADMAP item that will port it.
 """
 from __future__ import annotations
@@ -26,6 +28,8 @@ import torch
 
 from repro_torch.core import factions as factions_lib
 from repro_torch.core import pba as pba_lib
+from repro_torch.core import storage as storage_lib
+from repro_torch.core import stream as stream_lib
 from repro_torch.core.factions import FactionSpec, FactionTable, validate_table
 from repro_torch.core.graph import EdgeList, GenStats
 from repro_torch.core.pba import PBAConfig
@@ -41,10 +45,7 @@ _NOT_PORTED = {
     "ba_cfree": "ROADMAP Queue 1 item 10 (communication-free family)",
     "rmat": "ROADMAP Queue 1 item 10 (communication-free family)",
     "er": "ROADMAP Queue 1 item 10 (communication-free family)",
-    "streamed": "ROADMAP Queue 1 items 6 and 8 (streams and the "
-                "device-resident streamed round)",
     "sharded": "ROADMAP Queue 1 item 9 (multi-GPU)",
-    "shards": "ROADMAP Queue 1 item 6 (streams and storage)",
 }
 
 
@@ -66,7 +67,7 @@ class GenPlan:
 
     spec: GraphSpec
     model: str
-    execution: str              # resolved: host
+    execution: str              # resolved: host | streamed
     sink: str
     executor: str               # internal entry point the plan dispatches to
     topology: Topology
@@ -84,14 +85,14 @@ class GenPlan:
     config: PBAConfig
     table: Optional[FactionTable] = None
     seed_graph: None = None
-    block_bytes: int = 0
-    overlap_bytes: int = 0
+    block_bytes: int = 0        # streamed: per-round gathered block
+    overlap_bytes: int = 0      # streamed: extra in-flight double-buffer
     device: Optional[torch.device] = None
 
     def describe(self) -> str:
         """Human-readable resolved plan."""
         d = self.topology.num_devices
-        return "\n".join([
+        lines = [
             f"GraphSpec[{self.model}] seed={self.config.seed} -> "
             f"{self.num_vertices:,} vertices, "
             f"{self.requested_edges:,} edges",
@@ -102,19 +103,32 @@ class GenPlan:
             f"  exchange:  pair_capacity={self.pair_capacity}, "
             f"rounds={self.exchange_rounds}, C_r={self.round_capacity}, "
             f"urn_budget={self.urn_budget}",
+        ]
+        if self.execution == "streamed":
+            lines.append(
+                f"  stream:    block ~{_fmt_bytes(self.block_bytes)}/round"
+                + (f", overlap buffer ~{_fmt_bytes(self.overlap_bytes)}"
+                   if self.overlap_bytes else ", overlap off"))
+        lines.append(
             f"  bytes:     device ~{_fmt_bytes(self.device_bytes)}, "
             f"host ~{_fmt_bytes(self.host_bytes)}, "
-            f"disk ~{_fmt_bytes(self.disk_bytes)}",
-        ])
+            f"disk ~{_fmt_bytes(self.disk_bytes)}")
+        return "\n".join(lines)
 
 
 @dataclasses.dataclass
 class GenResult:
-    """What ``generate`` returns: the plan it ran, stats and the edges."""
+    """What ``generate`` returns: the plan it ran, stats, and the sink's
+    product -- an in-memory :class:`EdgeList` and/or a shard manifest.
+    ``stream_meta`` is the stream's meta (streamed execution: the dict a
+    shard manifest records, with the run's ``urn_budget``)."""
 
     plan: GenPlan
     stats: GenStats
-    edges: EdgeList
+    edges: Optional[EdgeList] = None
+    manifest: Optional[dict] = None
+    out_dir: Optional[str] = None
+    stream_meta: Optional[dict] = None
 
 
 def _fmt_bytes(n: int) -> str:
@@ -155,10 +169,6 @@ def _resolve_factions(spec: GraphSpec) -> FactionTable:
     return table
 
 
-def _device_count(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
 def _resolve_execution(spec: GraphSpec, divisible: bool,
                        device: torch.device) -> str:
     """Pick the execution path for ``auto`` as the JAX package does; raise
@@ -174,7 +184,7 @@ def _resolve_execution(spec: GraphSpec, divisible: bool,
             ex = "host"
         else:
             d = topo.num_devices if topo is not None \
-                else _device_count(device)
+                else spmd.device_count(device)
             ex = "sharded" if d > 1 and divisible else "host"
     if ex == "host" and topo is not None and not topo.is_host:
         raise ValueError(
@@ -184,9 +194,32 @@ def _resolve_execution(spec: GraphSpec, divisible: bool,
         raise ValueError(
             "sharded execution needs a device topology, got "
             "Topology.host(); use execution='host'")
-    if ex != "host":
+    if ex == "sharded":
         raise _not_ported(f"execution={ex!r}", ex)
     return ex
+
+
+def _streamed_pba_topology(spec: GraphSpec, num_procs: int,
+                           device: torch.device
+                           ) -> tuple[Topology, int, str]:
+    """(topology, lp, executor) for a streamed PBA plan, resolved as the
+    JAX package resolves it: the device stream whenever a device topology
+    is usable (an explicit one, or D > 1 present devices that P divides),
+    the host-driven stream otherwise and for ``Topology.host()``. Device
+    topologies of more than one device raise (not ported yet)."""
+    topo = spec.topology
+    if topo is not None:
+        if topo.is_host:
+            return Topology.host(), num_procs, "pba_stream"
+    else:
+        d = spmd.device_count(device)
+        if not (d > 1 and num_procs % d == 0):
+            return Topology.host(), num_procs, "pba_stream"
+        topo = Topology.flat(d)
+    if topo.num_devices != 1:
+        raise _not_ported(f"streamed execution over {topo.label}",
+                          "sharded")
+    return topo, topo.lp(num_procs), "pba_stream_sharded"
 
 
 def _plan_pba(spec: GraphSpec, device: torch.device) -> GenPlan:
@@ -206,10 +239,12 @@ def _plan_pba(spec: GraphSpec, device: torch.device) -> GenPlan:
                     seed=spec.seed)
     p = spec.procs
     execution = _resolve_execution(
-        spec, divisible=p % _device_count(device) == 0
+        spec, divisible=p % spmd.device_count(device) == 0
         if spec.topology is None else True, device=device)
-    if spec.sink == "shards":
-        raise _not_ported("sink='shards'", "shards")
+    if execution == "streamed":
+        topo, lp, executor = _streamed_pba_topology(spec, p, device)
+    else:
+        topo, lp, executor = Topology.host(), p, "generate_pba_host"
 
     pair_capacity = pba_lib._derived_pair_capacity(cfg, table, device)
     rounds = cfg.exchange_rounds or 1
@@ -219,16 +254,44 @@ def _plan_pba(spec: GraphSpec, device: torch.device) -> GenPlan:
     requested = p * e
     # Rough working sets (int32 everywhere), as the JAX package counts
     # them: edges, counts, one round buffer and the pool per processor.
+    # Streamed auto_capacity pools are demand-sized at run time; the
+    # static budget stands in here (plan() never runs phase 1).
     per_proc = 4 * (4 * e + p + p * c_r + (e + t_cap))
+    block_bytes = overlap_bytes = 0
+    if execution == "streamed":
+        block_cap = pba_lib.stream_block_capacity(e, p, c_r)
+        block_bytes = 8 * p * block_cap  # gathered (u, v) block per round
+        if executor == "pba_stream_sharded":
+            # Resident per device: tags + ranks (2E), pool (E + t_cap),
+            # demand row (P), the round's emit and receive buffers and
+            # the compacted block, per logical proc, times lp.
+            device_bytes = 4 * lp * (3 * e + t_cap + p + 2 * p * c_r
+                                     + 2 * block_cap)
+            host_bytes = block_bytes
+            if spec.overlap:
+                # A second block in flight: its device output plus the
+                # host copy being written back.
+                overlap_bytes = 2 * block_bytes
+                host_bytes += block_bytes
+        else:
+            # Host-driven: phase 1 over all P on the device, one pool at a
+            # time; the host keeps O(edges) tags, ranks and pools.
+            device_bytes = 4 * (2 * p * e + p * p) + 4 * (e + t_cap)
+            host_bytes = 4 * 4 * p * e
+    else:
+        device_bytes = lp * per_proc
+        host_bytes = 8 * requested if spec.sink == "memory" else 0
+    disk_bytes = 8 * requested if spec.sink == "shards" else 0
     return GenPlan(spec=spec, model="pba", execution=execution,
-                   sink=spec.sink, executor="generate_pba_host",
-                   topology=Topology.host(), num_procs=p, lp=p,
+                   sink=spec.sink, executor=executor, topology=topo,
+                   num_procs=p, lp=lp,
                    num_vertices=p * cfg.vertices_per_proc,
                    requested_edges=requested, pair_capacity=pair_capacity,
                    exchange_rounds=rounds, round_capacity=c_r,
-                   urn_budget=t_cap, device_bytes=p * per_proc,
-                   host_bytes=8 * requested, disk_bytes=0,
-                   config=cfg, table=table, device=device)
+                   urn_budget=t_cap, device_bytes=device_bytes,
+                   host_bytes=host_bytes, disk_bytes=disk_bytes,
+                   config=cfg, table=table, block_bytes=block_bytes,
+                   overlap_bytes=overlap_bytes, device=device)
 
 
 def plan(spec: GraphSpec, *, device=None) -> GenPlan:
@@ -253,6 +316,46 @@ def plan(spec: GraphSpec, *, device=None) -> GenPlan:
 
 # --- generate -----------------------------------------------------------------
 
+def _edges_from_stream(stream, device: torch.device, overlap: bool = True
+                       ) -> tuple[EdgeList, GenStats]:
+    """Drain a stream's blocks into one EdgeList on ``device`` + stats.
+
+    The device stream is drained double-buffered (block i+1's round in
+    flight while block i is gathered), and its blocks stay on the device;
+    the host-driven stream's numpy blocks are copied there once."""
+    srcs, dsts = [], []
+    if hasattr(stream, "dispatch_block"):
+        def gather(i, handle):
+            src, dst = stream.gather_block_on_device(handle)
+            srcs.append(src)
+            dsts.append(dst)
+
+        streaming.drive_rounds(range(stream.num_blocks),
+                               stream.dispatch_block, gather,
+                               overlap=overlap)
+    else:
+        for block in stream.iter_blocks():
+            srcs.append(torch.from_numpy(block.src))
+            dsts.append(torch.from_numpy(block.dst))
+    empty = torch.empty(0, dtype=torch.int32)
+    src = (torch.cat(srcs) if srcs else empty).to(device)
+    del srcs
+    dst = (torch.cat(dsts) if dsts else empty).to(device)
+    del dsts
+    edges = EdgeList(src=src, dst=dst, num_vertices=stream.num_vertices)
+    return edges, stream_lib.stream_stats(stream, int(src.numel()))
+
+
+def _make_stream(pl: GenPlan):
+    if pl.executor == "pba_stream_sharded":
+        return stream_lib.PBAShardedStream(
+            pl.config, pl.table, topology=pl.topology,
+            auto_capacity=pl.spec.auto_capacity, device=pl.device)
+    return stream_lib.PBAStream(pl.config, pl.table,
+                                auto_capacity=pl.spec.auto_capacity,
+                                device=pl.device)
+
+
 def generate(plan_or_spec: Union[GenPlan, GraphSpec], *,
              device=None) -> GenResult:
     """Execute a plan (or plan a spec for ``device`` and execute it).
@@ -269,9 +372,30 @@ def generate(plan_or_spec: Union[GenPlan, GraphSpec], *,
                 "spec again for that device")
     else:
         pl = plan(plan_or_spec, device=device)
+    spec = pl.spec
+
+    if pl.execution == "streamed":
+        stream = _make_stream(pl)
+        if pl.sink == "shards":
+            manifest, stats = stream_lib.stream_to_shards(
+                stream, spec.out_dir, overlap=spec.overlap)
+            return GenResult(plan=pl, stats=stats, manifest=manifest,
+                             out_dir=spec.out_dir,
+                             stream_meta=stream.meta())
+        edges, stats = _edges_from_stream(stream, pl.device,
+                                          overlap=spec.overlap)
+        return GenResult(plan=pl, stats=stats, edges=edges,
+                         stream_meta=stream.meta())
+
     edges, stats = pba_lib.generate_pba_host(pl.config, pl.table,
                                              device=pl.device)
-    return GenResult(plan=pl, stats=stats, edges=edges)
+    result = GenResult(plan=pl, stats=stats, edges=edges)
+    if pl.sink == "shards":
+        result.manifest = storage_lib.write_shards(
+            edges.flat(), spec.out_dir, num_shards=spec.num_shards,
+            meta={"spec_digest": spec.digest()})
+        result.out_dir = spec.out_dir
+    return result
 
 
 # --- presets ------------------------------------------------------------------

@@ -26,6 +26,11 @@ class EdgeList:
     dst: torch.Tensor
     num_vertices: int
 
+    def flat(self) -> "EdgeList":
+        """The same edges as 1-D tensors."""
+        return EdgeList(self.src.reshape(-1), self.dst.reshape(-1),
+                        self.num_vertices)
+
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray]:
         """Host-side compacted (src, dst) with invalid slots removed."""
         s = self.src.reshape(-1).cpu().numpy()

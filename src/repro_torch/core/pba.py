@@ -1,5 +1,6 @@
 """Parallel Barabási–Albert (PBA) generator: two-phase preferential
-attachment, on the host topology (P logical processors on one device).
+attachment, with P logical processors on one device (the host topology,
+and the device stream's setup and rounds on ``Topology.flat(1)``).
 
 The JAX package's ``core/pba.py`` in torch, bit-identical to it for the
 same config, faction table and pair capacity:
@@ -342,6 +343,67 @@ def _streamed_exchange2(a, occ, counts, recv_counts, ranks, cfg: PBAConfig,
     granted = torch.minimum(served, t_cap - offsets).clamp(min=0) \
         .sum(1, dtype=_I32)
     return v, granted, rounds
+
+
+def pba_stream_setup_block(ranks: torch.Tensor, procs_blk: torch.Tensor,
+                           s_blk: torch.Tensor, cfg: PBAConfig,
+                           num_procs: int, topo: Topology):
+    """A device's block of the device stream's setup: phase 1 and
+    exchange 1, run once per generation.
+
+    Returns (a (lp, E) processor tags, occ (lp, E) request ranks,
+    recv_counts (lp, P) provider-side demand), which stay resident on the
+    device across rounds (:func:`pba_stream_round_block`).
+    """
+    a, counts = _phase1(ranks, procs_blk, s_blk, cfg, num_procs)
+    recv_counts = blocking.transpose_counts(counts, topo)
+    return a, occurrence_rank(a), recv_counts
+
+
+def pba_stream_round_block(r: int, a: torch.Tensor, occ: torch.Tensor,
+                           recv_counts: torch.Tensor, pool: torch.Tensor,
+                           ranks: torch.Tensor, cfg: PBAConfig,
+                           num_procs: int, round_cap: int, urn_budget: int,
+                           block_cap: int, topo: Topology):
+    """Round ``r`` of the device stream's exchange 2.
+
+    The round contract of :func:`_streamed_exchange2`, unrolled so a host
+    driver can interleave rounds with write-back: grant request ranks
+    [r*C_r, (r+1)*C_r) of every pair from the resident pool (the gather
+    kernel), route the (lp, P, C_r) buffer through the blocked transpose,
+    look the band up in it (the gather kernel), count the band per
+    provider (the histogram kernel) and move the band to the front of
+    each row (the band-compaction kernel). Returns (u, v) of shape
+    (lp, block_cap), -1 marking padding (and, in ``v``, urn-exhausted
+    grants), and counts (lp, P): this round's per-provider band sizes,
+    which the host checks against the compacted block.
+    """
+    lp = a.shape[0]
+    e_local = cfg.edges_per_proc
+    out = _grant_round(pool, recv_counts, r, round_cap, e_local, urn_budget)
+    recv = blocking.transpose_payload(out, topo)
+    del out
+    band = (occ >= r * round_cap) & (occ < (r + 1) * round_cap)
+    idx = a * round_cap + (occ - r * round_cap).clamp(0, round_cap - 1)
+    vals = ops.gather(recv.reshape(lp, num_procs * round_cap), idx)
+    del recv, idx
+    v = torch.where(band, vals, -1)
+    del vals
+    j = torch.arange(e_local, dtype=_I32, device=a.device)
+    u = (ranks[:, None] * cfg.vertices_per_proc
+         + torch.div(j, cfg.edges_per_vertex, rounding_mode="floor")[None])
+    u = torch.where(band, u, -1)
+    counts = ops.histogram(torch.where(band, a, -1), num_procs)
+    u, v = ops.band_compact(u, v, band, block_cap)
+    return u, v, counts
+
+
+def stream_block_capacity(edges_per_proc: int, num_procs: int,
+                          round_cap: int) -> int:
+    """Static per-proc bound on a round's band size: each (requester,
+    provider) pair contributes at most C_r request ranks per round, and a
+    processor never has more than E edges in total."""
+    return min(edges_per_proc, num_procs * round_cap)
 
 
 def _derived_pair_capacity(cfg: PBAConfig, table: FactionTable,

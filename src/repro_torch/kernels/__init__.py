@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
 ``ops.py`` holds the entry points the generators call, ``ref.py`` the
-plain versions, ``edge_resolve.py`` and ``histogram.py`` the wrappers of
-the CUDA sources in ``csrc/``, built on first use by ``_build.py``.
+plain versions, ``edge_resolve.py``, ``histogram.py`` and
+``band_compact.py`` the wrappers of the CUDA sources in ``csrc/``, built
+on first use by ``_build.py``.
 """

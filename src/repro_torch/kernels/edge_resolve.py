@@ -10,8 +10,10 @@ Replaces: the JAX package's ``kernels/edge_resolve.py`` —
 ``gather_chunked_pallas`` (:194). Those keep the source in TPU VMEM, whole
 (up to ~2M entries) or in slabs whose partial gathers are summed. On the
 card L2 and device memory serve the whole source, so the kernel has no
-size cap and no slabs; ``gather_chunked`` stays as an entry point so the
-contract can be held at the chunked regime's sizes.
+size cap and no slabs. ``gather_chunked`` stays as an entry point with
+its own launch count: ``ops.gather`` sends it the sources whose rows hold
+``CHUNKED_MIN_ENTRIES`` or more (the grant lookups into the phase-2
+pools), where the TPU kernel would have swept slabs.
 
 Bound: bytes. A random 4-byte read of ``src`` per output plus a streamed
 read of ``idx`` and a streamed write of ``out``; see the source's note.
@@ -35,7 +37,11 @@ from repro_torch.kernels.dispatch import mode
 from repro_torch.kernels.ref import gather_ref, resolve_step_ref
 
 #: Kernel launches per wrapper since the last reset (plain integers).
-launches = {"resolve_step": 0, "gather": 0}
+launches = {"resolve_step": 0, "gather": 0, "gather_chunked": 0}
+
+#: Source rows of this many entries or more (32 MiB of int32, a large
+#: share of the card's 50 MB L2) go to :func:`gather_chunked`.
+CHUNKED_MIN_ENTRIES = 1 << 23
 
 _c_fn = None
 
@@ -98,31 +104,39 @@ def resolve_step(ptr: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """values = src[..., clip(idx)] along the last axis.
-
-    Two forms: a 1-D shared source with indices of any rank (the result
-    has idx's shape), or batched rows, src (rows, m) with idx (rows, n).
-    """
+def _gather(src: torch.Tensor, idx: torch.Tensor, name: str
+            ) -> torch.Tensor:
+    """The gather contract for both entry points; a launch counts under
+    ``name``."""
     if src.ndim == 1:
         flat = idx.reshape(-1)
         if mode(src) == "ref":
             return gather_ref(src, flat).reshape(idx.shape)
         out = _launch(src, flat, 1, src.shape[0], flat.shape[0], 0)
-        launches["gather"] += 1
+        launches[name] += 1
         return out.reshape(idx.shape)
     if src.ndim == 2 and idx.ndim == 2 and src.shape[0] == idx.shape[0]:
         if mode(src) == "ref":
             return gather_ref(src, idx)
         out = _launch(src, idx, src.shape[0], src.shape[1], idx.shape[1],
                       src.shape[1])
-        launches["gather"] += 1
+        launches[name] += 1
         return out
     raise ValueError(f"gather: unsupported shapes {tuple(src.shape)} / "
                      f"{tuple(idx.shape)}")
 
 
+def gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values = src[..., clip(idx)] along the last axis.
+
+    Two forms: a 1-D shared source with indices of any rank (the result
+    has idx's shape), or batched rows, src (rows, m) with idx (rows, n).
+    """
+    return _gather(src, idx, "gather")
+
+
 def gather_chunked(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The chunked regime's entry point: the same contract and the same
-    kernel as :func:`gather` (its launches count as gather launches)."""
-    return gather(src, idx)
+    """The chunked regime's entry point (sources past the TPU's resident
+    bound): the same contract and the same kernel as :func:`gather`, with
+    its own launch count."""
+    return _gather(src, idx, "gather_chunked")

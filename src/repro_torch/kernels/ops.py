@@ -11,8 +11,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import band_compact as _band_compact
 from repro_torch.kernels import edge_resolve
 from repro_torch.kernels import histogram as _histogram
+
+_COUNTERS = (edge_resolve.launches, _histogram.launches,
+             _band_compact.launches)
 
 #: Kernel-fallback counters, keyed like the JAX package's. Never written.
 FALLBACK_EVENTS: dict[str, int] = {}
@@ -25,11 +29,11 @@ def fallback_counts() -> dict[str, int]:
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {**edge_resolve.launches, **_histogram.launches}
+    return {name: n for table in _COUNTERS for name, n in table.items()}
 
 
 def reset_launch_counts() -> None:
-    for table in (edge_resolve.launches, _histogram.launches):
+    for table in _COUNTERS:
         for name in table:
             table[name] = 0
 
@@ -41,10 +45,22 @@ def resolve_step(ptr: torch.Tensor) -> torch.Tensor:
 
 def gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """values = src[..., clip(idx)] along the last axis: a 1-D shared
-    source with any-rank indices, or batched rows (r, m) with (r, n)."""
+    source with any-rank indices, or batched rows (r, m) with (r, n).
+    Source rows of ``CHUNKED_MIN_ENTRIES`` or more go through the chunked
+    entry point, as the JAX package's sources past its resident bound do
+    (the same kernel here)."""
+    if src.shape[-1] >= edge_resolve.CHUNKED_MIN_ENTRIES:
+        return edge_resolve.gather_chunked(src, idx)
     return edge_resolve.gather(src, idx)
 
 
 def histogram(values: torch.Tensor, num_bins: int) -> torch.Tensor:
     """Bincount into [0, num_bins), out-of-range ignored, per row."""
     return _histogram.histogram(values, num_bins)
+
+
+def band_compact(u: torch.Tensor, v: torch.Tensor, band: torch.Tensor,
+                 block_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row, the band-selected (u, v) pairs stably at the front, -1
+    elsewhere, truncated to ``block_cap`` columns."""
+    return _band_compact.band_compact(u, v, band, block_cap)

@@ -39,3 +39,19 @@ def histogram_ref(values: torch.Tensor, num_bins: int) -> torch.Tensor:
     counts.scatter_add_(1, v, torch.ones_like(v, dtype=torch.int32))
     return counts[0, :num_bins] if values.ndim == 1 \
         else counts[:, :num_bins]
+
+
+def band_compact_ref(u: torch.Tensor, v: torch.Tensor, band: torch.Tensor,
+                     block_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable band compaction per row of (rows, e) int32 ``u``, ``v`` and
+    bool ``band``: band entries move to the front in index order,
+    everything else is -1, truncated to ``block_cap`` columns (fewer when
+    e < block_cap). The key/argsort/take sequence of the JAX package's
+    oracle; keys are unique, so the argsort needs no stability."""
+    e = u.shape[-1]
+    j = torch.arange(e, dtype=torch.int64, device=u.device)
+    order = torch.argsort(torch.where(band, j, e + j), dim=-1)
+    order = order[..., :block_cap]
+    uu = torch.gather(torch.where(band, u, -1), -1, order)
+    vv = torch.gather(torch.where(band, v, -1), -1, order)
+    return uu, vv

@@ -1,12 +1,14 @@
-"""Logical-processors-over-devices blocking primitives (host topology).
+"""Logical-processors-over-devices blocking primitives (one device).
 
 The same blocked-layout contract as the JAX package's
 ``runtime/blocking.py``: a logical (P, P, *rest) matrix, row q = data from
 logical proc q, column r = data for logical proc r, is stored as an
 (lp, P, *rest) block per device, and the transpose returns the same layout
-of X.T. On the host topology (P logical procs on one device, lp == P) the
-transpose is a swapaxes and the all-reduce is the identity. The flat and
-pods topologies (torch.distributed) are a later slice.
+of X.T. With one device -- the host topology, or ``Topology.flat(1)``,
+one GPU that needs no torch.distributed -- lp == P: the blocked transpose
+(reshape to (lp, 1, lp), an all_to_all over one rank, moveaxis) reduces
+to the local swapaxes and the all-reduce is the identity. Topologies of
+more than one device (torch.distributed) are a later slice.
 """
 from __future__ import annotations
 
@@ -17,11 +19,20 @@ import torch
 from repro_torch.runtime.topology import Topology
 
 
-def _require_host(topo: Topology) -> None:
-    if not topo.is_host:
+def require_one_device(topo: Topology) -> None:
+    """Raise for a topology of more than one device (not ported yet)."""
+    if topo.num_devices != 1:
         raise NotImplementedError(
-            f"topology {topo.label}: only the host topology is ported; "
-            "device topologies are ROADMAP Queue 1 item 9")
+            f"topology {topo.label}: only one-device topologies (host, "
+            "flat(1)) are ported; multi-GPU topologies are ROADMAP Queue 1 "
+            "item 9")
+
+
+def logical_ranks(lp: int, topo: Topology, device=None) -> torch.Tensor:
+    """The (lp,) global logical ranks of this device's block: arange(lp)
+    on a one-device topology."""
+    require_one_device(topo)
+    return torch.arange(lp, dtype=torch.int32, device=device)
 
 
 def map_logical(fn: Callable, ranks: torch.Tensor, *args):
@@ -46,11 +57,11 @@ def map_logical(fn: Callable, ranks: torch.Tensor, *args):
 
 def _transpose_blocked(x: torch.Tensor, topo: Topology) -> torch.Tensor:
     """(lp, P, *rest) -> (lp, P, *rest) transpose of the logical matrix."""
-    _require_host(topo)
+    require_one_device(topo)
     lp, p = x.shape[0], x.shape[1]
     if lp != p:
         raise ValueError(
-            f"host transpose needs the full (P, P) block, got ({lp}, {p})")
+            f"one-device transpose needs the full (P, P) block, got ({lp}, {p})")
     return x.transpose(0, 1).contiguous()
 
 
@@ -73,6 +84,6 @@ def transpose_payload(buf: torch.Tensor, topo: Topology) -> torch.Tensor:
 
 
 def all_reduce_sum(x, topo: Topology):
-    """Sum across every device of the topology: the identity on host."""
-    _require_host(topo)
+    """Sum across every device of the topology: the identity on one."""
+    require_one_device(topo)
     return x

@@ -1,9 +1,10 @@
 """Device probes for the runtime layer.
 
-:func:`resolve_device` picks the device an entry point runs on, and
-:func:`device_memory_bytes` feeds the pair-capacity heuristic
+:func:`resolve_device` picks the device an entry point runs on,
+:func:`device_count` tells the planner how many devices a topology could
+span, and :func:`device_memory_bytes` feeds the pair-capacity heuristic
 (``core/pba.py::default_pair_capacity``). The JAX package's mesh and
-shard_map shims are not ported: the host topology needs none.
+shard_map shims are not ported: one device needs none.
 """
 from __future__ import annotations
 
@@ -34,6 +35,13 @@ def resolve_device(device=None) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}: use 'cuda' or 'cpu'")
     return device
+
+
+def device_count(device) -> int:
+    """Devices of ``device``'s kind a topology could span: the CUDA
+    device count on CUDA, 1 on the CPU."""
+    return torch.cuda.device_count() \
+        if torch.device(device).type == "cuda" else 1
 
 
 def device_memory_bytes(device) -> int:

@@ -49,6 +49,40 @@ def residual_counts(counts: torch.Tensor, r: int,
     return (counts - (r + 1) * round_cap).clamp(min=0)
 
 
+def drive_rounds(indices: Iterable[int],
+                 dispatch: Callable[[int], object],
+                 writeback: Callable[[int, object], None],
+                 overlap: bool = True) -> int:
+    """Host-side round driver with double-buffered compute/write overlap.
+
+    ``dispatch(r)`` enqueues round ``r``'s device work and returns at once
+    with a handle to its not-yet-finished output; ``writeback(r, handle)``
+    waits for that round alone and lands it in the sink. With
+    ``overlap=True`` round ``r+1`` is dispatched *before* round ``r`` is
+    written back, so the device computes the next round while the host
+    writes the previous block; ``overlap=False`` serializes the two.
+    Returns the number of rounds driven. ``indices`` may be any subset in
+    any order: a resume drives exactly the manifest's missing blocks.
+    """
+    if not overlap:
+        n = 0
+        for i in indices:
+            writeback(i, dispatch(i))
+            n += 1
+        return n
+    pending = None
+    n = 0
+    for i in indices:
+        handle = dispatch(i)          # the device starts round i now
+        if pending is not None:
+            writeback(*pending)       # waits on i-1 while i computes
+        pending = (i, handle)
+        n += 1
+    if pending is not None:
+        writeback(*pending)
+    return n
+
+
 def run_exchange(counts: torch.Tensor, round_cap: int, max_rounds: int,
                  emit: Callable[[int], torch.Tensor],
                  consume: Callable[[int, torch.Tensor, object], object],

@@ -10,8 +10,9 @@ without the mesh building:
   Topology.pods(r, c)    r pods x c devices per pod
 
 The logical-over-physical factorization P = lp * D is :meth:`lp`. This
-package runs the host topology only so far; the others are accepted by
-the planner and refused with the ROADMAP item that will port them.
+package runs the one-device topologies so far (host, and ``flat(1)``:
+one GPU); the others are accepted by the planner and refused with the
+ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -82,6 +83,20 @@ class Topology:
                 f"logical procs {num_procs} must divide over the "
                 f"{d}-device topology {self.label}")
         return num_procs // d
+
+    @classmethod
+    def from_label(cls, label: str) -> "Topology":
+        """The topology whose :attr:`label` is ``label`` (default axis
+        names): 'host', 'flat_1x<d>' or 'pods_<r>x<c>'."""
+        kind, _, dims = label.partition("_")
+        sizes = [int(x) for x in dims.split("x")] if dims else []
+        if kind == "host" and not sizes:
+            return cls.host()
+        if kind == "flat" and len(sizes) == 2 and sizes[0] == 1:
+            return cls.flat(sizes[1])
+        if kind == "pods" and len(sizes) == 2:
+            return cls.pods(*sizes)
+        raise ValueError(f"not a topology label: {label!r}")
 
     @property
     def label(self) -> str:

@@ -112,20 +112,36 @@ def test_generate_on_cpu_matches_reference():
     np.testing.assert_array_equal(td, jd)
 
 
+def _case_overrides(overrides: dict, jax_side: bool) -> dict:
+    """A digest case's overrides with its topology label (if any) turned
+    into either package's Topology."""
+    out = dict(overrides)
+    if "topology" in out:
+        topo = tapi.Topology.from_label(out["topology"])
+        out["topology"] = JTopology(topo.axis_names, topo.axis_sizes) \
+            if jax_side else topo
+    return out
+
+
 def test_reference_digests_are_current():
     """The committed digests chip_smoke.py holds the card to equal what
-    the JAX package generates now."""
+    the JAX package generates now (host execution and both streams)."""
     committed = json.loads((PORT / "reference_digests.json").read_text())
+    assert {c["overrides"].get("topology") for c in
+            committed["cases"].values()} >= {"host", "flat_1x1"}
     for name, case in committed["cases"].items():
-        res = japi.generate(japi.preset(case["preset"], **case["overrides"]))
+        res = japi.generate(japi.preset(
+            case["preset"], **_case_overrides(case["overrides"], True)))
         fresh = edge_digest(np.asarray(res.edges.src),
                             np.asarray(res.edges.dst))
         assert fresh == case["sha256"], (name, fresh)
         assert res.stats.pair_capacity == case["pair_capacity"]
         assert res.stats.exchange_rounds == case["exchange_rounds"]
         assert res.stats.dropped_edges == case["dropped_edges"]
-        tres = tapi.generate(tapi.preset(case["preset"], **case["overrides"]),
-                             device="cpu")
+        tres = tapi.generate(tapi.preset(
+            case["preset"], **_case_overrides(case["overrides"], False)),
+            device="cpu")
+        assert tres.plan.executor == res.plan.executor
         assert edge_digest(tres.edges.src, tres.edges.dst) == fresh
 
 
@@ -147,11 +163,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     (dict(model="pk", levels=3), "item 11"),
     (dict(model="rmat", cfree_vertices=64, cfree_edges=64), "item 10"),
     (dict(model="pba", procs=4, vertices_per_proc=10, edges_per_vertex=2,
-          execution="streamed"), "items 6 and 8"),
+          execution="streamed", topology=tapi.Topology.flat(2)), "item 9"),
     (dict(model="pba", procs=4, vertices_per_proc=10, edges_per_vertex=2,
           execution="sharded"), "item 9"),
-    (dict(model="pba", procs=4, vertices_per_proc=10, edges_per_vertex=2,
-          execution="host", sink="shards", out_dir="x"), "item 6"),
+    (dict(model="pk", levels=3, execution="streamed"), "item 11"),
 ])
 def test_unported_paths_name_their_roadmap_item(spec, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -71,6 +71,44 @@ def test_histogram_matches_plain(dev, rows, n, nbins):
                        ref.histogram_ref(vals[0], nbins))
 
 
+@pytest.mark.parametrize("rows,e,cap,p_band", [
+    (1, 1, 1, 0.5), (3, 4096, 1000, 0.3), (2, 4097, 5000, 0.9),
+    (4, 70_001, 20_000, 0.5), (3, 100_000, 9000, 1 / 12)])
+def test_band_compact_matches_plain(dev, rows, e, cap, p_band):
+    rng = np.random.default_rng(rows * e + cap)
+    u = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    v = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    band = torch.from_numpy(rng.random((rows, e)) < p_band).to(dev)
+    if rows > 2:
+        band[0] = False                    # an empty row
+        band[1] = True                     # an all-band row (overflows)
+    before = ops.launch_counts()["band_compact"]
+    got = ops.band_compact(u, v, band, cap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["band_compact"] == before + 1
+    want = ref.band_compact_ref(u, v, band, cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_device_stream_on_the_card_equals_the_cpu(dev):
+    spec = api.preset("paper_smoke", procs=16, vertices_per_proc=300,
+                      exchange_rounds=8, pair_capacity=64,
+                      execution="streamed",
+                      topology=api.Topology.flat(1))
+    ops.reset_launch_counts()
+    on_card = api.generate(spec, device=dev)
+    launches = ops.launch_counts()
+    on_cpu = api.generate(spec, device="cpu")
+    assert on_card.plan.executor == "pba_stream_sharded"
+    assert launches["band_compact"] == on_card.stats.exchange_rounds
+    assert min(launches[k] for k in ("resolve_step", "gather",
+                                     "histogram")) > 0, launches
+    assert torch.equal(on_card.edges.src.cpu(), on_cpu.edges.src)
+    assert torch.equal(on_card.edges.dst.cpu(), on_cpu.edges.dst)
+    assert on_card.stats == on_cpu.stats
+    assert on_card.stream_meta == on_cpu.stream_meta
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     t = torch.zeros((4, 6), dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
@@ -85,6 +123,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         ops.histogram(t.long(), 3)
     with pytest.raises(ValueError):
         ops.histogram(t[:, ::2], 3)
+    with pytest.raises(TypeError):
+        ops.band_compact(t, t, t, 3)       # band must be bool
+    with pytest.raises(ValueError):
+        ops.band_compact(t, t[:, :3].contiguous(), t > 0, 3)
+    with pytest.raises(ValueError):
+        ops.band_compact(t, t, t > 0, 0)
 
 
 @pytest.mark.parametrize("name,overrides", [
@@ -99,7 +143,10 @@ def test_generate_on_the_card_equals_the_cpu(dev, name, overrides):
     on_card = api.generate(spec, device=dev)
     launches = ops.launch_counts()
     on_cpu = api.generate(spec, device="cpu")
-    assert min(launches.values()) > 0, launches
+    # the host path's kernels (its sources stay below the chunked bound,
+    # and band compaction belongs to the device stream)
+    assert min(launches[k] for k in ("resolve_step", "gather",
+                                     "histogram")) > 0, launches
     assert torch.equal(on_card.edges.src.cpu(), on_cpu.edges.src)
     assert torch.equal(on_card.edges.dst.cpu(), on_cpu.edges.dst)
     assert on_card.stats == on_cpu.stats

@@ -114,8 +114,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.resolve_step(t)
     ops.gather(t, t)
     ops.histogram(t, 4)
+    ops.band_compact(t[None], t[None], t[None] > 3, 4)
     assert ops.launch_counts() == {"resolve_step": 0, "gather": 0,
-                                   "histogram": 0}
+                                   "gather_chunked": 0, "histogram": 0,
+                                   "band_compact": 0}
     assert ops.fallback_counts() == {}
 
 
