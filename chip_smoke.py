@@ -10,12 +10,18 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     started together) and report the build seconds.
  2. kernels: each kernel wrapper against its plain PyTorch version on the
     card, at the main paths' shapes, on inputs drawn from
-    numpy.random.default_rng(SEED); exact equality is required (integer
+    numpy.random.default_rng(SEED) (the PK noise inputs from a torch
+    generator seeded with SEED); exact equality is required (integer
     kernels, tolerance 0). Kernel, plain and library-call times are CUDA
-    event medians of 7 runs after 2 warm-ups.
+    event medians of 7 runs after 2 warm-ups (the plain versions over 2^30
+    edges: their one comparison run); the PK and communication-free cases
+    add the kernel's profiled device time per launch, which leaves out
+    the host's launch overhead. Bounds: bytes over the memory rate, or
+    32-bit integer operations over the INT32 rate, the larger.
  3. reference digests: generate() on the card for the specs in
-    src/repro_torch/reference_digests.json (made by the JAX package: host
-    execution, the device stream and the host-driven stream) must
+    src/repro_torch/reference_digests.json (made by the JAX package: PBA
+    with host execution, the device stream and the host-driven stream;
+    PK, rmat, er and ba_cfree with host execution and their streams) must
     reproduce their sha256.
  4. host main path: generate(preset("paper_1b_5b", procs=64,
     execution="host", pair_capacity=262144)), the paper's per-rank scale
@@ -32,7 +38,18 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     stream's digest); a profiled run; and the shard sink with overlap on
     and off, read back, then resumed after two blocks are dropped from the
     manifest (only those two shards rewritten).
- 6. the kernels line, then {"ok": true, "device": {...}} as the last line.
+ 6. PK and the communication-free family, each path with its launch
+    counts set to 0 just before it and read just after, then rerun under
+    forced_mode("ref") and compared on the card, then profiled: R-MAT
+    and ER at Graph500 scale 26, edge factor 16 (2^26 vertices, 2^30
+    edges), host execution; preset("pk_3b") at the repo's size
+    (star-clique-5 seed, L=10, 3,486,784,401 edges, slab 2^20) streamed
+    into memory; the noise path, preset("pk_3b", levels=9,
+    execution="host", noise=0.05, delete_prob=0.01); preset("ba_cfree_1b")
+    (10^9 edges) on both stream executors (Topology.host() and flat(1),
+    which must agree); and the shard sink at reduced depth (pk_3b at L=7,
+    ba_cfree at 2M vertices: zlib writes ~10 MB/s) with a two-shard resume.
+ 7. the kernels line, then {"ok": true, "device": {...}} as the last line.
 
 Exits with a non-zero code and prints no result when CUDA is not
 available or the repository's src/ is not beside this file.
@@ -51,6 +68,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+# 32-bit integer instructions per second: 132 SMs x 128 lanes x 1.98 GHz
+# boost clock (H100 SXM data sheet; the rate behind its 67 TFLOP/s float32,
+# which counts a multiply-add as two). Each SM's four schedulers issue at
+# most one instruction per lane per clock, so no mix of integer
+# instructions (the 64 INT32 lanes per SM plus the multiply-adds on the
+# float pipes) runs faster. The operation bound of the PK and
+# communication-free kernels is their integer work over this rate.
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 PROCS = 64                  # the paper's 1000 ranks, cut to fit one card
 VERTICES_PER_PROC = 1_000_000   # the paper's per-rank scale, not cut
 PAIR_CAPACITY = 262144      # pinned: C_r = 32768 per pair at R=8
@@ -85,6 +110,42 @@ def _nvcc_version(nvcc: str) -> str:
 
 # --- timing -------------------------------------------------------------------
 
+def profiled(torch, fn, calls: int):
+    """torch.profiler's trace of the card over ``calls`` back-to-back calls
+    of fn() (warm fn up first), and the wall seconds per call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / calls
+    return prof, wall
+
+
+def device_us(e, calls: int = 1) -> float:
+    """An event's (or an average's) own device time in us, per call."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0)) / calls
+
+
+def device_ms_per_launch(torch, fn, kernel: str,
+                         launches: int = 20) -> tuple[float, int]:
+    """Mean device time of the ``kernel`` (a substring of the CUDA kernel's
+    name) per launch over ``launches`` back-to-back calls of fn() after a
+    warm-up call, and the launches the profiler saw. Unlike CUDA events
+    around a call, it leaves out the host's launch overhead, which
+    dominates a kernel of a few microseconds."""
+    fn()
+    prof, _ = profiled(torch, fn, launches)
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    calls = sum(e.count for e in rows)
+    if not calls:
+        raise AssertionError(f"the profiler saw no launch of {kernel}")
+    return sum(device_us(e) for e in rows) / 1e3 / calls, calls
+
+
 def time_ms(torch, fn, reps: int = 7, warmup: int = 2) -> float:
     """Median CUDA-event time of fn() in milliseconds."""
     for _ in range(warmup):
@@ -117,6 +178,52 @@ def max_abs_diff(torch, got, want) -> int:
 
 
 # --- phase 2: kernels against their plain versions ------------------------------
+
+def run_case(torch, results, name, wrapper, plain, library, args, nbytes,
+             shape, ops: int = 0, plain_reps: int = 7,
+             device_kernel: str = "") -> dict:
+    """Hold one kernel call against its plain version (exact equality) and
+    time both, and the library call where there is one. ``bound_ms`` is
+    the larger of the byte bound (``nbytes`` over the memory rate) and
+    the operation bound (``ops`` 32-bit integer operations over the INT32
+    rate). ``plain_reps=1`` times the comparison run of the plain version
+    itself (the plain versions of the largest shapes take seconds).
+    ``device_kernel`` adds the kernel's profiled device time per launch
+    (``kernel_device_ms``)."""
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(*args)
+    end.record()
+    end.synchronize()
+    plain_once_ms = start.elapsed_time(end)
+    diff = max_abs_diff(torch, got, want)
+    del got, want
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    row = {"case": name, "kernel": wrapper.__name__, "shape": shape,
+           "max_abs_diff": diff,
+           "kernel_ms": time_ms(torch, lambda: wrapper(*args)),
+           "plain_ms": plain_once_ms if plain_reps == 1 else
+           time_ms(torch, lambda: plain(*args), reps=plain_reps),
+           "library_ms": time_ms(torch, library) if library else None,
+           "bytes": nbytes, "int_ops": ops, "bytes_bound_ms": bytes_ms,
+           "ops_bound_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+    if device_kernel:
+        row["kernel_device_ms"], row["profiled_launches"] = \
+            device_ms_per_launch(torch, lambda: wrapper(*args),
+                                 device_kernel)
+    results.append(row)
+    emit({"phase": "kernel_case", **row})
+    if diff:
+        raise AssertionError(f"{name}: kernel differs from plain "
+                             f"(max abs diff {diff})")
+    torch.cuda.empty_cache()
+    return row
+
 
 def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
                  round_cap: int, block_cap: int) -> list[dict]:
@@ -154,25 +261,8 @@ def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
 
     results = []
 
-    def run(name, wrapper, plain, library, args, nbytes, shape):
-        got = wrapper(*args)
-        torch.cuda.synchronize()
-        want = plain(*args)
-        diff = max_abs_diff(torch, got, want)
-        del got, want
-        row = {"case": name, "kernel": wrapper.__name__, "shape": shape,
-               "max_abs_diff": diff,
-               "kernel_ms": time_ms(torch, lambda: wrapper(*args)),
-               "plain_ms": time_ms(torch, lambda: plain(*args)),
-               "library_ms": time_ms(torch, library) if library else None,
-               "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "bound_by": "bytes"}
-        results.append(row)
-        emit({"phase": "kernel_case", **row})
-        if diff:
-            raise AssertionError(f"{name}: kernel differs from plain "
-                                 f"(max abs diff {diff})")
-        torch.cuda.empty_cache()
+    def run(*args):
+        run_case(torch, results, *args)
 
     # Downward pointers ptr[r, j] in [0, j]: the urns' pointer layout.
     ptr = draw(procs, pool_n, torch.arange(1, pool_n + 1, device=dev))
@@ -305,29 +395,54 @@ def stage_times(torch, api, pl) -> dict:
     return out
 
 
-def profile_run(torch, api, spec, dev) -> dict:
-    """Device-time share and the top device ops of one main-path run."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        api.generate(spec, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
+def profile_run(torch, api, spec, dev, kernel: str = "",
+                expect_calls=None, attempts: int = 3) -> dict:
+    """Device-time share and the top device ops of a main-path run,
+    profiled after one warm-up run; a path shorter than half a second is
+    profiled over as many runs as fill half a second, and times are per
+    run. ``kernel`` (a substring of a CUDA kernel's name) adds its device
+    time and calls per run. The tracer has returned no device event, or
+    too few, for a 20-45 ms path late in a long process: a trace with no
+    device event, or with other than ``expect_calls`` calls of ``kernel``
+    per run, is taken again, up to ``attempts`` times; if none is
+    complete, the busy and idle figures are None ("not measured"), never
+    a number from a partial trace."""
     from torch.autograd import DeviceType
+
+    def run():
+        api.generate(spec, device=dev)
 
     # CUPTI marks the spans where the launch queue was full (the host
     # waited on the device) as device events; they are not kernels.
-    queue_full = "Command Buffer Full"
-
     def on_device(e):
-        return getattr(e, "device_type", None) == DeviceType.CUDA
+        name = getattr(e, "name", None) or e.key    # an event, or an average
+        return getattr(e, "device_type", None) == DeviceType.CUDA and \
+            name != "Command Buffer Full"
 
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if on_device(e) and e.name != queue_full)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    runs = max(1, int(0.5 / max(time.perf_counter() - t0, 1e-3)))
+    for attempt in range(1, attempts + 1):
+        prof, wall = profiled(torch, run, runs)
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if on_device(e))
+        kernels = [e for e in prof.key_averages()
+                   if on_device(e) and device_us(e) > 0]
+        mine = [e for e in kernels if kernel and kernel in e.key]
+        calls = sum(e.count for e in mine) / runs
+        complete = bool(spans) and expect_calls in (None, calls)
+        if complete:
+            break
+    head = {"wall_s": wall, "profiled_runs": runs, "attempts": attempt,
+            "device_events": len(spans), "complete": complete}
+    if kernel:
+        head["kernel_calls"] = calls
+    if not complete:
+        return {**head, "kernels_busy_s": None, "kernel_device_s": None,
+                "first_to_last_kernel_s": None,
+                "device_idle_share_of_wall": None, "top_device_ops": []}
     busy_us, cur = 0.0, None
     for start, end in spans:          # union of kernel intervals
         if cur is None or start > cur[1]:
@@ -335,20 +450,17 @@ def profile_run(torch, api, spec, dev) -> dict:
             cur = [start, end]
         else:
             cur[1] = max(cur[1], end)
-    busy_us += (cur[1] - cur[0]) if cur else 0.0
-    window_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    kernels = [e for e in prof.key_averages() if on_device(e)]
-    top = sorted(kernels, key=dev_us, reverse=True)[:14]
-    return {"wall_s": wall, "kernels_busy_s": busy_us / 1e6,
-            "first_to_last_kernel_s": window_us / 1e6,
-            "device_idle_share_of_wall": 1 - busy_us / 1e6 / wall,
-            "top_device_ops": [{"name": e.key[:90], "calls": e.count,
-                                "device_ms": dev_us(e) / 1e3}
+    busy_us += cur[1] - cur[0]
+    top = sorted(kernels, key=device_us, reverse=True)[:14]
+    busy_s = busy_us / 1e6 / runs
+    if kernel:
+        head["kernel_device_s"] = sum(device_us(e, runs) for e in mine) / 1e6
+    return {**head, "kernels_busy_s": busy_s,
+            "first_to_last_kernel_s": (spans[-1][1] - spans[0][0]) / 1e6
+            / runs,
+            "device_idle_share_of_wall": 1 - busy_s / wall,
+            "top_device_ops": [{"name": e.key[:90], "calls": e.count / runs,
+                                "device_ms": device_us(e, runs) / 1e3}
                                for e in top]}
 
 
@@ -423,7 +535,6 @@ def stream_stage_times(torch, api, pl) -> dict:
 def streamed_phases(torch, api, dispatch, ops, edge_digest, dev,
                     host_multiset: str) -> dict:
     """The streamed main path at full width; returns its launch counts."""
-    from repro_torch.core import storage
     spec = api.preset("paper_1b_5b", procs=PROCS,
                       vertices_per_proc=VERTICES_PER_PROC,
                       pair_capacity=PAIR_CAPACITY,
@@ -559,39 +670,362 @@ def streamed_phases(torch, api, dispatch, ops, edge_digest, dev,
                   "disk_bytes": sum(
                       os.path.getsize(os.path.join(out_dir, f))
                       for f in os.listdir(out_dir))})
-        src, dst, man = storage.read_shards(out_dir)
-        read_digest = edge_digest(src, dst)
-        del src, dst
-        n = man["num_shards"]
-        man["complete"] = [i for i in man["complete"] if i < n - 2]
-        for i in (n - 2, n - 1):
-            del man["counts"][str(i)]
-        with open(os.path.join(out_dir, "manifest.json"), "w") as f:
-            json.dump(man, f)
-
-        def shard(i):
-            return os.path.join(out_dir, f"shard_{i:05d}.npz")
-
-        for i in (n - 2, n - 1):
-            os.utime(shard(i), ns=(0, 0))
-        stamps = {i: os.stat(shard(i)).st_mtime_ns for i in range(n)}
-        _, resume_wall = timed(lambda: api.generate(
-            spec.replace(sink="shards", out_dir=out_dir), device=dev))
-        rewritten = [i for i in range(n)
-                     if os.stat(shard(i)).st_mtime_ns != stamps[i]]
-        src, dst, _ = storage.read_shards(out_dir)
-        resumed_digest = edge_digest(src, dst)
-        del src, dst
-        emit({"phase": "stream_shards_resume", "read_back_sha256":
-              read_digest, "read_back_matches": read_digest == digest,
-              "resume_wall_s": resume_wall, "rewritten": rewritten,
-              "resumed_matches": resumed_digest == digest,
+        emit({"phase": "stream_shards_resume",
+              **resume_check(torch, api, edge_digest, spec, dev, out_dir,
+                             digest),
               "overlap_on_s": walls[True], "overlap_off_s": walls[False]})
-        if read_digest != digest or resumed_digest != digest \
-                or rewritten != [n - 2, n - 1]:
-            raise AssertionError("shard sink read back or resumed wrong")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+# --- phase 6: PK and the communication-free family ---------------------------------
+
+PK_LEVELS = 10              # preset pk_3b: star-clique-5 seed, L = 10
+PK_NOISE_LEVELS = 9         # the largest host execution the int32 check admits
+SLAB = 1 << 20              # GraphSpec.slab_edges default (pk_3b, ba_cfree_1b)
+RMAT_SCALE = 26             # Graph500 scale 26, edge factor 16
+# 32-bit integer operations per edge, counted from the kernels' source
+# (xor, add, shift, multiply, compare, select, / and % each count one; a
+# table lookup is a load). These are lower bounds: the card has no integer
+# divider, and a runtime-divisor / or % compiles to a short sequence.
+HASH_OPS = 19               # (t^w0)+c, mix (8), ^w1, mix (8)
+BA_DRAW_OPS = HASH_OPS + 5  # bound 2j+1 (2), %, odd test (2)
+BA_EDGE_OPS = 3             # u = t/d; v = (r>>1)/d
+RMAT_LEVEL_OPS = HASH_OPS - 1 + 11  # t^w0 is common to the levels; 3
+                                    # compares + 2 adds, u and v updates
+ER_EDGE_OPS = 2 * (HASH_OPS + 1)
+PK_LEVEL_OPS = 9            # %, /, base add, carry add, compare, subtract,
+                            # two multiply-adds, running power
+PK_NOISE_LEVEL_OPS = 2      # flip test and select
+
+
+def pk_noise_bytes(flip) -> int:
+    """Bytes the noise body must move for (L, m) ``flip``: t read and u, v
+    written (12 B per edge), flip read in full (1 B per entry), and only
+    the 32-byte sectors of the int32 redraw plane that a set flip entry
+    touches (the kernel reads ``redraw`` only where ``flip`` is set)."""
+    levels, m = flip.shape
+    flat = flip.reshape(-1)
+    whole = flat.numel() // 8 * 8
+    sectors = int(flat[:whole].view(-1, 8).any(1).sum()) + \
+        int(flat[whole:].any())
+    return 12 * m + levels * m + 32 * sectors
+
+
+def cfree_pair(model: str, n: int, degree: int, thresholds):
+    """(kernel, plain) callables of (t, words) for one model's constants;
+    the kernel's is named as its wrapper."""
+    from repro_torch.kernels import cfree_expand as wrapper, ref
+    kw = dict(model=model, n=n, ba_degree=degree, thresholds=thresholds)
+
+    def cfree_expand(t, words):
+        return wrapper.cfree_expand(t, words, **kw)
+
+    return cfree_expand, lambda t, words: ref.cfree_expand_ref(t, words,
+                                                               **kw)
+
+
+def pk_cfree_kernel_cases(torch, dev) -> list[dict]:
+    """pk_expand and cfree_expand against their plain versions at the main
+    paths' shapes: a pk_3b slab (no noise) and the noise path's host
+    shape; a ba_cfree_1b slab; rmat and er over the host range of 2^30
+    edges. Noise inputs come from a torch generator seeded with SEED."""
+    from repro_torch.core import cfree, pk
+    from repro_torch.kernels import pk_expand, ref
+
+    results = []
+    seed = pk.star_clique_seed(5)
+    n0, e0 = seed.num_vertices, seed.num_edges
+    su, sv = pk.seed_tables(seed, dev)
+    blocks = -(-e0 ** PK_LEVELS // SLAB)
+    base = pk.decompose_base((blocks // 2) * SLAB, e0, PK_LEVELS)
+    t = torch.arange(SLAB, dtype=torch.int32, device=dev)
+    run_case(torch, results, f"pk_expand slab {SLAB} L{PK_LEVELS}",
+             pk_expand.pk_expand, ref.pk_expand_ref, None,
+             (t, base, su, sv, n0, e0, PK_LEVELS), 12 * SLAB,
+             [SLAB, PK_LEVELS], ops=PK_LEVEL_OPS * PK_LEVELS * SLAB,
+             device_kernel="pk_expand_kernel")
+
+    m = e0 ** PK_NOISE_LEVELS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    flip = torch.empty((PK_NOISE_LEVELS, m), dtype=torch.bool, device=dev)
+    redraw = torch.empty((PK_NOISE_LEVELS, m), dtype=torch.int32,
+                         device=dev)
+    for level in range(PK_NOISE_LEVELS):
+        flip[level] = torch.rand(m, generator=gen, device=dev) < 0.05
+        redraw[level] = torch.randint(0, e0, (m,), generator=gen,
+                                      device=dev, dtype=torch.int32)
+    t = torch.arange(m, dtype=torch.int32, device=dev)
+    run_case(torch, results, f"pk_expand noise host {m} L{PK_NOISE_LEVELS}",
+             pk_expand.pk_expand, ref.pk_expand_ref, None,
+             (t, [0] * PK_NOISE_LEVELS, su, sv, n0, e0, PK_NOISE_LEVELS,
+              flip, redraw), pk_noise_bytes(flip), [PK_NOISE_LEVELS, m],
+             ops=(PK_LEVEL_OPS + PK_NOISE_LEVEL_OPS) * PK_NOISE_LEVELS * m,
+             device_kernel="pk_expand_kernel")
+    del flip, redraw, t
+    torch.cuda.empty_cache()
+
+    # ba_cfree_1b: a slab from the middle of its 10^9 edges.
+    cfg = cfree.CFreeConfig(model="ba_cfree", vertices=250_000_000,
+                            ba_degree=4, seed=7)
+    words = cfree.cfree_words(cfg)
+    t0 = (cfree.cfree_sizes(cfg)[1] // SLAB // 2) * SLAB
+    t = torch.arange(t0, t0 + SLAB, dtype=torch.int32, device=dev)
+    draws = cfree.ba_chain(words, t)[1]
+    run_case(torch, results, f"cfree_expand ba_cfree slab {SLAB} at {t0}",
+             *cfree_pair("ba_cfree", cfg.vertices, 4, (0, 0, 0)), None,
+             (t, words), 12 * SLAB, [SLAB],
+             ops=BA_DRAW_OPS * draws + BA_EDGE_OPS * SLAB,
+             device_kernel="cfree_expand_kernel")
+    results[-1]["draws_per_edge"] = draws / SLAB
+    emit({"phase": "ba_chain_draws", "edges": SLAB, "draws": draws})
+
+    # Graph500 scale 26: rmat and er over the host range [0, 2^30).
+    e = 16 << RMAT_SCALE
+    t = torch.arange(e, dtype=torch.int32, device=dev)
+    for model in ("rmat", "er"):
+        cfg = cfree.CFreeConfig(model=model, vertices=1 << RMAT_SCALE,
+                                edges=e, seed=7)
+        words, th = cfree.cfree_words(cfg), cfree.rmat_thresholds(cfg)
+        ops = (RMAT_LEVEL_OPS * RMAT_SCALE + 1 if model == "rmat"
+               else ER_EDGE_OPS) * e
+        run_case(torch, results, f"cfree_expand {model} host {e}",
+                 *cfree_pair(model, 1 << RMAT_SCALE, 2, th), None,
+                 (t, words), 12 * e, [e], ops=ops, plain_reps=1,
+                 device_kernel="cfree_expand_kernel")
+    del t
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_and_check(torch, api, dispatch, ops, dev, label: str, spec,
+                  kernel: str, expect_launches=None, expect_dropped=0,
+                  profile: bool = True) -> dict:
+    """One main path of the slice: the spec through the front door with
+    the launch counts set to 0 just before and read just after, then a
+    profiled run, then the same spec under forced_mode("ref") (identical
+    edges, compared on the card). Returns the phase's row, with the
+    kernel path's (src, dst) under "edges" when not profiled."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = api.generate(spec, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = res.stats
+    row = {"phase": label, "executor": res.plan.executor,
+           "num_vertices": st.num_vertices,
+           "requested_edges": st.requested_edges,
+           "emitted_edges": st.emitted_edges,
+           "dropped_edges": st.dropped_edges,
+           "exchange_rounds": st.exchange_rounds,
+           "fallback_counts": st.fallback_counts, "launches": launches,
+           "wall_s": wall, "edges_per_s": st.requested_edges / wall,
+           "peak_allocated_bytes": peak}
+    if res.plan.execution == "streamed":
+        stream = api._make_stream(res.plan)
+        row["num_blocks"] = stream.num_blocks
+        del stream
+    if st.fallback_counts != {} or launches[kernel] < 1:
+        emit(row)
+        raise AssertionError(f"{label}: fell back or never launched "
+                             f"{kernel}: {launches}")
+    if expect_launches is not None and launches[kernel] != expect_launches:
+        emit(row)
+        raise AssertionError(f"{label}: {kernel} launched "
+                             f"{launches[kernel]} times, expected "
+                             f"{expect_launches}")
+    if expect_dropped is not None and st.dropped_edges != expect_dropped:
+        emit(row)
+        raise AssertionError(f"{label}: {st.dropped_edges} dropped edges")
+    ksrc, kdst = res.edges.src, res.edges.dst
+    del res
+    if profile:
+        prof = profile_run(torch, api, spec, dev, kernel + "_kernel",
+                           expect_calls=launches[kernel])
+        busy = prof["kernels_busy_s"]
+        row["profile"] = {
+            **{k: prof[k] for k in (
+                "wall_s", "profiled_runs", "attempts", "device_events",
+                "complete", "kernel_calls", "kernels_busy_s",
+                "device_idle_share_of_wall", "kernel_device_s")},
+            "kernel_share_of_busy": prof["kernel_device_s"] / busy
+            if busy else None,
+            "top_device_ops": prof["top_device_ops"][:6]}
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dispatch.forced_mode("ref"):
+        plain = api.generate(spec, device=dev)
+    torch.cuda.synchronize()
+    row["plain_wall_s"] = time.perf_counter() - t0
+    row["plain_peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    same = torch.equal(plain.edges.src, ksrc) and \
+        torch.equal(plain.edges.dst, kdst)
+    row["identical_to_plain_path"] = same
+    row["plain_dropped_edges"] = plain.stats.dropped_edges
+    del plain
+    if not same:
+        emit(row)
+        raise AssertionError(f"{label}: kernel and plain paths disagree")
+    emit(row)
+    if not profile:
+        row["edges"] = (ksrc, kdst)
+    return row
+
+
+def resume_check(torch, api, edge_digest, spec, dev, out_dir: str,
+                 digest: str) -> dict:
+    """Read the shards of ``spec`` under ``out_dir`` back, drop the last
+    two from the manifest, resume, and check that only those two were
+    rewritten and that both reads give ``digest``."""
+    from repro_torch.core import storage
+    src, dst, man = storage.read_shards(out_dir)
+    read_digest = edge_digest(src, dst)
+    del src, dst
+    n = man["num_shards"]
+    man["complete"] = [i for i in man["complete"] if i < n - 2]
+    for i in (n - 2, n - 1):
+        del man["counts"][str(i)]
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(man, f)
+
+    def shard(i):
+        return os.path.join(out_dir, f"shard_{i:05d}.npz")
+
+    for i in (n - 2, n - 1):
+        os.utime(shard(i), ns=(0, 0))
+    stamps = {i: os.stat(shard(i)).st_mtime_ns for i in range(n)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.generate(spec.replace(sink="shards", out_dir=out_dir), device=dev)
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - t0
+    rewritten = [i for i in range(n)
+                 if os.stat(shard(i)).st_mtime_ns != stamps[i]]
+    src, dst, _ = storage.read_shards(out_dir)
+    resumed_digest = edge_digest(src, dst)
+    del src, dst
+    row = {"read_back_sha256": read_digest,
+           "read_back_matches": read_digest == digest,
+           "resume_wall_s": resume_wall, "rewritten": rewritten,
+           "resumed_matches": resumed_digest == digest}
+    if read_digest != digest or resumed_digest != digest \
+            or rewritten != [n - 2, n - 1]:
+        emit(row)
+        raise AssertionError("shard sink read back or resumed wrong")
+    return row
+
+
+def pk_cfree_phases(torch, api, dispatch, ops, edge_digest, dev) -> dict:
+    """R-MAT and ER at Graph500 scale 26, PK at the paper's scale, the PK
+    noise path, ba_cfree at full width, and the shard sink at reduced
+    depth. Returns each path's launch counts."""
+    launches = {}
+
+    # R-MAT and ER at Graph500 scale 26, edge factor 16, host execution;
+    # first, as the profiler has lost these short paths' traces late in
+    # the process.
+    for model in ("rmat", "er"):
+        spec = api.GraphSpec(model=model, cfree_vertices=1 << RMAT_SCALE,
+                             cfree_edges=16 << RMAT_SCALE, seed=7)
+        row = run_and_check(torch, api, dispatch, ops, dev,
+                            f"{model}_scale{RMAT_SCALE}_host", spec,
+                            "cfree_expand", expect_launches=1)
+        launches[f"{model}_scale{RMAT_SCALE}_host"] = row["launches"]
+        torch.cuda.empty_cache()
+
+    # PK: preset pk_3b as the repo defines it, streamed into memory.
+    spec = api.preset("pk_3b")
+    row = run_and_check(torch, api, dispatch, ops, dev, "pk_3b_stream",
+                        spec, "pk_expand",
+                        expect_launches=-(-9 ** PK_LEVELS // SLAB))
+    launches["pk_3b_stream"] = row["launches"]
+    torch.cuda.empty_cache()
+
+    # The noise body, chunked threefry draws and deletion, host execution.
+    spec = api.preset("pk_3b", levels=PK_NOISE_LEVELS, execution="host",
+                      noise=0.05, delete_prob=0.01)
+    row = run_and_check(torch, api, dispatch, ops, dev, "pk_noise_host",
+                        spec, "pk_expand", expect_launches=1,
+                        expect_dropped=None)
+    if row["dropped_edges"] != row["plain_dropped_edges"] or not \
+            0 < row["dropped_edges"] < row["requested_edges"]:
+        raise AssertionError("pk noise path: deletion count off")
+    launches["pk_noise_host"] = row["launches"]
+    torch.cuda.empty_cache()
+
+    # Communication-free BA, 10^9 edges, on both stream executors.
+    spec = api.preset("ba_cfree_1b")
+    row = run_and_check(torch, api, dispatch, ops, dev,
+                        "ba_cfree_1b_stream_host", spec, "cfree_expand",
+                        profile=False)
+    launches["ba_cfree_1b_stream_host"] = row["launches"]
+    host_edges = row.pop("edges")
+    flat = run_and_check(torch, api, dispatch, ops, dev,
+                         "ba_cfree_1b_stream_flat1",
+                         spec.replace(topology=api.Topology.flat(1)),
+                         "cfree_expand", expect_launches=row["launches"]
+                         ["cfree_expand"], profile=False)
+    same = torch.equal(flat["edges"][0], host_edges[0]) and \
+        torch.equal(flat["edges"][1], host_edges[1])
+    emit({"phase": "ba_cfree_1b_executors_agree", "host_executor":
+          row["executor"], "flat1_executor": flat["executor"],
+          "identical": same})
+    if not same or row["executor"] != "cfree_stream" or \
+            flat["executor"] != "cfree_stream_sharded":
+        raise AssertionError("ba_cfree_1b: the two stream executors differ")
+    del host_edges, flat
+    torch.cuda.empty_cache()
+    prof = profile_run(torch, api, spec, dev, "cfree_expand_kernel",
+                       expect_calls=row["launches"]["cfree_expand"])
+    emit({"phase": "ba_cfree_1b_profile",
+          **{k: prof[k] for k in ("wall_s", "profiled_runs", "attempts",
+                                  "device_events", "complete",
+                                  "kernel_calls", "kernel_device_s",
+                                  "kernels_busy_s",
+                                  "device_idle_share_of_wall")},
+          "top_device_ops": prof["top_device_ops"][:6]})
+    torch.cuda.empty_cache()
+
+    # Shard sink at reduced depth: np.savez_compressed writes ~10 MB/s, so
+    # a full-width write of pk_3b (28 GB) or ba_cfree_1b (8 GB) would take
+    # far past the time limit.
+    out_root = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_root, exist_ok=True)
+    for label, spec in (
+            ("pk_shards_L7", api.preset("pk_3b", levels=7)),
+            ("ba_cfree_shards_2m", api.preset("ba_cfree_1b",
+                                              cfree_vertices=2_000_000))):
+        res = api.generate(spec, device=dev)
+        digest = edge_digest(res.edges.src, res.edges.dst)
+        requested = res.stats.requested_edges
+        del res
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_shards_", dir=out_root)
+        try:
+            t0 = time.perf_counter()
+            sres = api.generate(spec.replace(sink="shards",
+                                             out_dir=out_dir), device=dev)
+            wall = time.perf_counter() - t0
+            row = {"phase": label, "requested_edges": requested,
+                   "wall_s": wall, "num_shards": sres.manifest["num_shards"],
+                   "dropped_edges": sres.stats.dropped_edges,
+                   "disk_bytes": sum(
+                       os.path.getsize(os.path.join(out_dir, f))
+                       for f in os.listdir(out_dir)),
+                   "memory_sha256": digest}
+            row.update(resume_check(torch, api, edge_digest, spec, dev,
+                                    out_dir, digest))
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        emit(row)
     return launches
 
 
@@ -634,6 +1068,7 @@ def main() -> int:
     cases = kernel_cases(torch, np, dev, SEED, pl.num_procs,
                          spec.vertices_per_proc, spec.edges_per_vertex,
                          pl.round_capacity, BLOCK_CAP)
+    cases += pk_cfree_kernel_cases(torch, dev)
 
     # 3. the JAX package's reference digests
     with open(os.path.join(src, "repro_torch",
@@ -748,7 +1183,11 @@ def main() -> int:
     stream_launches = streamed_phases(torch, api, dispatch, ops, edge_digest,
                                       dev, host_multiset)
 
-    # 6. the kernels line and the last line
+    # 6. PK and the communication-free family
+    pk_cfree_launches = pk_cfree_phases(torch, api, dispatch, ops,
+                                        edge_digest, dev)
+
+    # 7. the kernels line and the last line
     table = {
         "resolve_step": ("src/repro/kernels/edge_resolve.py:87",
                          "src/repro_torch/kernels/csrc/gather.cu",
@@ -766,23 +1205,52 @@ def main() -> int:
         "band_compact": ("src/repro/kernels/band_compact.py:107",
                          "src/repro_torch/kernels/csrc/band_compact.cu",
                          "band_compact round"),
+        "pk_expand": ("src/repro/kernels/pk_expand.py:72",
+                      "src/repro_torch/kernels/csrc/pk_expand.cu",
+                      "pk_expand slab"),
+        "cfree_expand": ("src/repro/kernels/cfree_expand.py:74",
+                         "src/repro_torch/kernels/csrc/cfree_expand.cu",
+                         "cfree_expand ba_cfree slab"),
     }
+    # Each kernel's main path: the PBA kernels' the streamed PBA run (their
+    # host-path counts beside it), pk_expand's the pk_3b stream,
+    # cfree_expand's the ba_cfree_1b stream; other paths' counts beside.
+    main_launches = {**stream_launches,
+                     "pk_expand": pk_cfree_launches["pk_3b_stream"]
+                     ["pk_expand"],
+                     "cfree_expand": pk_cfree_launches[
+                         "ba_cfree_1b_stream_host"]["cfree_expand"]}
+    no_library = {
+        "band_compact": "no single PyTorch call computes a per-row, "
+                        "-1-padded stable compaction",
+        "pk_expand": "no single PyTorch call computes a mixed-radix "
+                     "Kronecker expansion",
+        "cfree_expand": "no single PyTorch call computes the uint32 hash "
+                        "chains"}
     kernels = []
     for name, (replaces, source, headline) in table.items():
         mine = [c for c in cases if c["kernel"] == name]
         head = [c for c in mine if c["case"].startswith(headline)][-1]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": stream_launches[name],
-            "launches_host_path": host_launches[name],
+            "replaces": replaces, "launches": main_launches[name],
             "max_abs_err": max(c["max_abs_diff"] for c in mine),
-            "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+            "ms": head.get("kernel_device_ms", head["kernel_ms"]),
+            "ms_from": "profiled device time per launch"
+            if "kernel_device_ms" in head else "CUDA events",
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "timed_case": head["case"]})
-        if name == "band_compact":
-            kernels[-1]["library_ms_note"] = (
-                "no single PyTorch call computes a per-row, -1-padded "
-                "stable compaction")
+        if name in STREAM_PATH_KERNELS:
+            kernels[-1]["launches_host_path"] = host_launches[name]
+        if name in no_library:
+            kernels[-1]["library_ms_note"] = no_library[name]
+    kernels[-2]["launches_other_paths"] = {
+        k: v["pk_expand"] for k, v in pk_cfree_launches.items()
+        if k.startswith("pk_")}
+    kernels[-1]["launches_other_paths"] = {
+        k: v["cfree_expand"] for k, v in pk_cfree_launches.items()
+        if not k.startswith("pk_")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

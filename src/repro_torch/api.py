@@ -13,11 +13,19 @@ Entry points run on the current CUDA device and raise when there is none;
 plain PyTorch path on the CPU. The device is a keyword, not a spec field:
 every field of a spec is part of its digest.
 
-Ported so far: ``model="pba"`` with ``execution="host"`` (P logical
-processors on one device) and ``execution="streamed"`` (the host-driven
-stream, or the device-resident stream on ``Topology.flat(1)``), into
-memory or into resumable shards. Everything else raises
-``NotImplementedError`` naming the ROADMAP item that will port it.
+Ported so far, each into memory or into resumable shards:
+
+  * ``model="pba"`` with ``execution="host"`` (P logical processors on
+    one device) and ``execution="streamed"`` (the host-driven stream, or
+    the device-resident stream on ``Topology.flat(1)``);
+  * ``model="pk"`` with ``execution="host"`` and ``"streamed"``
+    (``PKStream``);
+  * ``model="ba_cfree" | "rmat" | "er"`` with ``execution="host"`` and
+    ``"streamed"`` (``CFreeStream`` on ``Topology.host()`` or
+    ``Topology.flat(1)``).
+
+Sharded execution, and streams over more than one device, raise
+``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -26,13 +34,17 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.core import cfree as cfree_lib
 from repro_torch.core import factions as factions_lib
 from repro_torch.core import pba as pba_lib
+from repro_torch.core import pk as pk_lib
 from repro_torch.core import storage as storage_lib
 from repro_torch.core import stream as stream_lib
+from repro_torch.core.cfree import CFreeConfig
 from repro_torch.core.factions import FactionSpec, FactionTable, validate_table
 from repro_torch.core.graph import EdgeList, GenStats
 from repro_torch.core.pba import PBAConfig
+from repro_torch.core.pk import PKConfig, SeedGraph
 from repro_torch.core.spec import EXECUTIONS, MODELS, SINKS, GraphSpec
 from repro_torch.runtime import spmd, streaming
 from repro_torch.runtime.topology import Topology
@@ -40,18 +52,11 @@ from repro_torch.runtime.topology import Topology
 __all__ = ["GraphSpec", "GenPlan", "GenResult", "plan", "generate",
            "preset", "PRESETS", "Topology", "FactionSpec"]
 
-_NOT_PORTED = {
-    "pk": "ROADMAP Queue 1 item 11 (PK)",
-    "ba_cfree": "ROADMAP Queue 1 item 10 (communication-free family)",
-    "rmat": "ROADMAP Queue 1 item 10 (communication-free family)",
-    "er": "ROADMAP Queue 1 item 10 (communication-free family)",
-    "sharded": "ROADMAP Queue 1 item 9 (multi-GPU)",
-}
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
+    """The error for a path over more than one device (not ported yet)."""
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: {_NOT_PORTED[key]}")
+        f"{what} is not ported to repro_torch yet: ROADMAP Queue 1 item 9 "
+        "(multi-GPU)")
 
 
 # --- plan ---------------------------------------------------------------------
@@ -82,9 +87,9 @@ class GenPlan:
     device_bytes: int           # rough per-device working set
     host_bytes: int             # rough host-RAM working set
     disk_bytes: int             # rough on-disk size (0 for memory sink)
-    config: PBAConfig
+    config: Union[PBAConfig, PKConfig, CFreeConfig]
     table: Optional[FactionTable] = None
-    seed_graph: None = None
+    seed_graph: Optional[SeedGraph] = None
     block_bytes: int = 0        # streamed: per-round gathered block
     overlap_bytes: int = 0      # streamed: extra in-flight double-buffer
     device: Optional[torch.device] = None
@@ -195,7 +200,7 @@ def _resolve_execution(spec: GraphSpec, divisible: bool,
             "sharded execution needs a device topology, got "
             "Topology.host(); use execution='host'")
     if ex == "sharded":
-        raise _not_ported(f"execution={ex!r}", ex)
+        raise _not_ported(f"execution={ex!r}")
     return ex
 
 
@@ -217,8 +222,7 @@ def _streamed_pba_topology(spec: GraphSpec, num_procs: int,
             return Topology.host(), num_procs, "pba_stream"
         topo = Topology.flat(d)
     if topo.num_devices != 1:
-        raise _not_ported(f"streamed execution over {topo.label}",
-                          "sharded")
+        raise _not_ported(f"streamed execution over {topo.label}")
     return topo, topo.lp(num_procs), "pba_stream_sharded"
 
 
@@ -294,6 +298,103 @@ def _plan_pba(spec: GraphSpec, device: torch.device) -> GenPlan:
                    overlap_bytes=overlap_bytes, device=device)
 
 
+def _plan_pk(spec: GraphSpec, device: torch.device) -> GenPlan:
+    if spec.levels < 1:
+        raise ValueError(f"pk needs levels >= 1, got {spec.levels}")
+    seed_graph = spec.seed_graph or pk_lib.star_clique_seed(5)
+    SeedGraph.validate(seed_graph)
+    cfg = PKConfig(levels=spec.levels, noise=spec.noise,
+                   delete_prob=spec.delete_prob, seed=spec.seed)
+    n, e = pk_lib.pk_sizes(seed_graph, cfg)
+    if n > 2**31 - 1:
+        raise ValueError(
+            f"n0^L = {n} exceeds int32 vertex-id space "
+            f"(n0={seed_graph.num_vertices}, L={cfg.levels})")
+    execution = _resolve_execution(spec, divisible=True, device=device)
+    if execution == "streamed" and spec.topology is not None \
+            and not spec.topology.is_host:
+        raise ValueError(
+            f"pk streamed execution is host-driven (slabs are already "
+            f"communication-free); it cannot run over device topology "
+            f"{spec.topology.label} — use execution='sharded' for "
+            "on-device expansion or drop the topology")
+    topo, num_procs, lp = Topology.host(), 1, 1
+    chunk = spec.slab_edges if execution == "streamed" else e
+    executor = ("pk_stream" if execution == "streamed"
+                else "generate_pk_host")
+    if chunk > 2**31 - 1:
+        raise ValueError(
+            f"per-device chunk {chunk} exceeds int32 — shard over more "
+            "devices or use streamed execution with a smaller slab_edges")
+
+    # Expansion materializes (L, m) digit planes plus the (m,) outputs
+    # (the JAX package's estimate; the kernel holds no digit planes).
+    device_bytes = 4 * chunk * (2 * cfg.levels + 4)
+    host_bytes = 8 * e if spec.sink == "memory" else 8 * chunk
+    disk_bytes = 8 * e if spec.sink == "shards" else 0
+    block_bytes = 8 * min(spec.slab_edges, e) \
+        if execution == "streamed" else 0
+    return GenPlan(spec=spec, model="pk", execution=execution,
+                   sink=spec.sink, executor=executor, topology=topo,
+                   num_procs=num_procs, lp=lp, num_vertices=n,
+                   requested_edges=e, pair_capacity=0, exchange_rounds=1,
+                   round_capacity=0, urn_budget=0,
+                   device_bytes=device_bytes, host_bytes=host_bytes,
+                   disk_bytes=disk_bytes, config=cfg,
+                   seed_graph=seed_graph, block_bytes=block_bytes,
+                   device=device)
+
+
+def _plan_cfree(spec: GraphSpec, device: torch.device) -> GenPlan:
+    cfg = CFreeConfig(model=spec.model, vertices=spec.cfree_vertices,
+                      edges=spec.cfree_edges, ba_degree=spec.ba_degree,
+                      rmat_a=spec.rmat_a, rmat_b=spec.rmat_b,
+                      rmat_c=spec.rmat_c, seed=spec.seed)
+    CFreeConfig.validate(cfg)
+    n, e = cfree_lib.cfree_sizes(cfg)
+    p_req = spec.procs
+    d = spmd.device_count(device)
+    execution = _resolve_execution(
+        spec, divisible=True if spec.topology is not None or p_req == 0
+        else p_req % max(d, 1) == 0, device=device)
+
+    # Working set per logical rank: the index vector, the endpoint pair,
+    # and the ba chain-resolution temporaries — a handful of int32 arrays
+    # of the rank's chunk, no pools, no round buffers, no exchange (the
+    # JAX package's estimate).
+    block_bytes = 0
+    if execution == "streamed":
+        topo = spec.topology
+        if topo is None and d > 1:
+            topo = Topology.flat(d)
+        if topo is not None and not topo.is_host:
+            if topo.num_devices != 1:
+                raise _not_ported(f"streamed execution over {topo.label}")
+            p, lp, executor = 1, 1, "cfree_stream_sharded"
+        else:
+            topo, p, lp = Topology.host(), 1, 1
+            executor = "cfree_stream"
+        slab = min(spec.slab_edges, e) if e else 0
+        block_bytes = 8 * slab
+        device_bytes = 4 * -(-slab // max(topo.num_devices, 1)) * 6
+    else:
+        topo, lp = Topology.host(), max(p_req, 1)
+        p = lp
+        executor = "generate_cfree_host"
+        device_bytes = 4 * e * 6
+    host_bytes = (block_bytes if execution == "streamed"
+                  and spec.sink == "shards" else 8 * e)
+    disk_bytes = 8 * e if spec.sink == "shards" else 0
+    return GenPlan(spec=spec, model=spec.model, execution=execution,
+                   sink=spec.sink, executor=executor, topology=topo,
+                   num_procs=p, lp=lp, num_vertices=n,
+                   requested_edges=e, pair_capacity=0, exchange_rounds=0,
+                   round_capacity=0, urn_budget=0,
+                   device_bytes=device_bytes, host_bytes=host_bytes,
+                   disk_bytes=disk_bytes, config=cfg,
+                   block_bytes=block_bytes, device=device)
+
+
 def plan(spec: GraphSpec, *, device=None) -> GenPlan:
     """Compile a :class:`GraphSpec` into a validated :class:`GenPlan` for
     ``device`` (default: the current CUDA device; raises without one).
@@ -309,9 +410,11 @@ def plan(spec: GraphSpec, *, device=None) -> GenPlan:
         raise ValueError(f"unknown sink {spec.sink!r}: one of {SINKS}")
     if spec.sink == "shards" and not spec.out_dir:
         raise ValueError("sink='shards' needs out_dir")
-    if spec.model != "pba":
-        raise _not_ported(f"model={spec.model!r}", spec.model)
-    return _plan_pba(spec, device)
+    if spec.model == "pba":
+        return _plan_pba(spec, device)
+    if spec.model == "pk":
+        return _plan_pk(spec, device)
+    return _plan_cfree(spec, device)
 
 
 # --- generate -----------------------------------------------------------------
@@ -322,7 +425,13 @@ def _edges_from_stream(stream, device: torch.device, overlap: bool = True
 
     The device stream is drained double-buffered (block i+1's round in
     flight while block i is gathered), and its blocks stay on the device;
-    the host-driven stream's numpy blocks are copied there once."""
+    PK and communication-free blocks are made on the device and copied
+    into one preallocated output there; the host-driven stream's numpy
+    blocks are copied to the device once."""
+    if hasattr(stream, "block_on_device"):
+        src, dst = stream_lib.drain_on_device(stream, device)
+        edges = EdgeList(src=src, dst=dst, num_vertices=stream.num_vertices)
+        return edges, stream_lib.stream_stats(stream, int(src.numel()))
     srcs, dsts = [], []
     if hasattr(stream, "dispatch_block"):
         def gather(i, handle):
@@ -347,6 +456,15 @@ def _edges_from_stream(stream, device: torch.device, overlap: bool = True
 
 
 def _make_stream(pl: GenPlan):
+    if pl.model == "pk":
+        return stream_lib.PKStream(pl.seed_graph, pl.config,
+                                   slab_edges=pl.spec.slab_edges,
+                                   device=pl.device)
+    if pl.model != "pba":
+        return cfree_lib.CFreeStream(
+            pl.config, slab_edges=pl.spec.slab_edges,
+            topology=pl.topology if pl.executor == "cfree_stream_sharded"
+            else None, device=pl.device)
     if pl.executor == "pba_stream_sharded":
         return stream_lib.PBAShardedStream(
             pl.config, pl.table, topology=pl.topology,
@@ -387,8 +505,15 @@ def generate(plan_or_spec: Union[GenPlan, GraphSpec], *,
         return GenResult(plan=pl, stats=stats, edges=edges,
                          stream_meta=stream.meta())
 
-    edges, stats = pba_lib.generate_pba_host(pl.config, pl.table,
-                                             device=pl.device)
+    if pl.model == "pba":
+        edges, stats = pba_lib.generate_pba_host(pl.config, pl.table,
+                                                 device=pl.device)
+    elif pl.model == "pk":
+        edges, stats = pk_lib.generate_pk_host(pl.seed_graph, pl.config,
+                                               device=pl.device)
+    else:
+        edges, stats = cfree_lib.generate_cfree_host(pl.config,
+                                                     device=pl.device)
     result = GenResult(plan=pl, stats=stats, edges=edges)
     if pl.sink == "shards":
         result.manifest = storage_lib.write_shards(

@@ -1,7 +1,7 @@
 """Carry generation state across from the JAX package's objects.
 
-This system has no weights: its state is the faction table and the
-config. These helpers rebuild the port's objects from the reference's
+This system has no weights: its state is the faction table, the PK seed
+graph and the configs. These helpers rebuild the port's objects from the reference's
 numpy arrays and dataclass fields (plain Python values), without importing
 the reference, so a test can feed both packages the same state.
 """
@@ -11,14 +11,18 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.cfree import CFreeConfig
 from repro_torch.core.factions import FactionSpec, FactionTable
 from repro_torch.core.pba import PBAConfig
+from repro_torch.core.pk import PKConfig
 from repro_torch.core.spec import GraphSpec, SeedGraph
 from repro_torch.runtime.topology import Topology
 
-# Dataclasses a spec may nest, by class name (the names the digest uses).
+# Dataclasses a spec (or spec_digest) may nest, by class name (the names
+# the digest uses).
 _PORT_CLASSES = {c.__name__: c
-                 for c in (FactionSpec, FactionTable, SeedGraph, Topology)}
+                 for c in (FactionSpec, FactionTable, SeedGraph, Topology,
+                           PKConfig, CFreeConfig)}
 
 
 def faction_table_from_numpy(procs, s, factions=()) -> FactionTable:
@@ -33,6 +37,23 @@ def faction_table_from_numpy(procs, s, factions=()) -> FactionTable:
 def pba_config_from_fields(fields: dict) -> PBAConfig:
     """A PBAConfig from the reference PBAConfig's field values."""
     return PBAConfig(**fields)
+
+
+def pk_config_from_fields(fields: dict) -> PKConfig:
+    """A PKConfig from the reference PKConfig's field values."""
+    return PKConfig(**fields)
+
+
+def cfree_config_from_fields(fields: dict) -> CFreeConfig:
+    """A CFreeConfig from the reference CFreeConfig's field values."""
+    return CFreeConfig(**fields)
+
+
+def seed_graph_from_numpy(u, v, num_vertices: int) -> SeedGraph:
+    """A SeedGraph from the reference seed's (e0,) ``u`` / ``v`` arrays
+    and vertex count."""
+    return SeedGraph(np.asarray(u, np.int32), np.asarray(v, np.int32),
+                     int(num_vertices))
 
 
 def _port_value(value):

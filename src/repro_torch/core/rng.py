@@ -84,26 +84,32 @@ def device_key(seed: Union[int, Key], stream: int, rank: int) -> Key:
     return fold_in(fold_in(k, stream), rank)
 
 
-def bits(k: Key, shape: Union[int, Sequence[int]],
-         device=None) -> torch.Tensor:
+def bits(k: Key, shape: Union[int, Sequence[int]], device=None,
+         offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(k, shape, uint32)`` as an int64 tensor of words.
 
     Element i (row-major flat index) is drawn on its own, so prefixes are
-    stable across sizes.
+    stable across sizes. With ``offset``, the result holds the flat
+    elements ``[offset, offset + n)`` of a larger draw of the same key,
+    bit for bit: a draw too large for memory is made chunk by chunk.
     """
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     n = 1
     for s in shape:
         n *= int(s)
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    offset = int(offset)
+    if offset < 0:
+        raise ValueError(f"offset must be >= 0, got {offset}")
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     x0, x1 = threefry2x32(k, i >> 32, i & MASK32)
     return (x0 ^ x1).reshape(shape)
 
 
-def uniform(k: Key, shape: Union[int, Sequence[int]],
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(k, shape)``: float32 in [0, 1)."""
-    b = (bits(k, shape, device) >> 9) | 0x3F800000
+def uniform(k: Key, shape: Union[int, Sequence[int]], device=None,
+            offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape)``: float32 in [0, 1); ``offset`` as
+    in :func:`bits`."""
+    b = (bits(k, shape, device, offset) >> 9) | 0x3F800000
     return b.to(torch.int32).view(torch.float32) - 1.0
 
 
@@ -113,10 +119,12 @@ def uniform_slots(k: Key, n: int, bounds: torch.Tensor) -> torch.Tensor:
     return (b % bounds.to(torch.int64)).to(torch.int32)
 
 
-def coin(k: Key, n: int, prob: float, device=None) -> torch.Tensor:
-    """Bernoulli(prob) coin flips as bool (n,), compared in float32."""
+def coin(k: Key, n: int, prob: float, device=None,
+         offset: int = 0) -> torch.Tensor:
+    """Bernoulli(prob) coin flips as bool (n,), compared in float32;
+    ``offset`` as in :func:`bits`."""
     p = torch.tensor(prob, dtype=torch.float32, device=device)
-    return uniform(k, n, device) < p
+    return uniform(k, n, device, offset) < p
 
 
 def uniform_ints(k: Key, n: int, upper: int, device=None) -> torch.Tensor:

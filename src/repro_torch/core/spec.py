@@ -8,7 +8,7 @@ is not part of the spec (it is a keyword of ``api.plan``/``api.generate``),
 because every field here is hashed.
 
 Also here: a copy of the PK seed-graph dataclass :class:`SeedGraph`, which
-a spec may carry. PK generation itself is not ported yet.
+a spec may carry (``core/pk.py`` re-exports it).
 """
 from __future__ import annotations
 
@@ -98,8 +98,9 @@ class GraphSpec:
     seed_graph, noise, delete_prob, slab_edges); the communication-free
     knobs (cfree_vertices, cfree_edges, ba_degree, rmat_a/b/c); and the
     common seed, topology, execution, sink, out_dir, num_shards, overlap.
-    This package generates ``model="pba"`` with ``execution="host"`` so
-    far; ``api.plan`` refuses the rest with the ROADMAP item that ports it.
+    This package generates every model with ``execution="host"`` and
+    ``"streamed"`` on one device; ``api.plan`` refuses sharded execution
+    with the ROADMAP item that ports it.
     """
 
     model: str

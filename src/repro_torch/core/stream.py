@@ -1,6 +1,8 @@
-"""Out-of-core streaming PBA: edge blocks from the generator to a sink.
+"""Out-of-core streaming: edge blocks from the generator to a sink.
 
-The JAX package's ``core/stream.py`` (the PBA streams) in torch. Each
+The JAX package's ``core/stream.py`` (the PBA streams and ``PKStream``)
+in torch; the communication-free stream is ``core/cfree.py``'s
+``CFreeStream``. Each PBA
 stream serves deterministic, independently regenerable blocks: block
 ``r`` is exactly the set of edges whose request rank falls in round r's
 window ``[r*C_r, (r+1)*C_r)``. Two drivers give bit-identical blocks, so
@@ -15,6 +17,10 @@ package's streams of the same spec):
     stay on the device, every round's grant, transpose, band lookup,
     census and compaction run there, and only the round's kept edges
     cross to the host.
+
+:class:`PKStream` expands one slab of the Kronecker index range per
+block on the device. It and ``CFreeStream`` keep their blocks on the
+device for the memory sink (:func:`drain_on_device`).
 
 :func:`stream_to_shards` drives a stream into ``storage.ShardWriter``; a
 preempted run restarts by regenerating only the blocks the manifest says
@@ -31,12 +37,13 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import pba
+from repro_torch.core import pba, pk
 from repro_torch.core import storage
 from repro_torch.core.factions import FactionTable, validate_table
 from repro_torch.core.graph import GenStats
 from repro_torch.core.pba import PBAConfig
-from repro_torch.core.spec import spec_digest
+from repro_torch.core.pk import PKConfig
+from repro_torch.core.spec import SeedGraph, spec_digest
 from repro_torch.kernels import ops
 from repro_torch.runtime import blocking, spmd, streaming
 from repro_torch.runtime.topology import Topology
@@ -380,6 +387,98 @@ class PBAShardedStream:
         for i in range(self.num_blocks):
             src, dst = self.block(i)
             yield EdgeBlock(i, src, dst)
+
+
+class PKStream:
+    """Per-slab streaming PK: contiguous index ranges, zero communication.
+
+    Block ``i`` covers edge indices [i*slab_edges, (i+1)*slab_edges); the
+    slab start is digit-decomposed exactly on the host, so block
+    generation needs only int32 device arithmetic (the ``pk_expand``
+    kernel) whatever the global edge count. The slab index doubles as the
+    RNG rank, so blocks are deterministic given (cfg.seed, slab_edges) —
+    independent of how many were already written. Every block expands the
+    full slab width (the noise draws are (levels, slab_edges) per block,
+    as in the JAX package) and keeps its first ``m`` edges. Blocks stay on
+    the device (:meth:`block_on_device`); :meth:`block` copies one to the
+    host.
+    """
+
+    def __init__(self, seed: SeedGraph, cfg: PKConfig,
+                 slab_edges: int = 1 << 20, *, device=None):
+        SeedGraph.validate(seed)
+        if slab_edges < 1:
+            raise ValueError(f"slab_edges must be >= 1, got {slab_edges}")
+        if slab_edges > 2**31 - 1:
+            raise ValueError(f"slab_edges {slab_edges} exceeds int32")
+        self.seed = seed
+        self.cfg = cfg
+        self.slab_edges = slab_edges
+        n, e = pk.pk_sizes(seed, cfg)
+        if n > 2**31 - 1:
+            raise ValueError(f"n0^L = {n} exceeds int32 vertex-id space")
+        self.num_vertices = n
+        self.requested_edges = e
+        self.num_blocks = -(-e // slab_edges)
+        self.exchange_rounds = 1
+        self.device = spmd.resolve_device(device)
+        self._su, self._sv = pk.seed_tables(seed, self.device)
+        self._t = torch.arange(slab_edges, dtype=torch.int32,
+                               device=self.device)
+
+    def meta(self) -> dict:
+        # spec_digest covers the seed graph's actual edge arrays: two seeds
+        # with the same (n0, e0) but different edges produce the same
+        # legacy meta and manifest shapes, and only the digest stops a
+        # resume from interleaving their shards.
+        return {"generator": "pk", "seed": self.cfg.seed,
+                "levels": self.cfg.levels, "noise": self.cfg.noise,
+                "delete_prob": self.cfg.delete_prob,
+                "slab_edges": self.slab_edges,
+                "spec_digest": spec_digest(self.seed, self.cfg,
+                                           self.slab_edges)}
+
+    def block_on_device(self, i: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Block ``i``'s kept (src, dst) int32 tensors on the device."""
+        if not 0 <= i < self.num_blocks:
+            raise ValueError(f"block {i} out of range [0, {self.num_blocks})")
+        t0 = i * self.slab_edges
+        base = pk.decompose_base(t0, self.seed.num_edges, self.cfg.levels)
+        u, v = pk.expand_chunk(self._t, base, self._su, self._sv,
+                               self.seed.num_vertices, self.seed.num_edges,
+                               self.cfg.levels, self.cfg, rank=i)
+        m = min(self.slab_edges, self.requested_edges - t0)
+        u, v = u[:m], v[:m]
+        keep = (u >= 0) & (v >= 0)
+        return u[keep], v[keep]
+
+    def block(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        u, v = self.block_on_device(i)
+        return u.cpu().numpy(), v.cpu().numpy()
+
+    def iter_blocks(self) -> Iterator[EdgeBlock]:
+        for i in range(self.num_blocks):
+            src, dst = self.block(i)
+            yield EdgeBlock(i, src, dst)
+
+
+def drain_on_device(stream, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """All of a stream's blocks, made on the device by
+    ``stream.block_on_device``, copied in order into one preallocated
+    (requested_edges,) pair on ``device`` and returned as views of the
+    kept prefix. Peak memory is the output plus one block: no list of
+    blocks and no concatenation."""
+    src = torch.empty(stream.requested_edges, dtype=torch.int32,
+                      device=device)
+    dst = torch.empty_like(src)
+    n = 0
+    for i in range(stream.num_blocks):
+        u, v = stream.block_on_device(i)
+        k = u.numel()
+        src[n:n + k] = u
+        dst[n:n + k] = v
+        n += k
+    return src[:n], dst[:n]
 
 
 def stream_stats(stream, emitted: int) -> GenStats:

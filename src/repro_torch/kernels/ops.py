@@ -11,12 +11,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import rng as rng_lib
 from repro_torch.kernels import band_compact as _band_compact
+from repro_torch.kernels import cfree_expand as _cfree_expand
 from repro_torch.kernels import edge_resolve
 from repro_torch.kernels import histogram as _histogram
+from repro_torch.kernels import pk_expand as _pk_expand
 
 _COUNTERS = (edge_resolve.launches, _histogram.launches,
-             _band_compact.launches)
+             _band_compact.launches, _pk_expand.launches,
+             _cfree_expand.launches)
+
+#: Words per chunk of PK's noise draws: a (levels, m) draw is made
+#: ``DRAW_CHUNK`` flat elements at a time (``rng.bits``'s ``offset``), so
+#: its int64 temporaries stay ~0.5 GiB each whatever the edge count.
+DRAW_CHUNK = 1 << 26
 
 #: Kernel-fallback counters, keyed like the JAX package's. Never written.
 FALLBACK_EVENTS: dict[str, int] = {}
@@ -64,3 +73,51 @@ def band_compact(u: torch.Tensor, v: torch.Tensor, band: torch.Tensor,
     """Per row, the band-selected (u, v) pairs stably at the front, -1
     elsewhere, truncated to ``block_cap`` columns."""
     return _band_compact.band_compact(u, v, band, block_cap)
+
+
+def pk_expand(t_local: torch.Tensor, base_digits, seed_u: torch.Tensor,
+              seed_v: torch.Tensor, n0: int, e0: int, levels: int,
+              noise: float, delete_prob: float, seed: int, rank: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kronecker expansion with the JAX package's ``ops.pk_expand``
+    contract: with ``noise``, each (level, edge) digit is redrawn with
+    that probability (keys ``(seed, STREAM_PK_NOISE_*, rank)``); with
+    ``delete_prob``, each edge becomes (-1, -1) with that probability
+    (key ``(seed, STREAM_PK_XOR, rank)``). Draws are made on the tensor's
+    device, the flat (levels, m) draws in chunks of ``DRAW_CHUNK``."""
+    m = t_local.shape[0]
+    dev = t_local.device
+    flip = redraw = None
+    if noise > 0.0:
+        ckey = rng_lib.device_key(seed, rng_lib.STREAM_PK_NOISE_COIN, rank)
+        dkey = rng_lib.device_key(seed, rng_lib.STREAM_PK_NOISE_DIGIT, rank)
+        flip = torch.empty((levels, m), dtype=torch.bool, device=dev)
+        redraw = torch.empty((levels, m), dtype=torch.int32, device=dev)
+        flat_flip, flat_redraw = flip.view(-1), redraw.view(-1)
+        for a in range(0, levels * m, DRAW_CHUNK):
+            n = min(DRAW_CHUNK, levels * m - a)
+            flat_flip[a:a + n] = rng_lib.coin(ckey, n, noise, dev, offset=a)
+            flat_redraw[a:a + n] = (rng_lib.bits(dkey, n, dev, offset=a)
+                                    % e0).to(torch.int32)
+    u, v = _pk_expand.pk_expand(t_local, base_digits, seed_u, seed_v, n0,
+                                e0, levels, flip, redraw)
+    del flip, redraw
+    if delete_prob > 0.0:
+        delkey = rng_lib.device_key(seed, rng_lib.STREAM_PK_XOR, rank)
+        for a in range(0, m, DRAW_CHUNK):
+            n = min(DRAW_CHUNK, m - a)
+            # deleted where uniform < delete_prob (kept where >=)
+            gone = rng_lib.coin(delkey, n, delete_prob, dev, offset=a)
+            u[a:a + n].masked_fill_(gone, -1)
+            v[a:a + n].masked_fill_(gone, -1)
+    return u, v
+
+
+def cfree_expand(t: torch.Tensor, words, *, model: str, n: int,
+                 ba_degree: int, thresholds) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """Communication-free endpoints of (m,) int32 global edge indices, pure
+    in (words, t): ``core.cfree.cfree_endpoints``'s contract."""
+    return _cfree_expand.cfree_expand(t, words, model=model, n=n,
+                                      ba_degree=ba_degree,
+                                      thresholds=thresholds)

@@ -8,6 +8,11 @@ from __future__ import annotations
 
 import torch
 
+#: Edges per chunk of the elementwise plain versions: each edge is pure in
+#: its inputs, so chunking bounds the int64 temporaries without changing
+#: a value.
+CHUNK = 1 << 24
+
 
 def resolve_step_ref(ptr: torch.Tensor) -> torch.Tensor:
     """One pointer-doubling pass along the last axis: ptr'[j] = ptr[ptr[j]].
@@ -55,3 +60,71 @@ def band_compact_ref(u: torch.Tensor, v: torch.Tensor, band: torch.Tensor,
     uu = torch.gather(torch.where(band, u, -1), -1, order)
     vv = torch.gather(torch.where(band, v, -1), -1, order)
     return uu, vv
+
+
+def pk_expand_ref(t_local: torch.Tensor, base_digits, seed_u: torch.Tensor,
+                  seed_v: torch.Tensor, n0: int, e0: int, levels: int,
+                  flip: torch.Tensor | None = None,
+                  redraw: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mixed-radix Kronecker edge expansion of (m,) int32 local indices.
+
+    Base-e0 digits of ``t_local`` (LSB first), a carry add of the (L,)
+    MSB-first ``base_digits`` of the range start, optional noise (where
+    the (L, m) bool ``flip`` is set, the digit becomes ``redraw``'s), then
+    ``u = sum_i seed_u[d_i] * n0^(L-1-i)`` by Horner in int32 (likewise
+    ``v``). The JAX package's ``ref.pk_expand_ref``, in chunks of edges.
+    """
+    m = t_local.shape[0]
+    dev = t_local.device
+    base = [int(d) for d in base_digits]
+    su, sv = seed_u.to(dev).long(), seed_v.to(dev).long()
+    u = torch.empty(m, dtype=torch.int32, device=dev)
+    v = torch.empty(m, dtype=torch.int32, device=dev)
+    for a in range(0, m, CHUNK):
+        rem = t_local[a:a + CHUNK]
+        carry = torch.zeros_like(rem)
+        digits = [None] * levels                # MSB first
+        for i in range(levels):                 # LSB -> MSB
+            row = rem % e0 + base[levels - 1 - i] + carry
+            rem = rem // e0
+            carry = (row >= e0).to(torch.int32)
+            digits[levels - 1 - i] = row - carry * e0
+        uu = torch.zeros_like(carry)
+        vv = torch.zeros_like(carry)
+        for i in range(levels):
+            d = digits[i]
+            if flip is not None:
+                d = torch.where(flip[i, a:a + CHUNK], redraw[i, a:a + CHUNK],
+                                d)
+            d = d.long()
+            uu = uu * n0 + su[d].to(torch.int32)
+            vv = vv * n0 + sv[d].to(torch.int32)
+        u[a:a + CHUNK] = uu
+        v[a:a + CHUNK] = vv
+    return u, v
+
+
+def cfree_expand_ref(t: torch.Tensor, words, *, model: str, n: int,
+                     ba_degree: int, thresholds: tuple
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Communication-free endpoints of (m,) int32 global edge indices via
+    the plain functions of ``core/cfree.py`` (which hold the math), in
+    chunks of edges."""
+    from repro_torch.core import cfree
+    m = t.shape[0]
+    u = torch.empty(m, dtype=torch.int32, device=t.device)
+    v = torch.empty(m, dtype=torch.int32, device=t.device)
+    for a in range(0, m, CHUNK):
+        tc = t[a:a + CHUNK]
+        if model == "ba_cfree":
+            uu = torch.div(tc, ba_degree, rounding_mode="floor")
+            vv = cfree.ba_dst(words, tc, ba_degree)
+        elif model == "rmat":
+            uu, vv = cfree.rmat_endpoints(words, tc, n.bit_length() - 1,
+                                          *thresholds)
+        else:
+            uu, vv = cfree.er_endpoints(words, tc, n)
+        u[a:a + CHUNK] = uu
+        v[a:a + CHUNK] = vv
+    return u, v

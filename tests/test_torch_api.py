@@ -95,6 +95,49 @@ def test_plan_fields_match(name):
     assert "generate_pba_host" in tp.describe()
 
 
+PK_CFREE_PLANS = {
+    "pk_smoke": ("pk_smoke", {}),
+    "pk_smoke_streamed": ("pk_smoke", dict(execution="streamed",
+                                           slab_edges=4096)),
+    "pk_3b": ("pk_3b", {}),
+    "rmat_smoke": ("rmat_smoke", {}),
+    "ba_cfree_1b": ("ba_cfree_1b", {}),
+    "ba_cfree_1b_flat1": ("ba_cfree_1b", dict(topology="flat_1x1")),
+    "er": ("rmat_smoke", dict(model="er", cfree_vertices=50000,
+                              cfree_edges=100000, procs=3)),
+    "er_shards": ("rmat_smoke", dict(model="er", cfree_vertices=5000,
+                                     cfree_edges=70000, sink="shards",
+                                     out_dir="/nonexistent/plan-only")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PK_CFREE_PLANS))
+def test_pk_and_cfree_plan_fields_match(name):
+    """Plans only (pk_3b and ba_cfree_1b are paper-scale): every GenPlan
+    field, the config and the seed graph equal the reference's."""
+    preset, overrides = PK_CFREE_PLANS[name]
+    jover, tover = dict(overrides), dict(overrides)
+    if "topology" in overrides:
+        topo = tapi.Topology.from_label(overrides["topology"])
+        jover["topology"] = JTopology(topo.axis_names, topo.axis_sizes)
+        tover["topology"] = topo
+    jp = japi.plan(japi.preset(preset, **jover))
+    tp = tapi.plan(tapi.preset(preset, **tover), device="cpu")
+    for f in dataclasses.fields(jp):
+        if f.name in ("spec", "config", "table", "topology", "seed_graph"):
+            continue
+        assert getattr(tp, f.name) == getattr(jp, f.name), f.name
+    assert tp.topology.label == jp.topology.label
+    assert type(tp.config).__name__ == type(jp.config).__name__
+    assert dataclasses.asdict(tp.config) == dataclasses.asdict(jp.config)
+    if jp.seed_graph is None:
+        assert tp.seed_graph is None
+    else:
+        np.testing.assert_array_equal(tp.seed_graph.u, jp.seed_graph.u)
+        np.testing.assert_array_equal(tp.seed_graph.v, jp.seed_graph.v)
+    assert tp.executor in tp.describe()
+
+
 def test_generate_on_cpu_matches_reference():
     spec = dict(procs=6, vertices_per_proc=400, edges_per_vertex=3, seed=11,
                 factions="block:3", pair_capacity=96)
@@ -160,13 +203,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("spec,item", [
-    (dict(model="pk", levels=3), "item 11"),
-    (dict(model="rmat", cfree_vertices=64, cfree_edges=64), "item 10"),
+    (dict(model="pk", levels=3, execution="sharded"), "item 9"),
+    (dict(model="rmat", cfree_vertices=64, cfree_edges=64,
+          execution="sharded"), "item 9"),
     (dict(model="pba", procs=4, vertices_per_proc=10, edges_per_vertex=2,
           execution="streamed", topology=tapi.Topology.flat(2)), "item 9"),
     (dict(model="pba", procs=4, vertices_per_proc=10, edges_per_vertex=2,
           execution="sharded"), "item 9"),
-    (dict(model="pk", levels=3, execution="streamed"), "item 11"),
+    (dict(model="ba_cfree", cfree_vertices=64, execution="streamed",
+          topology=tapi.Topology.flat(2)), "item 9"),
 ])
 def test_unported_paths_name_their_roadmap_item(spec, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -129,6 +129,20 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         ops.band_compact(t, t[:, :3].contiguous(), t > 0, 3)
     with pytest.raises(ValueError):
         ops.band_compact(t, t, t > 0, 0)
+    from repro_torch.kernels import cfree_expand, pk_expand
+    tab = torch.zeros(5, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        pk_expand.pk_expand(t[0].long(), [0, 0], tab, tab, 2, 5, 2)
+    with pytest.raises(ValueError):
+        pk_expand.pk_expand(t[0], [0, 0], tab[:4], tab, 2, 5, 2)
+    with pytest.raises(ValueError):
+        pk_expand.pk_expand(t[0], [0, 7], tab, tab, 2, 5, 2)
+    with pytest.raises(TypeError):
+        cfree_expand.cfree_expand(t[0].long(), [1, 2, 3, 4], model="er",
+                                  n=5, ba_degree=1, thresholds=(0, 0, 0))
+    with pytest.raises(ValueError):
+        cfree_expand.cfree_expand(t[0], [1, 2, 3], model="er", n=5,
+                                  ba_degree=1, thresholds=(0, 0, 0))
 
 
 @pytest.mark.parametrize("name,overrides", [
@@ -147,6 +161,110 @@ def test_generate_on_the_card_equals_the_cpu(dev, name, overrides):
     # and band compaction belongs to the device stream)
     assert min(launches[k] for k in ("resolve_step", "gather",
                                      "histogram")) > 0, launches
+    assert torch.equal(on_card.edges.src.cpu(), on_cpu.edges.src)
+    assert torch.equal(on_card.edges.dst.cpu(), on_cpu.edges.dst)
+    assert on_card.stats == on_cpu.stats
+
+
+def _pk_inputs(rng, m, n0, levels, dev, seed_graph=None):
+    """Registry-style PK kernel inputs: local indices, the digits of a
+    random range start and the seed's tables on ``dev``."""
+    from repro_torch.core import pk
+    seed = seed_graph or pk.star_clique_seed(n0)
+    e0 = seed.num_edges
+    hi = min(e0 ** levels, 2**31 - 1)
+    t = _int32(rng, (m,), 0, max(hi - m, 1), dev)
+    base = pk.decompose_base(int(rng.integers(0, max(hi // 2, 1))), e0,
+                             levels)
+    su, sv = pk.seed_tables(seed, dev)
+    return seed, t, base, su, sv
+
+
+@pytest.mark.parametrize("m,n0,levels,noise", [
+    (1, 3, 2, False), (100, 3, 2, False), (3000, 5, 4, False),
+    (2048, 6, 3, True), (1 << 20, 5, 10, False), (300_001, 5, 9, True)])
+def test_pk_expand_matches_plain(dev, m, n0, levels, noise):
+    from repro_torch.kernels import pk_expand
+    rng = np.random.default_rng(m * 13 + n0 * 7 + levels)
+    seed, t, base, su, sv = _pk_inputs(rng, m, n0, levels, dev)
+    e0 = seed.num_edges
+    flip = redraw = None
+    if noise:
+        flip = torch.from_numpy(rng.random((levels, m)) < 0.3).to(dev)
+        redraw = _int32(rng, (levels, m), 0, e0, dev)
+    before = ops.launch_counts()["pk_expand"]
+    got = pk_expand.pk_expand(t, base, su, sv, n0, e0, levels, flip, redraw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["pk_expand"] == before + 1
+    want = ref.pk_expand_ref(t, base, su, sv, n0, e0, levels, flip, redraw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("noise", [False, True])
+def test_pk_expand_tables_past_shared_memory(dev, noise):
+    """A dense seed with e0 = 8000 > 4096 entries per table reads the
+    tables through the read-only cache, in the same kernel."""
+    from repro_torch.core import pk
+    from repro_torch.kernels import pk_expand
+    rng = np.random.default_rng(8000 + noise)
+    seed_graph = pk.dense_power_seed(40, 200, seed=3)
+    levels, m = 3, 50_000
+    seed, t, base, su, sv = _pk_inputs(rng, m, 40, levels, dev,
+                                       seed_graph)
+    e0 = seed.num_edges
+    assert e0 == 8000
+    flip = redraw = None
+    if noise:
+        flip = torch.from_numpy(rng.random((levels, m)) < 0.5).to(dev)
+        redraw = _int32(rng, (levels, m), 0, e0, dev)
+    got = pk_expand.pk_expand(t, base, su, sv, 40, e0, levels, flip, redraw)
+    want = ref.pk_expand_ref(t, base, su, sv, 40, e0, levels, flip, redraw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,model,n,degree", [
+    (1, "ba_cfree", 64, 3), (100, "ba_cfree", 64, 3),
+    (3000, "ba_cfree", 4096, 2), (1 << 20, "ba_cfree", 250_000_000, 4),
+    (2048, "rmat", 1024, 2), (1 << 20, "rmat", 1 << 26, 2),
+    (1500, "er", 777, 2), (1 << 20, "er", 1 << 26, 2)])
+def test_cfree_expand_matches_plain(dev, m, model, n, degree):
+    from repro_torch.core import cfree
+    from repro_torch.kernels import cfree_expand
+    e = n * degree if model == "ba_cfree" else max(m, 1 << 30)
+    cfg = cfree.CFreeConfig(model=model, vertices=n, edges=e,
+                            ba_degree=degree, seed=m * 7 + n)
+    words = cfree.cfree_words(cfg)
+    th = cfree.rmat_thresholds(cfg)
+    rng = np.random.default_rng(m * 29 + n)
+    t = _int32(rng, (m,), 0, e, dev)
+    before = ops.launch_counts()["cfree_expand"]
+    got = cfree_expand.cfree_expand(t, words, model=model, n=n,
+                                    ba_degree=degree, thresholds=th)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cfree_expand"] == before + 1
+    want = ref.cfree_expand_ref(t, words, model=model, n=n,
+                                ba_degree=degree, thresholds=th)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name,overrides,kernel", [
+    ("pk_smoke", {}, "pk_expand"),
+    ("pk_smoke", dict(execution="streamed", slab_edges=977,
+                      delete_prob=0.1), "pk_expand"),
+    ("rmat_smoke", {}, "cfree_expand"),
+    ("rmat_smoke", dict(execution="streamed", slab_edges=4000,
+                        topology=api.Topology.flat(1)), "cfree_expand"),
+    ("ba_cfree_1b", dict(cfree_vertices=20_000, slab_edges=977),
+     "cfree_expand"),
+])
+def test_pk_and_cfree_on_the_card_equal_the_cpu(dev, name, overrides,
+                                                kernel):
+    spec = api.preset(name, **overrides)
+    ops.reset_launch_counts()
+    on_card = api.generate(spec, device=dev)
+    launches = ops.launch_counts()
+    on_cpu = api.generate(spec, device="cpu")
+    assert launches[kernel] >= 1, launches
     assert torch.equal(on_card.edges.src.cpu(), on_cpu.edges.src)
     assert torch.equal(on_card.edges.dst.cpu(), on_cpu.edges.dst)
     assert on_card.stats == on_cpu.stats

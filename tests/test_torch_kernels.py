@@ -115,9 +115,13 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.gather(t, t)
     ops.histogram(t, 4)
     ops.band_compact(t[None], t[None], t[None] > 3, 4)
+    ops.pk_expand(t, [0, 0], t[:3], t[:3], 2, 3, 2, 0.5, 0.5, 1, 0)
+    ops.cfree_expand(t, [1, 2, 3, 4], model="ba_cfree", n=5, ba_degree=2,
+                     thresholds=(0, 0, 0))
     assert ops.launch_counts() == {"resolve_step": 0, "gather": 0,
                                    "gather_chunked": 0, "histogram": 0,
-                                   "band_compact": 0}
+                                   "band_compact": 0, "pk_expand": 0,
+                                   "cfree_expand": 0}
     assert ops.fallback_counts() == {}
 
 
