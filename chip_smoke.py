@@ -11,12 +11,15 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
  2. kernels: each kernel wrapper against its plain PyTorch version on the
     card, at the main paths' shapes, on inputs drawn from
     numpy.random.default_rng(SEED) (the PK noise inputs from a torch
-    generator seeded with SEED); exact equality is required (integer
-    kernels, tolerance 0). Kernel, plain and library-call times are CUDA
-    event medians of 7 runs after 2 warm-ups (the plain versions over 2^30
-    edges: their one comparison run); the PK and communication-free cases
-    add the kernel's profiled device time per launch, which leaves out
-    the host's launch overhead. Bounds: bytes over the memory rate, or
+    generator seeded with SEED; resolve_roots on the main path's own
+    phase-1 urns and phase-2 pools, beside the doubling passes it
+    replaced); exact equality is required (integer kernels, tolerance
+    0). Kernel, plain and library-call times are CUDA event medians of 7
+    runs after 2 warm-ups (the plain versions over 2^30 edges: their one
+    comparison run; resolve_roots: each run on a fresh copy of the urn,
+    the plain version and the replaced design 3 runs); the PK and
+    communication-free cases add the kernel's profiled device time per
+    launch, which leaves out the host's launch overhead. Bounds: bytes over the memory rate, or
     32-bit integer operations over the INT32 rate, the larger.
  3. reference digests: generate() on the card for the specs in
     src/repro_torch/reference_digests.json (made by the JAX package: PBA
@@ -359,6 +362,108 @@ def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
     return results
 
 
+def doubling_resolve(torch, ops, ptr, terminal):
+    """The urn resolve that resolve_roots replaced (the JAX package's
+    resolve_pointers, and the port's earlier design): one ops.resolve_step
+    pass per doubling round while any entry of any row misses a terminal
+    slot, checked row by row on the host before every round. Returns
+    (ptr, rounds)."""
+    def all_terminal(p):
+        for i in range(p.shape[0]):
+            t = terminal[i] if terminal.ndim == 2 else terminal
+            if not bool(t[p[i].long()].all()):
+                return False
+        return True
+
+    rounds = 0
+    while rounds < 64 and not all_terminal(ptr):
+        ptr = ops.resolve_step(ptr)
+        rounds += 1
+    return ptr, rounds
+
+
+def resolve_cases(torch, pl) -> list[dict]:
+    """resolve_roots against its plain version on the main path's own
+    urns, built by the port's _phase1_urn / _phase2_pool_urn for every
+    rank of the plan: the phase-1 urns (P, E) and the phase-2 pools
+    (P, E + t_cap). The kernel works in place, so every timed run starts
+    from a fresh copy of the unresolved urn (the copy is not timed).
+    Beside it, the design it replaced (:func:`doubling_resolve`), timed
+    the same way, with its doubling rounds; its result must be the same.
+    Bound: bytes, the pointer array read once and written once."""
+    from repro_torch.core import pba
+    from repro_torch.kernels import edge_resolve, ops, ref
+    from repro_torch.runtime import blocking
+
+    cfg, table, dev = pl.config, pl.table, pl.device
+    p = table.num_procs
+    ranks = torch.arange(p, dtype=torch.int32, device=dev)
+    e_local = cfg.edges_per_proc
+    t_cap = cfg.total_capacity_factor * e_local
+
+    def phase1_urns():
+        ptr, terminal, _ = blocking.map_logical(
+            lambda r, fr, ss: pba._phase1_urn(r, fr, ss, cfg, p), ranks,
+            torch.from_numpy(table.procs).to(dev),
+            torch.from_numpy(table.s).to(dev))
+        return ptr, terminal
+
+    def pool_urns():
+        ptr = blocking.map_logical(
+            lambda r: pba._phase2_pool_urn(r, cfg, t_cap, dev), ranks)
+        return ptr, torch.arange(e_local + t_cap, device=dev) < e_local
+
+    def timed(fn, urn, reps):
+        """Median CUDA-event ms of fn(work) with work a fresh copy of urn
+        (the first of reps + 1 runs is a warm-up), and the last result."""
+        times = []
+        for _ in range(reps + 1):
+            work = urn.clone()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(work)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            del work
+        return statistics.median(times[1:]), out
+
+    results = []
+    for label, make in (("phase-1 urns", phase1_urns),
+                        ("phase-2 pools", pool_urns)):
+        urn, terminal = make()
+        plain_ms, want = timed(ref.resolve_roots_ref, urn, 3)
+        kernel_ms, got = timed(edge_resolve.resolve_roots, urn, 7)
+        diff = max_abs_diff(torch, got, want)
+        del got
+        old_ms, (old, rounds) = timed(
+            lambda w: doubling_resolve(torch, ops, w, terminal), urn, 3)
+        old_diff = max_abs_diff(torch, old, want)
+        del old, want, urn, terminal
+        nbytes = 8 * p * (e_local if label.startswith("phase-1")
+                          else e_local + t_cap)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"case": f"resolve_roots {label}", "kernel": "resolve_roots",
+               "shape": [p, nbytes // (8 * p)], "max_abs_diff": diff,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": None, "bytes": nbytes, "int_ops": 0,
+               "bytes_bound_ms": bytes_ms, "ops_bound_ms": 0.0,
+               "bound_ms": bytes_ms, "bound_by": "bytes",
+               "previous_design_ms": old_ms,
+               "previous_design_rounds": rounds,
+               "previous_design_max_abs_diff": old_diff}
+        results.append(row)
+        emit({"phase": "kernel_case", **row})
+        if diff or old_diff:
+            raise AssertionError(f"resolve_roots {label}: kernel differs "
+                                 f"from plain ({diff}) or from the "
+                                 f"doubling passes ({old_diff})")
+        torch.cuda.empty_cache()
+    return results
+
+
 # --- phase 4: the main path -----------------------------------------------------
 
 def stage_times(torch, api, pl) -> dict:
@@ -466,8 +571,10 @@ def profile_run(torch, api, spec, dev, kernel: str = "",
 
 # --- phase 5: the streamed main path ---------------------------------------------
 
-HOST_PATH_KERNELS = ("resolve_step", "gather", "gather_chunked", "histogram")
+HOST_PATH_KERNELS = ("resolve_roots", "gather", "gather_chunked",
+                     "histogram")
 STREAM_PATH_KERNELS = HOST_PATH_KERNELS + ("band_compact",)
+URNS_PER_PBA_RUN = 2        # resolve_roots: the phase-1 urns and the pools
 
 
 def multiset_digest(torch, src, dst, num_vertices: int) -> str:
@@ -583,6 +690,10 @@ def streamed_phases(torch, api, dispatch, ops, edge_digest, dev,
         raise AssertionError(f"band_compact launched "
                              f"{launches['band_compact']} times for "
                              f"{num_blocks} blocks")
+    if launches["resolve_roots"] != URNS_PER_PBA_RUN:
+        raise AssertionError(f"resolve_roots launched "
+                             f"{launches['resolve_roots']} times in the "
+                             f"device stream's setup")
     digest = edge_digest(res.edges.src, res.edges.dst)
     kernel_src, kernel_dst = res.edges.src, res.edges.dst
     del res
@@ -686,17 +797,23 @@ PK_NOISE_LEVELS = 9         # the largest host execution the int32 check admits
 SLAB = 1 << 20              # GraphSpec.slab_edges default (pk_3b, ba_cfree_1b)
 RMAT_SCALE = 26             # Graph500 scale 26, edge factor 16
 # 32-bit integer operations per edge, counted from the kernels' source
-# (xor, add, shift, multiply, compare, select, / and % each count one; a
-# table lookup is a load). These are lower bounds: the card has no integer
-# divider, and a runtime-divisor / or % compiles to a short sequence.
+# (xor, add, shift, multiply, compare, select each count one; a table
+# lookup is a load). The card has no integer divider: a division by a
+# divisor known only at run time costs at least a multiply-high and a
+# shift, and its remainder a multiply-subtract, which is what pk_expand
+# now spends (cfree_expand's / and %, still hardware sequences, count one
+# each: a lower bound).
 HASH_OPS = 19               # (t^w0)+c, mix (8), ^w1, mix (8)
 BA_DRAW_OPS = HASH_OPS + 5  # bound 2j+1 (2), %, odd test (2)
 BA_EDGE_OPS = 3             # u = t/d; v = (r>>1)/d
 RMAT_LEVEL_OPS = HASH_OPS - 1 + 11  # t^w0 is common to the levels; 3
                                     # compares + 2 adds, u and v updates
 ER_EDGE_OPS = 2 * (HASH_OPS + 1)
-PK_LEVEL_OPS = 9            # %, /, base add, carry add, compare, subtract,
-                            # two multiply-adds, running power
+PK_LEVEL_OPS = 9            # multiply-high, shift, multiply-subtract (the
+                            # / and % by e0), base add, carry add, compare,
+                            # subtract, two multiply-adds; the powers of n0
+                            # come precomputed (the earlier design's count:
+                            # / and % one each and a running power, also 9)
 PK_NOISE_LEVEL_OPS = 2      # flip test and select
 
 
@@ -1068,6 +1185,7 @@ def main() -> int:
     cases = kernel_cases(torch, np, dev, SEED, pl.num_procs,
                          spec.vertices_per_proc, spec.edges_per_vertex,
                          pl.round_capacity, BLOCK_CAP)
+    cases += resolve_cases(torch, pl)
     cases += pk_cfree_kernel_cases(torch, dev)
 
     # 3. the JAX package's reference digests
@@ -1128,6 +1246,10 @@ def main() -> int:
     if min(host_launches[k] for k in HOST_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel of the host path never launched: "
                              f"{host_launches}")
+    if host_launches["resolve_roots"] != URNS_PER_PBA_RUN:
+        raise AssertionError(f"resolve_roots launched "
+                             f"{host_launches['resolve_roots']} times on "
+                             f"the host path")
     digest = edge_digest(res.edges.src, res.edges.dst)
     host_multiset = multiset_digest(torch, res.edges.src, res.edges.dst,
                                     st.num_vertices)
@@ -1189,6 +1311,9 @@ def main() -> int:
 
     # 7. the kernels line and the last line
     table = {
+        "resolve_roots": ("src/repro/kernels/edge_resolve.py:87",
+                          "src/repro_torch/kernels/csrc/resolve.cu",
+                          "resolve_roots phase-2 pools"),
         "resolve_step": ("src/repro/kernels/edge_resolve.py:87",
                          "src/repro_torch/kernels/csrc/gather.cu",
                          f"resolve_step {pl.num_procs}x"),
@@ -1221,6 +1346,8 @@ def main() -> int:
                      "cfree_expand": pk_cfree_launches[
                          "ba_cfree_1b_stream_host"]["cfree_expand"]}
     no_library = {
+        "resolve_roots": "no single PyTorch call computes the fixpoint of "
+                         "pointer chains",
         "band_compact": "no single PyTorch call computes a per-row, "
                         "-1-padded stable compaction",
         "pk_expand": "no single PyTorch call computes a mixed-radix "
@@ -1245,6 +1372,12 @@ def main() -> int:
             kernels[-1]["launches_host_path"] = host_launches[name]
         if name in no_library:
             kernels[-1]["library_ms_note"] = no_library[name]
+        if "previous_design_ms" in head:
+            kernels[-1]["previous_design"] = {
+                c["case"]: {k: c[k] for k in ("kernel_ms", "bound_ms",
+                                              "previous_design_ms",
+                                              "previous_design_rounds")}
+                for c in mine}
     kernels[-2]["launches_other_paths"] = {
         k: v["pk_expand"] for k, v in pk_cfree_launches.items()
         if k.startswith("pk_")}

@@ -6,9 +6,9 @@ The JAX package's ``core/pba.py`` in torch, bit-identical to it for the
 same config, faction table and pair capacity:
 
   phase 1 (local):  per-processor Pólya urn over *processor ids*, seeded
-                    with the processor's faction members, resolved by
-                    pointer doubling (the resolve kernel), then counted
-                    per target processor (the histogram kernel).
+                    with the processor's faction members, resolved to
+                    each chain's root in place (the resolve kernel), then
+                    counted per target processor (the histogram kernel).
   exchange 1:       the (P, P) counts transpose.
   phase 2 (local):  per-processor Pólya urn over local endpoint slots (the
                     pool), granted to requesters in request order (the
@@ -106,35 +106,27 @@ def default_pair_capacity(edges_per_proc: int, min_s: int,
     return c
 
 
-def _all_terminal(terminal: torch.Tensor, p: torch.Tensor) -> bool:
-    """Whether every entry of every row of ``p`` points at a terminal slot.
-
-    Checked row by row, so the int64 index copy is one row long.
-    ``terminal`` is (rows, m), or (m,) shared by every row."""
-    for i in range(p.shape[0]):
-        t = terminal[i] if terminal.ndim == 2 else terminal
-        if not bool(t[p[i].long()].all()):
-            return False
-    return True
-
-
 def resolve_pointers(ptr: torch.Tensor, terminal: torch.Tensor,
                      max_rounds: int = 64) -> torch.Tensor:
-    """Path-compress ``ptr`` (rows, m) until every entry lands on a
-    terminal slot.
+    """Resolve every slot of ``ptr`` (m,) or (rows, m) to the root of its
+    chain, in place (``ops.resolve_roots``: one kernel launch per urn).
 
-    ``ptr`` points strictly downward (ptr[j] < j for non-terminals) and
-    terminal slots are fixed points, so ``ptr <- ptr[ptr]`` doubles chain
-    progress per round. One round counter is shared by all rows and the
-    loop runs while any row is unresolved, as the JAX package's vmapped
-    while_loop does; a resolved row is a fixed point of the pass, so
-    passing it again changes nothing.
+    The JAX package's ``resolve_pointers`` runs ``ptr <- ptr[ptr]`` until
+    every entry lands on a terminal slot (at most ``max_rounds`` rounds)
+    and returns the pass's fixpoint: non-terminal slots point strictly
+    down (``uniform_slots`` draws U[0, j)) and terminal slots point at
+    themselves, so the fixpoint holds each chain's root. A self-pointing
+    slot that is not terminal (slot 0 of a phase-1 urn with no faction
+    seeds) makes the reference run all its rounds and still ends at that
+    fixpoint. Neither ``terminal`` nor the round count is needed here;
+    ``max_rounds`` below ``m.bit_length()`` could stop the reference short
+    of the fixpoint, and raises.
     """
-    rounds = 0
-    while rounds < max_rounds and not _all_terminal(terminal, ptr):
-        ptr = ops.resolve_step(ptr)
-        rounds += 1
-    return ptr
+    del terminal
+    if max_rounds < ptr.shape[-1].bit_length():
+        raise ValueError(f"max_rounds={max_rounds} may stop short of the "
+                         f"fixpoint of {ptr.shape[-1]} slots")
+    return ops.resolve_roots(ptr)
 
 
 def occurrence_rank(a: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("gather", "histogram", "band_compact", "pk_expand",
+SOURCES = ("gather", "resolve", "histogram", "band_compact", "pk_expand",
            "cfree_expand")
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,17 @@
-"""Gather kernel for PBA urn resolution, grants and receives.
+"""Kernels for PBA urn resolution, grants and receives.
 
-The primitive is ``values = src[clip(idx)]`` along the last axis: one
-pointer-doubling pass (``ptr'[j] = ptr[ptr[j]]``) is the case src == idx,
-the grant and receive lookups are the general case. One CUDA kernel,
-``csrc/gather.cu``, serves every entry point here.
+:func:`resolve_roots` resolves an urn completely, in place, in one launch
+of ``csrc/resolve.cu``: every slot gets the root of its pointer chain, the
+fixpoint of the doubling pass. It replaces the JAX package's
+``pba.resolve_pointers``, a while_loop of ``resolve_step_pallas`` passes;
+see the source's note.
+
+The gather primitive is ``values = src[clip(idx)]`` along the last axis:
+one pointer-doubling pass (``ptr'[j] = ptr[ptr[j]]``,
+:func:`resolve_step`) is the case src == idx, the grant and receive
+lookups are the general case. One CUDA kernel, ``csrc/gather.cu``, serves
+those entry points. No generator path calls :func:`resolve_step` any
+more; it stays as the one-pass entry point of the reference's contract.
 
 Replaces: the JAX package's ``kernels/edge_resolve.py`` —
 ``resolve_step_pallas`` (:87), ``gather_pallas`` (:110) and
@@ -15,14 +23,16 @@ its own launch count: ``ops.gather`` sends it the sources whose rows hold
 ``CHUNKED_MIN_ENTRIES`` or more (the grant lookups into the phase-2
 pools), where the TPU kernel would have swept slabs.
 
-Bound: bytes. A random 4-byte read of ``src`` per output plus a streamed
-read of ``idx`` and a streamed write of ``out``; see the source's note.
+Bound: bytes. Gathers: a random 4-byte read of ``src`` per output plus a
+streamed read of ``idx`` and a streamed write of ``out``. Resolve: the
+pointer array read once and written once.
 
 Each wrapper runs the plain version (from ``kernels/ref.py``) for a CPU
 tensor, launches the kernel for a CUDA tensor (counting the launch in
 :data:`launches`), and raises on anything the kernel does not take. It
-launches on the current stream, does not synchronise, and allocates its
-output with ``torch.empty``.
+launches on the current stream and allocates with ``torch.empty``; the
+gathers do not synchronise, :func:`resolve_roots` reads its error word
+once per launch.
 """
 from __future__ import annotations
 
@@ -34,16 +44,33 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import mode
 # The plain versions the wrappers run for CPU tensors (and the kernel is
 # held against on the card).
-from repro_torch.kernels.ref import gather_ref, resolve_step_ref
+from repro_torch.kernels.ref import (gather_ref, resolve_roots_ref,
+                                     resolve_step_ref)
 
 #: Kernel launches per wrapper since the last reset (plain integers).
-launches = {"resolve_step": 0, "gather": 0, "gather_chunked": 0}
+launches = {"resolve_roots": 0, "resolve_step": 0, "gather": 0,
+            "gather_chunked": 0}
 
 #: Source rows of this many entries or more (32 MiB of int32, a large
 #: share of the card's 50 MB L2) go to :func:`gather_chunked`.
 CHUNKED_MIN_ENTRIES = 1 << 23
 
 _c_fn = None
+_c_resolve = None
+
+
+def _resolve_fn():
+    global _c_resolve
+    if _c_resolve is None:
+        lib = _build.library("resolve")
+        fn = lib.repro_resolve_roots_i32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.repro_resolve_error.argtypes = [ctypes.c_int]
+        lib.repro_resolve_error.restype = ctypes.c_char_p
+        _c_resolve = (fn, lib.repro_resolve_error)
+    return _c_resolve
 
 
 def _fn():
@@ -86,6 +113,40 @@ def _launch(src: torch.Tensor, idx: torch.Tensor, rows: int, m: int,
         raise RuntimeError(
             f"gather kernel launch failed: {err(code).decode()} ({code})")
     return out
+
+
+def resolve_roots(ptr: torch.Tensor) -> torch.Tensor:
+    """Resolve every slot of an urn's pointers ptr (m,) or (rows, m) to
+    the root of its chain, in place, and return ``ptr``.
+
+    The contract is the fixpoint of the doubling pass, which is what the
+    JAX package's ``resolve_pointers`` returns: the urns point strictly
+    down from non-terminal slots and terminal slots point at themselves,
+    so the doubling fixpoint holds each chain's root. A pointer outside
+    [0, its slot] raises ``ValueError`` (on the card, after the launch,
+    from the kernel's error word; the urn is then left partly resolved).
+    """
+    if ptr.ndim not in (1, 2):
+        raise ValueError(f"resolve_roots takes (m,) or (rows, m), got "
+                         f"{tuple(ptr.shape)}")
+    if mode(ptr) == "ref":
+        return resolve_roots_ref(ptr)
+    _check_operand("ptr", ptr, ptr.device)
+    rows = 1 if ptr.ndim == 1 else ptr.shape[0]
+    err = torch.zeros(1, dtype=torch.int32, device=ptr.device)
+    fn, err_str = _resolve_fn()
+    with torch.cuda.device(ptr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(ptr.data_ptr(), err.data_ptr(), rows, ptr.shape[-1],
+                  stream)
+    if code:
+        raise RuntimeError(f"resolve kernel launch failed: "
+                           f"{err_str(code).decode()} ({code})")
+    launches["resolve_roots"] += 1
+    if int(err.item()):
+        raise ValueError("resolve_roots: a pointer lies outside [0, its "
+                         "slot]")
+    return ptr
 
 
 def resolve_step(ptr: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,12 @@ def reset_launch_counts() -> None:
             table[name] = 0
 
 
+def resolve_roots(ptr: torch.Tensor) -> torch.Tensor:
+    """Every slot of ptr (m,) or (rows, m) resolved to the root of its
+    chain, in place (the doubling pass's fixpoint); returns ``ptr``."""
+    return edge_resolve.resolve_roots(ptr)
+
+
 def resolve_step(ptr: torch.Tensor) -> torch.Tensor:
     """One ptr[ptr] pass along the last axis, (m,) or (rows, m)."""
     return edge_resolve.resolve_step(ptr)

@@ -11,13 +11,16 @@ Replaces: the JAX package's ``kernels/pk_expand.py::pk_expand_pallas``
 (:72, ``pallas_call`` at :107), both bodies: ``_expand_kernel`` (:35) and
 the noise variant ``_noise_wrapper`` (:119). The TPU kernel tiles edges as
 (8, 128) VREGs and looks the seed tables up by one-hot matmuls (Mosaic has
-no dynamic gather). On the card one thread expands one edge, the tables
-sit in shared memory (or, past 4096 entries each, behind the read-only
+no dynamic gather). On the card one thread expands four consecutive edges
+with vector loads and stores, divides by e0 with the multiplier of
+:func:`division_magic` (the card has no integer divider), the tables sit
+in shared memory (or, past 4096 entries each, behind the read-only
 cache), and a null ``flip`` selects the body without noise.
 
-Bound: integer operations at the paper's depths (about ten 32-bit ops per
-edge and level), bytes at small L (t read, u and v written: 12 B per
-edge, plus ``flip`` and ``redraw``: 5 B per edge and level).
+Bound: bytes (t read, u and v written: 12 B per edge; with noise,
+``flip``'s byte per edge and level and the ``redraw`` sectors that set
+flips touch), with the integer operations (nine per edge and level)
+close behind.
 
 The wrapper runs the plain version (``kernels/ref.py``) for a CPU tensor
 and launches the kernel for a CUDA tensor (counted in :data:`launches`);
@@ -50,13 +53,34 @@ def _fn():
         lib = _build.library("pk_expand")
         fn = lib.repro_pk_expand_i32
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] \
-            + [ctypes.c_int32] * 3 + [ctypes.c_int64, ctypes.c_void_p]
+            + [ctypes.c_int32] * 3 + [ctypes.c_uint32, ctypes.c_int32,
+                                      ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_pk_expand_error.argtypes = [ctypes.c_int]
         lib.repro_pk_expand_error.restype = ctypes.c_char_p
         _c_fn = (fn, int(lib.repro_pk_expand_max_levels()),
                  lib.repro_pk_expand_error)
     return _c_fn
+
+
+def division_magic(divisor: int) -> tuple[int, int]:
+    """The round-up multiplier of ``divisor`` (Granlund-Montgomery):
+    (magic, shift) with ``n // divisor == (n * magic) >> (32 + shift)``
+    for every 0 <= n < 2^31, which the kernel computes as
+    ``__umulhi(n, magic) >> shift``.
+
+    shift = ceil(log2 divisor) - 1 (0 for 1 and 2) and magic =
+    ceil(2^(32 + shift) / divisor). magic < 2^32 for every divisor >= 2;
+    its error magic * divisor - 2^(32 + shift) is below divisor <=
+    2^(shift + 1), so n * error < 2^(32 + shift) for n < 2^31 and the
+    quotient is exact with no add-back. For divisor 1 magic is 2^32,
+    which the kernel cannot hold: it takes e0 = 1 on its own (every digit
+    is 0).
+    """
+    if not 1 <= divisor < 2**31:
+        raise ValueError(f"divisor must lie in [1, 2^31), got {divisor}")
+    shift = max((divisor - 1).bit_length() - 1, 0)
+    return -(-(1 << (32 + shift)) // divisor), shift
 
 
 def _check(name: str, x: torch.Tensor, dtype, shape, dev) -> None:
@@ -111,16 +135,18 @@ def pk_expand(t_local: torch.Tensor, base_digits, seed_u: torch.Tensor,
     if m == 0:
         return u, v
     digits = (ctypes.c_int32 * levels)(*base.tolist())
+    magic, shift = division_magic(e0)
     with torch.cuda.device(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         stream = torch.cuda.current_stream().cuda_stream
-        # 8 blocks of 256 threads per SM, grid-stride over the edges.
+        # A block of 256 threads per 1024 edges, at most 8 per SM (then
+        # grid-stride over the edges).
         code = fn(t_local.data_ptr(), digits, seed_u.data_ptr(),
                   seed_v.data_ptr(),
                   flip.data_ptr() if flip is not None else None,
                   redraw.data_ptr() if redraw is not None else None,
-                  u.data_ptr(), v.data_ptr(), m, n0, e0, levels, 8 * sms,
-                  stream)
+                  u.data_ptr(), v.data_ptr(), m, n0, e0, levels,
+                  magic & 0xFFFFFFFF, shift, 8 * sms, stream)
     if code:
         raise RuntimeError(f"pk_expand kernel launch failed: "
                            f"{err(code).decode()} ({code})")

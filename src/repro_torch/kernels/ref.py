@@ -21,6 +21,30 @@ def resolve_step_ref(ptr: torch.Tensor) -> torch.Tensor:
     return torch.gather(ptr, -1, ptr.long())
 
 
+def resolve_roots_ref(ptr: torch.Tensor) -> torch.Tensor:
+    """The fixpoint of the doubling pass along the last axis of (m,) or
+    (rows, m): :func:`resolve_step_ref` passes until ``ptr[ptr] == ptr``,
+    so every slot holds the root of its chain.
+
+    Written into ``ptr`` in place, as the kernel does, and returned.
+    Raises ``ValueError`` on a pointer outside [0, its slot]: the urns
+    point downward, which is what makes the chains end.
+    """
+    j = torch.arange(ptr.shape[-1], dtype=ptr.dtype, device=ptr.device)
+    if bool(((ptr < 0) | (ptr > j)).any()):
+        raise ValueError("resolve_roots: a pointer lies outside [0, its "
+                         "slot]")
+    cur = ptr
+    while True:
+        nxt = resolve_step_ref(cur)
+        if torch.equal(nxt, cur):
+            break
+        cur = nxt
+    if cur is not ptr:
+        ptr.copy_(cur)
+    return ptr
+
+
 def gather_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[..., k] = src[..., clip(idx[..., k], 0, m-1)] along the last axis.
 

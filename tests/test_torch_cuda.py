@@ -46,6 +46,61 @@ def test_resolve_step_matches_plain(dev, rows, m):
     assert torch.equal(ops.resolve_step(ptr[0]), ref.resolve_step_ref(ptr[0]))
 
 
+def _urns(dev):
+    """The phase-1 urns and phase-2 pools of a small preset's ranks,
+    unresolved, on ``dev``."""
+    from repro_torch.core import pba
+    from repro_torch.runtime import blocking
+    pl = api.plan(api.preset("paper_smoke", procs=8, vertices_per_proc=3000),
+                  device=dev)
+    cfg, table, p = pl.config, pl.table, pl.num_procs
+    ranks = torch.arange(p, dtype=torch.int32, device=dev)
+    ptr, _, _ = blocking.map_logical(
+        lambda r, fr, ss: pba._phase1_urn(r, fr, ss, cfg, p), ranks,
+        torch.from_numpy(table.procs).to(dev),
+        torch.from_numpy(table.s).to(dev))
+    t_cap = cfg.total_capacity_factor * cfg.edges_per_proc
+    pool = blocking.map_logical(
+        lambda r: pba._phase2_pool_urn(r, cfg, t_cap, dev), ranks)
+    return ptr, pool
+
+
+def test_resolve_roots_matches_plain_on_urns(dev):
+    for urn in _urns(dev):
+        want = ref.resolve_roots_ref(urn.clone())
+        before = ops.launch_counts()["resolve_roots"]
+        got = ops.resolve_roots(urn)
+        torch.cuda.synchronize()
+        assert got is urn
+        assert ops.launch_counts()["resolve_roots"] == before + 1
+        assert torch.equal(got, want)
+        assert torch.equal(ops.resolve_roots(urn[0].clone()), want[0])
+
+
+def test_resolve_roots_single_chain_and_repeats(dev):
+    """ptr[j] = j - 1 at m = 100,003 (one chain, 17 doubling rounds), and
+    urn rows resolved three times: identical results every run."""
+    m = 100_003
+    chain = torch.arange(-1, m - 1, dtype=torch.int32, device=dev)
+    chain[0] = 0
+    assert torch.equal(ops.resolve_roots(chain.clone()),
+                       torch.zeros(m, dtype=torch.int32, device=dev))
+    pool = _urns(dev)[1]
+    runs = [ops.resolve_roots(pool.clone()) for _ in range(3)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[1], runs[2])
+    assert torch.equal(runs[0], ref.resolve_roots_ref(pool.clone()))
+
+
+def test_resolve_roots_raises_on_an_upward_pointer(dev):
+    ptr = torch.arange(5000, dtype=torch.int32, device=dev).repeat(3, 1)
+    ptr[2, 4000] = 4500
+    with pytest.raises(ValueError, match="outside"):
+        ops.resolve_roots(ptr)
+    ptr[2, 4000] = -3
+    with pytest.raises(ValueError, match="outside"):
+        ops.resolve_roots(ptr)
+
+
 @pytest.mark.parametrize("m,n", [(1, 7), (999, 1), (70_001, 123_457)])
 def test_gather_forms_match_plain(dev, m, n):
     rng = np.random.default_rng(m + n)
@@ -101,8 +156,9 @@ def test_device_stream_on_the_card_equals_the_cpu(dev):
     on_cpu = api.generate(spec, device="cpu")
     assert on_card.plan.executor == "pba_stream_sharded"
     assert launches["band_compact"] == on_card.stats.exchange_rounds
-    assert min(launches[k] for k in ("resolve_step", "gather",
-                                     "histogram")) > 0, launches
+    # one resolve per urn: the phase-1 urns and the pools
+    assert launches["resolve_roots"] == 2 and launches["resolve_step"] == 0
+    assert min(launches[k] for k in ("gather", "histogram")) > 0, launches
     assert torch.equal(on_card.edges.src.cpu(), on_cpu.edges.src)
     assert torch.equal(on_card.edges.dst.cpu(), on_cpu.edges.dst)
     assert on_card.stats == on_cpu.stats
@@ -158,9 +214,10 @@ def test_generate_on_the_card_equals_the_cpu(dev, name, overrides):
     launches = ops.launch_counts()
     on_cpu = api.generate(spec, device="cpu")
     # the host path's kernels (its sources stay below the chunked bound,
-    # and band compaction belongs to the device stream)
-    assert min(launches[k] for k in ("resolve_step", "gather",
-                                     "histogram")) > 0, launches
+    # and band compaction belongs to the device stream); one resolve per
+    # urn
+    assert launches["resolve_roots"] == 2 and launches["resolve_step"] == 0
+    assert min(launches[k] for k in ("gather", "histogram")) > 0, launches
     assert torch.equal(on_card.edges.src.cpu(), on_cpu.edges.src)
     assert torch.equal(on_card.edges.dst.cpu(), on_cpu.edges.dst)
     assert on_card.stats == on_cpu.stats
@@ -220,6 +277,76 @@ def test_pk_expand_tables_past_shared_memory(dev, noise):
     got = pk_expand.pk_expand(t, base, su, sv, 40, e0, levels, flip, redraw)
     want = ref.pk_expand_ref(t, base, su, sv, 40, e0, levels, flip, redraw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _pk_case(rng, m, n0, e0, levels, noise, dev):
+    """Random tables of e0 entries below n0, a random range start and
+    indices from the top million below e0^L (capped at 2^31 - 1; for
+    e0 = 1, whose digits are all 0 whatever t, below 2^31 - 1)."""
+    hi = 2**31 - 1 if e0 == 1 else min(e0 ** levels, 2**31 - 1)
+    t = _int32(rng, (m,), max(hi - max(m, 1_000_000), 0), hi, dev)
+    base = rng.integers(0, e0, levels).astype(np.int32)
+    su = _int32(rng, (e0,), 0, n0, dev)
+    sv = _int32(rng, (e0,), 0, n0, dev)
+    flip = redraw = None
+    if noise:
+        flip = torch.from_numpy(rng.random((levels, m)) < 0.3).to(dev)
+        redraw = _int32(rng, (levels, m), 0, e0, dev)
+    return t, base, su, sv, flip, redraw
+
+
+def _pk_equal(dev, t, base, su, sv, n0, e0, levels, flip, redraw):
+    from repro_torch.kernels import pk_expand
+    got = pk_expand.pk_expand(t, base, su, sv, n0, e0, levels, flip, redraw)
+    torch.cuda.synchronize()
+    want = ref.pk_expand_ref(t, base, su, sv, n0, e0, levels, flip, redraw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 4097])
+def test_pk_expand_vector_tail(dev, m, noise):
+    """m not a multiple of 4: the four-edge path and the one-edge tail
+    (with noise, flip rows that start off a word boundary)."""
+    rng = np.random.default_rng(m * 2 + noise)
+    t, base, su, sv, flip, redraw = _pk_case(rng, m, 5, 9, 6, noise, dev)
+    _pk_equal(dev, t, base, su, sv, 5, 9, 6, flip, redraw)
+
+
+@pytest.mark.parametrize("noise", [False, True])
+def test_pk_expand_misaligned_view(dev, noise):
+    rng = np.random.default_rng(31 + noise)
+    t, base, su, sv, flip, redraw = _pk_case(rng, 10_003, 5, 9, 7, noise,
+                                             dev)
+    tv = t[3:]                                # 12 bytes off 16
+    assert tv.data_ptr() % 16
+    if noise:
+        flip, redraw = flip[:, 3:].contiguous(), redraw[:, 3:].contiguous()
+    _pk_equal(dev, tv, base, su, sv, 5, 9, 7, flip, redraw)
+
+
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("n0,e0,levels", [
+    (7, 1, 5),                  # every digit 0
+    (64, 4097, 2),              # tables past shared memory
+    (40, 8000, 2),
+    (3, 5, 1),                  # L = 1
+    (3, 5, 64),                 # the kernel's most levels
+    (2, 2, 31)])
+def test_pk_expand_radix_and_depth_edges(dev, n0, e0, levels, noise):
+    rng = np.random.default_rng(e0 * 100 + levels + noise)
+    t, base, su, sv, flip, redraw = _pk_case(rng, 70_001, n0, e0, levels,
+                                             noise, dev)
+    _pk_equal(dev, t, base, su, sv, n0, e0, levels, flip, redraw)
+
+
+@pytest.mark.parametrize("noise", [False, True])
+def test_pk_expand_indices_near_int32_max(dev, noise):
+    rng = np.random.default_rng(77 + noise)
+    m = 50_000
+    _, base, su, sv, flip, redraw = _pk_case(rng, m, 5, 9, 10, noise, dev)
+    t = (2**31 - 1) - torch.arange(m, dtype=torch.int32, device=dev)
+    _pk_equal(dev, t, base, su, sv, 5, 9, 10, flip, redraw)
 
 
 @pytest.mark.parametrize("m,model,n,degree", [

@@ -41,6 +41,35 @@ def test_resolve_step_matches_pallas(m):
     np.testing.assert_array_equal(ops.resolve_step(pt).numpy(), want)
 
 
+@pytest.mark.parametrize("rows,m", [(1, 1), (1, 127), (3, 1000),
+                                    (2, 4097)])
+def test_resolve_roots_is_the_fixpoint_of_pallas_passes(rows, m):
+    """Urn-shaped pointers (downward, ~5% roots): resolve_roots equals
+    resolve_step_pallas (interpret mode) passed until nothing changes, and
+    writes it into its input."""
+    rng = np.random.default_rng(2000 + rows * m)
+    j = np.arange(m)
+    ptr = np.where(rng.random((rows, m)) < 0.05, j,
+                   rng.integers(0, np.maximum(j, 1), (rows, m))
+                   ).astype(np.int32)
+    want = []
+    for row in ptr:
+        p = jnp.asarray(row)
+        while True:
+            nxt = resolve_step_pallas(p, interpret=True)
+            if bool((nxt == p).all()):
+                break
+            p = nxt
+        want.append(np.asarray(p))
+    arg = torch.from_numpy(ptr.copy())
+    got = ops.resolve_roots(arg)
+    assert got is arg
+    np.testing.assert_array_equal(got.numpy(), np.stack(want))
+    np.testing.assert_array_equal(
+        ref.resolve_roots_ref(torch.from_numpy(ptr[0].copy())).numpy(),
+        want[0])
+
+
 @pytest.mark.parametrize("m,n", [(1, 5), (300, 2048), (4097, 1500)])
 def test_gather_matches_pallas(m, n):
     rng = np.random.default_rng(m * 7 + n)
@@ -111,6 +140,7 @@ def test_histogram_rows():
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.reset_launch_counts()
     t = torch.arange(10, dtype=torch.int32)
+    ops.resolve_roots(t.clone())
     ops.resolve_step(t)
     ops.gather(t, t)
     ops.histogram(t, 4)
@@ -118,7 +148,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.pk_expand(t, [0, 0], t[:3], t[:3], 2, 3, 2, 0.5, 0.5, 1, 0)
     ops.cfree_expand(t, [1, 2, 3, 4], model="ba_cfree", n=5, ba_degree=2,
                      thresholds=(0, 0, 0))
-    assert ops.launch_counts() == {"resolve_step": 0, "gather": 0,
+    assert ops.launch_counts() == {"resolve_roots": 0, "resolve_step": 0,
+                                   "gather": 0,
                                    "gather_chunked": 0, "histogram": 0,
                                    "band_compact": 0, "pk_expand": 0,
                                    "cfree_expand": 0}
@@ -147,6 +178,8 @@ def test_wrappers_reject_bad_shapes():
         ops.gather(t[0], t[1, :1])
     with pytest.raises(ValueError):
         ops.resolve_step(t)
+    with pytest.raises(ValueError):
+        ops.resolve_roots(t)
 
 
 def test_build_paths_are_content_hashed_and_ignored(monkeypatch):

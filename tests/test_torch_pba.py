@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro import api as japi
 from repro.core import pba as jpba
@@ -90,6 +91,156 @@ def test_resolve_pointers_matches_reference():
                                 torch.from_numpy(terminal))
     np.testing.assert_array_equal(got.numpy(), want)
     assert terminal[np.arange(3)[:, None], got.numpy()].all()
+
+
+def _jax_resolve(ptr, terminal):
+    """The JAX package's resolve_pointers, vmapped over rows as its
+    generators call it (a 1-D input goes in as it is)."""
+    fn = jpba.resolve_pointers if ptr.ndim == 1 \
+        else jax.vmap(jpba.resolve_pointers)
+    return np.asarray(fn(jnp.asarray(ptr), jnp.asarray(terminal)))
+
+
+def _resolve_case(name):
+    """(ptr, terminal) of a named chain layout."""
+    rng = np.random.default_rng(17)
+    if name == "chain_4097":                 # 12 doubling rounds
+        m = 4097
+        ptr = np.arange(-1, m - 1, dtype=np.int32)
+        ptr[0] = 0
+        terminal = np.arange(m) == 0
+    elif name == "rows_of_depths":          # depths 1, ~log m and m - 1
+        m = 3000
+        j = np.arange(m)
+        ptr = np.stack([np.zeros(m), rng.integers(0, np.maximum(j, 1)),
+                        np.maximum(j - 1, 0)]).astype(np.int32)
+        terminal = np.zeros((3, m), bool)
+        terminal[:, 0] = True
+    elif name == "roots_only":
+        m = 777
+        ptr = np.tile(np.arange(m, dtype=np.int32), (2, 1))
+        terminal = np.ones((2, m), bool)
+        terminal[1, 5:] = False              # roots that are not terminal
+    elif name == "self_loop_slot0":         # s = 0: the reference runs all
+        m = 1500                             # 64 rounds
+        j = np.arange(m)
+        ptr = rng.integers(0, np.maximum(j, 1), (2, m)).astype(np.int32)
+        terminal = rng.random((2, m)) < 0.05
+        terminal[:, 0] = False
+        ptr = np.where(terminal, j, ptr).astype(np.int32)
+    else:                                    # one_d
+        m = 5000
+        j = np.arange(m)
+        terminal = (rng.random(m) < 0.02) | (j == 0)
+        ptr = np.where(terminal, j, rng.integers(0, np.maximum(j, 1))
+                       ).astype(np.int32)
+    return ptr, terminal
+
+
+@pytest.mark.parametrize("name", ["chain_4097", "rows_of_depths",
+                                  "roots_only", "self_loop_slot0", "one_d"])
+def test_resolve_pointers_chain_layouts_match_reference(name):
+    """The port's one-launch resolve equals the reference's doubling
+    while_loop, in place, on chains the urns rarely draw."""
+    ptr, terminal = _resolve_case(name)
+    want = _jax_resolve(ptr, terminal)
+    arg = torch.from_numpy(ptr.copy())
+    got = tpba.resolve_pointers(arg, torch.from_numpy(terminal))
+    assert got.data_ptr() == arg.data_ptr()          # in place
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["paper_smoke", "hub_stress"])
+def test_resolve_pointers_on_the_urns_matches_reference(name):
+    """The real phase-1 urns and phase-2 pools of the preset's ranks."""
+    _, _, tcfg, ttab = _pinned(name)
+    p = ttab.num_procs
+    ranks = torch.arange(p, dtype=torch.int32)
+    e_local = tcfg.edges_per_proc
+    t_cap = tcfg.total_capacity_factor * e_local
+    from repro_torch.runtime import blocking
+    ptr, terminal, _ = blocking.map_logical(
+        lambda r, fr, ss: tpba._phase1_urn(r, fr, ss, tcfg, p), ranks,
+        torch.from_numpy(ttab.procs), torch.from_numpy(ttab.s))
+    pool = blocking.map_logical(
+        lambda r: tpba._phase2_pool_urn(r, tcfg, t_cap, CPU), ranks)
+    pool_terminal = np.broadcast_to(np.arange(e_local + t_cap) < e_local,
+                                    pool.shape)
+    for urn, term in ((ptr, terminal.numpy()), (pool, pool_terminal)):
+        want = _jax_resolve(urn.numpy(), term)
+        got = tpba.resolve_pointers(urn, torch.from_numpy(term.copy()))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _doubling_fixpoint(ptr):
+    p = ptr.copy()
+    while not np.array_equal(p[p], p):
+        p = p[p]
+    return p
+
+
+def _kernel_schedule(ptr, rng):
+    """One row through the resolve kernel's schedule, in numpy: the slots'
+    walks interleaved in a random order, one read per step; a walk that
+    reaches a self-pointer writes that root into its own slot. A read of
+    a slot already written returns the root or, at random, the pointer it
+    replaced (a relaxed load may see either)."""
+    orig, cur = ptr.copy(), ptr.copy()
+    written = np.zeros(ptr.shape[0], bool)
+    walks = {j: j for j in range(ptr.shape[0])}   # slot -> where it is
+    while walks:
+        j = list(walks)[rng.integers(len(walks))]
+        x = walks[j]
+        nxt = cur[x] if written[x] and rng.random() < 0.5 else orig[x]
+        if nxt == x:
+            if x != j:
+                cur[j], written[j] = x, True
+            del walks[j]
+        else:
+            walks[j] = nxt
+    return cur
+
+
+@settings(max_examples=150, deadline=None)
+@given(m=st.integers(1, 70), seed=st.integers(0, 2**32 - 1),
+       root_share=st.floats(0.0, 1.0))
+def test_kernel_schedule_reaches_the_doubling_fixpoint(m, seed, root_share):
+    """Whatever the interleaving of the walks and whichever of its two
+    values a written slot shows, every slot ends at the doubling pass's
+    fixpoint: the kernel's result does not depend on its schedule."""
+    rng = np.random.default_rng(seed)
+    j = np.arange(m)
+    ptr = np.where(rng.random(m) < root_share, j,
+                   rng.integers(0, j + 1)).astype(np.int32)
+    np.testing.assert_array_equal(_kernel_schedule(ptr, rng),
+                                  _doubling_fixpoint(ptr))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_kernel_schedule_on_deep_chains(seed):
+    rng = np.random.default_rng(100 + seed)
+    m = 2000
+    j = np.arange(m)
+    # mostly one step down: chains hundreds of slots deep
+    ptr = np.where(rng.random(m) < 0.9, np.maximum(j - 1, 0),
+                   rng.integers(0, j + 1)).astype(np.int32)
+    ptr[0] = 0
+    np.testing.assert_array_equal(_kernel_schedule(ptr, rng),
+                                  _doubling_fixpoint(ptr))
+
+
+@pytest.mark.parametrize("bad", [("up", 5, 7), ("negative", 3, -1)])
+def test_resolve_roots_plain_version_raises_on_a_bad_pointer(bad):
+    from repro_torch.kernels import ops, ref
+    _, slot, value = bad
+    ptr = torch.arange(10, dtype=torch.int32).repeat(2, 1)
+    ptr[1, slot] = value
+    with pytest.raises(ValueError, match="outside"):
+        ref.resolve_roots_ref(ptr.clone())
+    with pytest.raises(ValueError, match="outside"):
+        ops.resolve_roots(ptr[1].clone())
+    with pytest.raises(ValueError, match="fixpoint"):
+        tpba.resolve_pointers(ptr[0].clone(), ptr[0] >= 0, max_rounds=3)
 
 
 def test_phase1_and_pool_match_reference():

@@ -79,6 +79,30 @@ def test_pk_expand_matches_pallas(size):
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
+def test_division_magic_is_exact():
+    """The kernel's quotient, umulhi(n, magic) >> shift, emulated as
+    (n * magic) >> (32 + shift), equals // and % (by one multiply-subtract)
+    for every e0 in [1, 8192] at the edge numerators and 64 random ones
+    below 2^31, and for a few divisors up to 2^31 - 1."""
+    rng = np.random.default_rng(8192)
+    randoms = rng.integers(0, 2**31, 64, dtype=np.uint64)
+    divisors = list(range(1, 8193)) + [65_535, 2**24 + 1, 2**30 - 1,
+                                       2**30, 2**30 + 1, 2**31 - 1]
+    for e0 in divisors:
+        magic, shift = tpk_expand.division_magic(e0)
+        assert 0 <= shift <= 30 and (magic < 2**32 or e0 == 1)
+        n = np.concatenate([np.array([0, 1, e0 - 1, e0, min(e0 + 1,
+                                                             2**31 - 1),
+                                      2**31 - 1], np.uint64), randoms])
+        q = (n * np.uint64(magic)) >> np.uint64(32 + shift)
+        d = np.uint64(e0)
+        np.testing.assert_array_equal(q, n // d, err_msg=f"e0={e0}")
+        np.testing.assert_array_equal(n - q * d, n % d, err_msg=f"e0={e0}")
+    for bad in (0, 2**31):
+        with pytest.raises(ValueError):
+            tpk_expand.division_magic(bad)
+
+
 def test_pk_expand_plain_chunks_agree(monkeypatch):
     """Chunking the plain version along the edge axis changes no value."""
     case = _pk_expand_case(m=3000, n0=5, levels=4, noise=False)
