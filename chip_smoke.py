@@ -14,7 +14,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     generator seeded with SEED; resolve_roots on the main path's own
     phase-1 urns and phase-2 pools, beside the doubling passes it
     replaced); exact equality is required (integer kernels, tolerance
-    0). Kernel, plain and library-call times are CUDA event medians of 7
+    0). The gathers run both at uniform indices and at the PBA main path's
+    own grant and receive indices (rounds 0 and 5, built by the port's
+    pba functions); the latter are the kernels line's headline cases.
+    Kernel, plain and library-call times are CUDA event medians of 7
     runs after 2 warm-ups (the plain versions over 2^30 edges: their one
     comparison run; resolve_roots: each run on a fresh copy of the urn,
     the plain version and the replaced design 3 runs); the PK and
@@ -228,23 +231,61 @@ def run_case(torch, results, name, wrapper, plain, library, args, nbytes,
     return row
 
 
-def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
-                 round_cap: int, block_cap: int) -> list[dict]:
-    from repro_torch.kernels import band_compact, edge_resolve, histogram, ref
+def draw_ints(torch, np, gen, dev, rows: int, n: int, high):
+    """(rows, n) int32 uniform in [0, high) from the numpy generator's
+    words (``high`` an int or a tensor broadcast against a row)."""
+    out = torch.empty((rows, n), dtype=torch.int32, device=dev)
+    for r in range(rows):
+        w = gen.integers(0, 2**32, n, dtype=np.uint32).view(np.int32)
+        out[r] = ((torch.from_numpy(w).to(dev).long() & M32)
+                  % high).to(torch.int32)
+    return out
 
+
+def gather_bytes(torch, idx, rows: int, m: int) -> int:
+    """Bytes a gather of ``rows`` sources of ``m`` entries must move: idx
+    read and out written once each, and each distinct source entry that
+    this idx touches read once."""
+    flat = idx.reshape(rows, -1).clamp(0, m - 1).long()
+    flat += torch.arange(rows, device=idx.device)[:, None] * m
+    seen = torch.zeros(rows * m, dtype=torch.bool, device=idx.device)
+    seen[flat.view(-1)] = True
+    return 4 * (2 * idx.numel() + int(seen.sum()))
+
+
+GATHER_PATH_ROUNDS = (0, 5)     # the first round and a middle one
+
+
+def gather_cases(torch, np, pl, seed: int) -> list[dict]:
+    """gather and gather_chunked against their plain version, with
+    torch.gather (torch.take for the 1-D form) as the library call.
+
+    Uniform cases: indices drawn uniform (a few past both ends) at the
+    main path's shapes. Path cases: the indices the PBA main path itself
+    gathers with, for the plan ``pl``, built by the port's own functions:
+    pba_stream_setup_block's (a, occ, recv_counts), _phase2_pool's pools,
+    and for each round of GATHER_PATH_ROUNDS the grant lookup
+    (pba.grant_indices, into the pools: gather_chunked) and the receive
+    lookup (pba.receive_indices, into that round's grants transposed by
+    blocking.transpose_payload: gather). The headline cases of the
+    kernels line are the path cases of round 0."""
+    from repro_torch.core import pba
+    from repro_torch.kernels import edge_resolve, ref
+    from repro_torch.runtime import blocking
+    from repro_torch.runtime.topology import Topology
+
+    cfg, table, dev = pl.config, pl.table, pl.device
+    p = table.num_procs
+    e_local = cfg.edges_per_proc
+    t_cap = cfg.total_capacity_factor * e_local
+    pool_n = e_local + t_cap
+    c_r = pl.round_capacity
+    recv_n = p * c_r                 # one round's (P, C_r) buffer per rank
     gen = np.random.default_rng(seed)
-    e_local = vpp * k
-    pool_n = 3 * e_local                 # E + t_cap at total_capacity_factor 2
-    recv_n = procs * round_cap           # one round's (P, C_r) buffer per rank
+    results = []
 
-    def draw(rows: int, n: int, high) -> "torch.Tensor":
-        """(rows, n) int32 uniform in [0, high) from numpy words."""
-        out = torch.empty((rows, n), dtype=torch.int32, device=dev)
-        for r in range(rows):
-            w = gen.integers(0, 2**32, n, dtype=np.uint32).view(np.int32)
-            out[r] = ((torch.from_numpy(w).to(dev).long() & M32)
-                      % high).to(torch.int32)
-        return out
+    def draw(rows, n, high):
+        return draw_ints(torch, np, gen, dev, rows, n, high)
 
     def poke(idx, m):
         """A few indices past both ends exercise the clip contract."""
@@ -252,15 +293,88 @@ def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
         flat[:4] = torch.tensor([-1, -7, m, m + 100], dtype=torch.int32,
                                 device=dev)
 
-    def gather_bytes(idx, rows: int, m: int) -> int:
-        """Bytes a gather of ``rows`` sources of ``m`` entries must move:
-        idx read and out written once each, and each distinct source
-        entry that this idx touches read once."""
-        flat = idx.reshape(rows, -1).clamp(0, m - 1).long()
-        flat += torch.arange(rows, device=dev)[:, None] * m
-        seen = torch.zeros(rows * m, dtype=torch.bool, device=dev)
-        seen[flat.view(-1)] = True
-        return 4 * (2 * idx.numel() + int(seen.sum()))
+    def run(name, wrapper, src, idx, library, shape):
+        return run_case(torch, results, name, wrapper, ref.gather_ref,
+                        library, (src, idx),
+                        gather_bytes(torch, idx, src.shape[0], src.shape[-1]),
+                        shape)
+
+    # Grants: each rank's pool (P, E + t_cap) gathered at one round's
+    # (P, P*C_r) slots -- the port's batched form of the grant lookup.
+    src = draw(p, pool_n, 2**31)
+    gidx = draw(p, recv_n, pool_n)
+    poke(gidx, pool_n)
+    g64 = gidx.clamp(0, pool_n - 1).long()
+    run(f"gather_chunked rows {p}x{pool_n} <- {p}x{recv_n}",
+        edge_resolve.gather_chunked, src, gidx,
+        lambda: torch.gather(src, 1, g64), [p, pool_n, recv_n])
+    del g64
+
+    # The 1-D form: one shared source, indices of any rank.
+    src1 = src[0].contiguous()
+    idx3 = gidx.view(p, p, c_r)
+    i64 = idx3.reshape(-1).clamp(0, pool_n - 1).long()
+    run_case(torch, results, f"gather 1-D {pool_n} <- {p}x{p}x{c_r}",
+             edge_resolve.gather,
+             lambda s, i: ref.gather_ref(s, i.reshape(-1)).reshape(i.shape),
+             lambda: torch.take(src1, i64), (src1, idx3),
+             gather_bytes(torch, idx3, 1, pool_n), [pool_n, p, p, c_r])
+    del src, src1, idx3, i64, gidx
+    torch.cuda.empty_cache()
+
+    # Receives: each rank's (P*C_r) received buffer at its E edges.
+    rsrc = draw(p, recv_n, 2**31)
+    ridx = draw(p, e_local, recv_n)
+    poke(ridx, recv_n)
+    r64 = ridx.clamp(0, recv_n - 1).long()
+    run(f"gather rows {p}x{recv_n} <- {p}x{e_local}", edge_resolve.gather,
+        rsrc, ridx, lambda: torch.gather(rsrc, 1, r64), [p, recv_n, e_local])
+    del rsrc, ridx, r64
+    torch.cuda.empty_cache()
+
+    # The main path's own indices.
+    ranks = torch.arange(p, dtype=torch.int32, device=dev)
+    topo = Topology.host()
+    a, occ, recv_counts = pba.pba_stream_setup_block(
+        ranks, torch.from_numpy(table.procs).to(dev),
+        torch.from_numpy(table.s).to(dev), cfg, p, topo)
+    pool = pba._phase2_pool(ranks, cfg)
+    for r in GATHER_PATH_ROUNDS:
+        gidx, valid = pba.grant_indices(recv_counts, r, c_r, e_local, t_cap)
+        gidx = gidx.reshape(p, recv_n)
+        g64 = gidx.long()
+        row = run(f"gather_chunked path grants r{r} {p}x{pool_n} <- "
+                  f"{p}x{recv_n}", edge_resolve.gather_chunked, pool, gidx,
+                  lambda: torch.gather(pool, 1, g64), [p, pool_n, recv_n])
+        row["granted"] = int(valid.sum())
+        out = torch.where(valid, ref.gather_ref(pool, gidx).view(valid.shape),
+                          -1)
+        del gidx, g64, valid
+        recv = blocking.transpose_payload(out, topo).reshape(p, recv_n)
+        del out
+        band, ridx = pba.receive_indices(a, occ, r, c_r)
+        r64 = ridx.long()
+        row = run(f"gather path receives r{r} {p}x{recv_n} <- {p}x{e_local}",
+                  edge_resolve.gather, recv, ridx,
+                  lambda: torch.gather(recv, 1, r64), [p, recv_n, e_local])
+        row["band_entries"] = int(band.sum())
+        del recv, band, ridx, r64
+        torch.cuda.empty_cache()
+    del a, occ, recv_counts, pool
+    torch.cuda.empty_cache()
+    return results
+
+
+def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
+                 block_cap: int) -> list[dict]:
+    from repro_torch.kernels import band_compact, edge_resolve, histogram, ref
+
+    gen = np.random.default_rng(seed)
+    e_local = vpp * k
+    pool_n = 3 * e_local                 # E + t_cap at total_capacity_factor 2
+
+    def draw(rows: int, n: int, high) -> "torch.Tensor":
+        return draw_ints(torch, np, gen, dev, rows, n, high)
 
     results = []
 
@@ -276,40 +390,7 @@ def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
             ref.resolve_step_ref, lambda: torch.gather(p, 1, p64), (p,),
             8 * p.numel(), [procs, m])
         del p, p64
-
-    # Grants: each rank's pool (P, E + t_cap) gathered at one round's
-    # (P, P*C_r) slots -- the port's batched form of the grant lookup.
-    gidx = draw(procs, recv_n, pool_n)
-    poke(gidx, pool_n)
-    g64 = gidx.clamp(0, pool_n - 1).long()
-    run(f"gather_chunked rows {procs}x{pool_n} <- {procs}x{recv_n}",
-        edge_resolve.gather_chunked, ref.gather_ref,
-        lambda: torch.gather(ptr, 1, g64), (ptr, gidx),
-        gather_bytes(gidx, procs, pool_n), [procs, pool_n, recv_n])
-    del g64
-
-    # The 1-D form: one shared source, indices of any rank.
-    src1 = ptr[0].contiguous()
-    idx3 = gidx.view(procs, procs, round_cap)
-    i64 = idx3.reshape(-1).clamp(0, pool_n - 1).long()
-    run(f"gather 1-D {pool_n} <- {procs}x{procs}x{round_cap}",
-        edge_resolve.gather,
-        lambda s, i: ref.gather_ref(s, i.reshape(-1)).reshape(i.shape),
-        lambda: torch.take(src1, i64), (src1, idx3),
-        gather_bytes(idx3, 1, pool_n), [pool_n, procs, procs, round_cap])
-    del ptr, src1, idx3, i64, gidx
-    torch.cuda.empty_cache()
-
-    # Receives: each rank's (P*C_r) received buffer at its E edges.
-    rsrc = draw(procs, recv_n, 2**31)
-    ridx = draw(procs, e_local, recv_n)
-    poke(ridx, recv_n)
-    r64 = ridx.clamp(0, recv_n - 1).long()
-    run(f"gather rows {procs}x{recv_n} <- {procs}x{e_local}",
-        edge_resolve.gather, ref.gather_ref,
-        lambda: torch.gather(rsrc, 1, r64), (rsrc, ridx),
-        gather_bytes(ridx, procs, recv_n), [procs, recv_n, e_local])
-    del rsrc, ridx, r64
+    del ptr
     torch.cuda.empty_cache()
 
     # Band compaction at a streamed round's shape: a ~1/12 band (a round
@@ -1184,7 +1265,8 @@ def main() -> int:
     pl = api.plan(spec, device=dev)
     cases = kernel_cases(torch, np, dev, SEED, pl.num_procs,
                          spec.vertices_per_proc, spec.edges_per_vertex,
-                         pl.round_capacity, BLOCK_CAP)
+                         BLOCK_CAP)
+    cases += gather_cases(torch, np, pl, SEED)
     cases += resolve_cases(torch, pl)
     cases += pk_cfree_kernel_cases(torch, dev)
 
@@ -1319,10 +1401,10 @@ def main() -> int:
                          f"resolve_step {pl.num_procs}x"),
         "gather": ("src/repro/kernels/edge_resolve.py:110",
                    "src/repro_torch/kernels/csrc/gather.cu",
-                   "gather rows"),
+                   "gather path receives r0 "),
         "gather_chunked": ("src/repro/kernels/edge_resolve.py:194",
                            "src/repro_torch/kernels/csrc/gather.cu",
-                           "gather_chunked rows"),
+                           "gather_chunked path grants r0 "),
         "histogram": ("src/repro/kernels/histogram.py:47",
                       "src/repro_torch/kernels/csrc/histogram.cu",
                       f"histogram {pl.num_procs}x{pl.config.edges_per_proc}"

@@ -231,21 +231,47 @@ def _phase2(pool: torch.Tensor, recv_counts: torch.Tensor, cfg: PBAConfig,
     return out_buf, valid.sum(dtype=_I32)
 
 
+def grant_indices(recv_counts: torch.Tensor, r: int, round_cap: int,
+                  e_local: int, t_cap: int):
+    """The pool slots that round ``r`` of the streamed grant reads, and
+    which of them are granted: (idx, valid), both (..., P, C_r).
+
+    Pair p's run starts at ``e_local + offsets[p] + r * C_r``, with
+    ``offsets`` the exclusive prefix of the *unclipped* demand, so a pair's
+    endpoints occupy one contiguous pool run across rounds; slots past the
+    urn budget ``t_cap`` clamp to its last slot and are not granted.
+    """
+    offsets = torch.cumsum(recv_counts, -1, dtype=_I32) - recv_counts
+    window = streaming.round_window(recv_counts, r, round_cap)
+    c_idx = torch.arange(round_cap, dtype=_I32, device=recv_counts.device)
+    flat_idx = offsets[..., None] + r * round_cap + c_idx
+    valid = (c_idx < window[..., None]) & (flat_idx < t_cap)
+    return e_local + flat_idx.clamp(0, t_cap - 1), valid
+
+
+def receive_indices(a: torch.Tensor, occ: torch.Tensor, r: int,
+                    round_cap: int):
+    """The band of round ``r`` and where each edge finds its endpoint in
+    the received (P * C_r) buffer: (band, idx), both shaped like ``a``.
+
+    Edge j, tagged with provider a[j] and request rank occ[j], reads slot
+    ``a[j] * C_r + occ[j] - r * C_r``; off the band the slot clamps into
+    the provider's segment and the value read is discarded.
+    """
+    band = (occ >= r * round_cap) & (occ < (r + 1) * round_cap)
+    idx = a * round_cap + (occ - r * round_cap).clamp(0, round_cap - 1)
+    return band, idx
+
+
 def _grant_round(pool: torch.Tensor, recv_counts: torch.Tensor, r: int,
                  round_cap: int, e_local: int, t_cap: int) -> torch.Tensor:
     """Round ``r`` of the streamed grant: ranks [r*C_r, (r+1)*C_r) per pair.
 
     ``pool`` (m,) with ``recv_counts`` (P,) for one provider, or (lp, m)
-    with (lp, P) for a block; returns (..., P, C_r). Offsets come from the
-    *unclipped* demand, so a pair's endpoints occupy one contiguous pool
-    run across rounds. Slots past the urn budget ``t_cap`` emit -1.
+    with (lp, P) for a block; returns (..., P, C_r), read at
+    :func:`grant_indices`. Slots past the urn budget ``t_cap`` emit -1.
     """
-    offsets = torch.cumsum(recv_counts, -1, dtype=_I32) - recv_counts
-    window = streaming.round_window(recv_counts, r, round_cap)
-    c_idx = torch.arange(round_cap, dtype=_I32, device=pool.device)
-    flat_idx = offsets[..., None] + r * round_cap + c_idx
-    valid = (c_idx < window[..., None]) & (flat_idx < t_cap)
-    idx = e_local + flat_idx.clamp(0, t_cap - 1)
+    idx, valid = grant_indices(recv_counts, r, round_cap, e_local, t_cap)
     if pool.ndim == 1:
         vals = ops.gather(pool, idx)
     else:
@@ -320,8 +346,7 @@ def _streamed_exchange2(a, occ, counts, recv_counts, ranks, cfg: PBAConfig,
         return _grant_round(pool, recv_counts, r, c_r, e_local, t_cap)
 
     def consume(r, recv, v):
-        band = (occ >= r * c_r) & (occ < (r + 1) * c_r)
-        idx = a * c_r + (occ - r * c_r).clamp(0, c_r - 1)
+        band, idx = receive_indices(a, occ, r, c_r)
         vals = ops.gather(recv.reshape(lp, num_procs * c_r), idx)
         return torch.where(band, vals, v)
 
@@ -375,8 +400,7 @@ def pba_stream_round_block(r: int, a: torch.Tensor, occ: torch.Tensor,
     out = _grant_round(pool, recv_counts, r, round_cap, e_local, urn_budget)
     recv = blocking.transpose_payload(out, topo)
     del out
-    band = (occ >= r * round_cap) & (occ < (r + 1) * round_cap)
-    idx = a * round_cap + (occ - r * round_cap).clamp(0, round_cap - 1)
+    band, idx = receive_indices(a, occ, r, round_cap)
     vals = ops.gather(recv.reshape(lp, num_procs * round_cap), idx)
     del recv, idx
     v = torch.where(band, vals, -1)

@@ -103,6 +103,9 @@ def _launch(src: torch.Tensor, idx: torch.Tensor, rows: int, m: int,
     _check_operand("idx", idx, src.device)
     if m < 1:
         raise ValueError("gather from an empty source")
+    if max(m, n) >= 2**31:
+        raise ValueError(f"gather: rows of {m} source entries and {n} "
+                         "indices must stay below 2^31 (32-bit offsets)")
     out = torch.empty(idx.shape, dtype=torch.int32, device=idx.device)
     fn, err = _fn()
     with torch.cuda.device(src.device):

@@ -34,8 +34,9 @@ def test_kernels_build(dev):
 
 
 @pytest.mark.parametrize("rows,m", [(1, 1), (1, 1025), (3, 4097),
-                                    (5, 100_003)])
+                                    (5, 100_003), (7, 1026)])
 def test_resolve_step_matches_plain(dev, rows, m):
+    """src == idx (one buffer) through the gather kernel."""
     rng = np.random.default_rng(rows * m)
     ptr = _int32(rng, (rows, m), 0, m, dev)
     before = ops.launch_counts()["resolve_step"]
@@ -101,17 +102,91 @@ def test_resolve_roots_raises_on_an_upward_pointer(dev):
         ops.resolve_roots(ptr)
 
 
-@pytest.mark.parametrize("m,n", [(1, 7), (999, 1), (70_001, 123_457)])
-def test_gather_forms_match_plain(dev, m, n):
+@pytest.mark.parametrize("rows,m,n", [
+    pytest.param(4, 1, 7, id="1-7"),
+    pytest.param(4, 999, 1, id="999-1"),
+    pytest.param(4, 70_001, 123_457, id="70001-123457"),
+    # n % 4 from 0 to 3; odd n puts later rows off a 16-byte boundary
+    pytest.param(3, 1000, 4096, id="n%4=0"),
+    pytest.param(3, 1001, 4097, id="n%4=1"),
+    pytest.param(3, 1001, 4098, id="n%4=2"),
+    pytest.param(5, 1001, 4099, id="n%4=3"),
+    pytest.param(2, 1, 9, id="m=1"),
+    # one row whose tiles far outnumber the resident grid, so the tile
+    # queue's claims go round the grid many times
+    pytest.param(1, 3000, (1 << 24) + 3, id="n=2^24+3"),
+    # more rows than a grid's y dimension admits, a few entries each
+    pytest.param(70_001, 50, 3, id="rows=70001"),
+])
+def test_gather_forms_match_plain(dev, rows, m, n):
     rng = np.random.default_rng(m + n)
-    src = _int32(rng, (4, m), -2**31, 2**31 - 1, dev)
-    idx = _int32(rng, (4, n), -9, m + 9, dev)      # both ends clip
+    src = _int32(rng, (rows, m), -2**31, 2**31 - 1, dev)
+    idx = _int32(rng, (rows, n), -9, m + 9, dev)      # both ends clip
     assert torch.equal(ops.gather(src, idx), ref.gather_ref(src, idx))
-    idx3 = idx.reshape(2, 2, n)
-    got = ops.gather(src[1], idx3)
+    flat = idx.reshape(-1)
+    idx3 = flat[:flat.numel() // 4 * 4].view(2, 2, -1)
+    got = ops.gather(src[-1], idx3)                # 3-D on a 1-D source
     assert got.shape == idx3.shape
     assert torch.equal(got.reshape(-1),
-                       ref.gather_ref(src[1], idx3.reshape(-1)))
+                       ref.gather_ref(src[-1], idx3.reshape(-1)))
+
+
+def _runs(rng, m, n):
+    """Runs of consecutive indices (the grant lookups' pattern), two of
+    them crossing the clip ends, the rest starting anywhere near [0, m)."""
+    starts, lengths = [-7, m - 5], [19, 19]
+    while sum(lengths) < n:
+        lengths.append(int(rng.integers(1, 70)))
+        starts.append(int(rng.integers(-30, m + 30)))
+    return np.concatenate([np.arange(s, s + k) for s, k in
+                           zip(starts, lengths)])[:n].astype(np.int32)
+
+
+def test_gathers_on_two_streams_match_plain(dev):
+    """The kernel's tile counter is per stream: gathers queued on two
+    streams at once, several on each, all equal the plain version."""
+    rng = np.random.default_rng(5)
+    src = _int32(rng, (8, 300_001), -2**31, 2**31 - 1, dev)
+    idx = [_int32(rng, (8, 200_003), -9, 300_010, dev) for _ in range(6)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize(dev)
+    outs = []
+    for i, ix in enumerate(idx):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(ops.gather(src, ix))
+    torch.cuda.synchronize(dev)
+    for ix, out in zip(idx, outs):
+        assert torch.equal(out, ref.gather_ref(src, ix))
+
+
+@pytest.mark.parametrize("src_off,idx_off", [(0, 1), (1, 0), (2, 3),
+                                             (3, 3), (1, 2)])
+@pytest.mark.parametrize("pattern", ["uniform", "runs", "hot", "hot-low"])
+def test_gather_views_and_index_patterns(dev, src_off, idx_off, pattern):
+    """src and idx views that start 1-3 entries off a 16-byte boundary
+    (idx in and out of phase with the output), under uniform indices,
+    runs of consecutive indices crossing both clip ends, and every index
+    on one hot slot (or below the source)."""
+    rng = np.random.default_rng(17 * src_off + idx_off)
+    rows, m, n = 3, 5003, 20_011
+    base = _int32(rng, rows * m + 8, -2**31, 2**31 - 1, dev)
+    src = base[src_off:src_off + rows * m].view(rows, m)
+    if pattern == "uniform":
+        cols = rng.integers(-9, m + 9, (rows, n))
+    elif pattern == "runs":
+        cols = np.stack([_runs(rng, m, n) for _ in range(rows)])
+    else:
+        cols = np.full((rows, n), 77 if pattern == "hot" else -4)
+    ibase = torch.zeros(rows * n + 8, dtype=torch.int32, device=dev)
+    idx = ibase[idx_off:idx_off + rows * n].view(rows, n)
+    idx.copy_(torch.from_numpy(cols.astype(np.int32)))
+    assert src.data_ptr() % 16 == 4 * src_off
+    assert idx.data_ptr() % 16 == 4 * idx_off
+    assert torch.equal(ops.gather(src, idx), ref.gather_ref(src, idx))
+    assert torch.equal(ops.gather(src[1], idx[2]),
+                       ref.gather_ref(src[1], idx[2]))
+    assert torch.equal(ops.gather(src[0], idx),
+                       ref.gather_ref(src[0], idx.reshape(-1)).view(rows, n))
 
 
 @pytest.mark.parametrize("rows,n,nbins", [(1, 1, 1), (3, 5000, 64),
@@ -167,6 +242,12 @@ def test_device_stream_on_the_card_equals_the_cpu(dev):
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     t = torch.zeros((4, 6), dtype=torch.int32, device=dev)
+    big = torch.empty(2**31, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="2\\^31"):
+        ops.gather(big, t)                 # 32-bit in-row offsets
+    with pytest.raises(ValueError, match="2\\^31"):
+        ops.gather(t[0], big)
+    del big
     with pytest.raises(TypeError):
         ops.gather(t.long(), t)
     with pytest.raises(ValueError):

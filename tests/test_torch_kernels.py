@@ -70,23 +70,53 @@ def test_resolve_roots_is_the_fixpoint_of_pallas_passes(rows, m):
         want[0])
 
 
-@pytest.mark.parametrize("m,n", [(1, 5), (300, 2048), (4097, 1500)])
-def test_gather_matches_pallas(m, n):
+def _gather_indices(rng, m, n, pattern, margin):
+    """n int32 indices into a source of m entries. "uniform": drawn from
+    [-margin, m + margin), so both clip ends are hit; "runs": runs of
+    consecutive indices (the grant lookups' pattern), two of them
+    crossing the clip ends; "hot": every index the same slot."""
+    if pattern == "uniform":
+        return rng.integers(-margin, m + margin, n).astype(np.int32)
+    if pattern == "hot":
+        return np.full(n, m // 2, dtype=np.int32)
+    starts, lengths = [-7, m - 5], [15, 15]
+    while sum(lengths) < n:
+        lengths.append(int(rng.integers(1, 41)))
+        starts.append(int(rng.integers(-20, m + 20)))
+    return np.concatenate([np.arange(s, s + k) for s, k in
+                           zip(starts, lengths)])[:n].astype(np.int32)
+
+
+@pytest.mark.parametrize("m,n,pattern", [
+    pytest.param(1, 5, "uniform", id="1-5"),
+    pytest.param(300, 2048, "uniform", id="300-2048"),
+    pytest.param(4097, 1500, "uniform", id="4097-1500"),
+    pytest.param(1, 7, "runs", id="runs-1-7"),
+    pytest.param(1001, 777, "runs", id="runs-1001-777"),
+    pytest.param(4097, 1501, "runs", id="runs-4097-1501"),
+    pytest.param(1001, 999, "hot", id="hot-1001-999"),
+])
+def test_gather_matches_pallas(m, n, pattern):
     rng = np.random.default_rng(m * 7 + n)
     sj, st = _pair(rng.integers(-2**31, 2**31 - 1, m).astype(np.int32))
     # indices past both ends exercise the clip contract
-    ij, it = _pair(rng.integers(-5, m + 5, n).astype(np.int32))
+    ij, it = _pair(_gather_indices(rng, m, n, pattern, 5))
     want = np.asarray(gather_pallas(sj, ij, interpret=True))
     np.testing.assert_array_equal(ref.gather_ref(st, it).numpy(), want)
     np.testing.assert_array_equal(ops.gather(st, it).numpy(), want)
 
 
-@pytest.mark.parametrize("m,n", [(4097, 4097), (3000, 777)])
-def test_gather_chunked_multi_slab_matches_pallas(m, n):
+@pytest.mark.parametrize("m,n,pattern", [
+    pytest.param(4097, 4097, "uniform", id="4097-4097"),
+    pytest.param(3000, 777, "uniform", id="3000-777"),
+    pytest.param(3001, 1999, "runs", id="runs-3001-1999"),
+    pytest.param(3001, 513, "hot", id="hot-3001-513"),
+])
+def test_gather_chunked_multi_slab_matches_pallas(m, n, pattern):
     """Forced tiny slabs run the JAX package's multi-slab path."""
     rng = np.random.default_rng(m + n)
     sj, st = _pair(rng.integers(0, 2**30, m).astype(np.int32))
-    ij, it = _pair(rng.integers(-3, m + 3, n).astype(np.int32))
+    ij, it = _pair(_gather_indices(rng, m, n, pattern, 3))
     want = np.asarray(gather_chunked_pallas(sj, ij, slab=BLOCK,
                                             dst_block=BLOCK, interpret=True))
     np.testing.assert_array_equal(

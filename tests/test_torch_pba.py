@@ -296,6 +296,74 @@ def test_streaming_round_math_matches_reference():
             jstreaming.rounds_needed(5_000_000, rounds)
 
 
+@pytest.mark.parametrize("r", [0, 3, 7])
+def test_round_indices_match_reference(r):
+    """pba.grant_indices and pba.receive_indices, which the generator and
+    chip_smoke.py's gather cases share, against the JAX package's own
+    round code on sources that name their slots. jpba._grant_round over a
+    pool holding its slot numbers returns each granted slot (and -1 where
+    none is granted); jpba.pba_stream_round_block over pools numbered by
+    (provider, slot) returns, for every band edge in edge order, the slot
+    its receive read."""
+    from repro.runtime import blocking as jblocking
+    from repro.runtime.topology import Topology as JTopology
+    cfg, table, tcfg, _ = _pinned("paper_smoke", procs=16,
+                                  vertices_per_proc=500, exchange_rounds=8,
+                                  pair_capacity=64)
+    p, e_local = table.num_procs, cfg.edges_per_proc
+    t_cap = cfg.total_capacity_factor * e_local
+    pool_n = e_local + t_cap
+    c_r = jstreaming.round_capacity(cfg.pair_capacity, cfg.exchange_rounds)
+    jtopo = JTopology.host()
+    ranks = jnp.arange(p, dtype=jnp.int32)
+    a, occ, recv_counts = jpba.pba_stream_setup_block(
+        ranks, jnp.asarray(table.procs), jnp.asarray(table.s), cfg, p, jtopo)
+
+    # Grants: the path's demand, and rows whose runs pass the urn budget.
+    rng = np.random.default_rng(40 + r)
+    extra = rng.integers(0, 400, (2, p)).astype(np.int32)
+    extra[0, 2] = 2 * t_cap
+    counts = np.concatenate([np.asarray(recv_counts), extra])
+    idx, valid = tpba.grant_indices(torch.from_numpy(counts), r, c_r,
+                                    e_local, t_cap)
+    assert idx.shape == valid.shape == (len(counts), p, c_r)
+    assert idx.dtype == torch.int32
+    assert bool(((idx >= e_local) & (idx < pool_n)).all())
+    slots = jnp.arange(pool_n, dtype=jnp.int32)
+    for q, row in enumerate(counts):
+        out = np.asarray(jpba._grant_round(slots, jnp.asarray(row), r, c_r,
+                                           e_local, t_cap))
+        np.testing.assert_array_equal(valid[q].numpy(), out != -1)
+        np.testing.assert_array_equal(idx[q].numpy()[out != -1],
+                                      out[out != -1])
+        one, one_valid = tpba.grant_indices(torch.from_numpy(row), r, c_r,
+                                            e_local, t_cap)
+        assert torch.equal(one, idx[q]) and torch.equal(one_valid, valid[q])
+    assert not bool(valid[p].all())        # the budget clip was exercised
+
+    # Receives, into the grants of pools numbered by (provider, slot).
+    pool = ranks[:, None] * pool_n + jnp.arange(pool_n, dtype=jnp.int32)
+    block_cap = jpba.stream_block_capacity(e_local, p, c_r)
+    _, jv, jcounts = jpba.pba_stream_round_block(
+        r, a, occ, recv_counts, pool, ranks, cfg, p, c_r, t_cap, block_cap,
+        jtopo)
+    grants = jax.vmap(lambda pl_, rc: jpba._grant_round(
+        pl_, rc, r, c_r, e_local, t_cap))(pool, recv_counts)
+    recv = torch.from_numpy(np.array(
+        jblocking.transpose_payload(grants, jtopo))).reshape(p, p * c_r)
+    ta = torch.from_numpy(np.array(a))
+    band, ridx = tpba.receive_indices(ta, torch.from_numpy(np.array(occ)),
+                                      r, c_r)
+    assert ridx.dtype == torch.int32 and band.shape == ridx.shape
+    assert torch.equal(ridx // c_r, ta)    # inside the provider's segment
+    vals = recv.gather(1, ridx.long())
+    jv, jcounts = np.asarray(jv), np.asarray(jcounts)
+    for q in range(p):
+        nb = int(band[q].sum())
+        assert nb == int(jcounts[q].sum()) > 0
+        np.testing.assert_array_equal(vals[q][band[q]].numpy(), jv[q, :nb])
+
+
 def test_host_rejects_device_topology():
     from repro_torch.runtime.topology import Topology
     _, _, tcfg, ttab = _pinned("paper_smoke", vertices_per_proc=10)
