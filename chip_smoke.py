@@ -16,7 +16,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     replaced); exact equality is required (integer kernels, tolerance
     0). The gathers run both at uniform indices and at the PBA main path's
     own grant and receive indices (rounds 0 and 5, built by the port's
-    pba functions); the latter are the kernels line's headline cases.
+    pba functions); band_compact at uniform bands and at every round of
+    the device stream, on the (u, v, band) that pba.round_compact_inputs
+    builds for it, with the sum over the rounds (what one streamed run
+    pays); the path cases of round 0 are the kernels line's headline
+    cases. The PK and ba_cfree slabs add the wall per call of back-to-back
+    calls (the wrapper's host work plus the launch, which bound the
+    streams' per-slab loop).
     Kernel, plain and library-call times are CUDA event medians of 7
     runs after 2 warm-ups (the plain versions over 2^30 edges: their one
     comparison run; resolve_roots: each run on a fresh copy of the urn,
@@ -53,7 +59,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     into memory; the noise path, preset("pk_3b", levels=9,
     execution="host", noise=0.05, delete_prob=0.01); preset("ba_cfree_1b")
     (10^9 edges) on both stream executors (Topology.host() and flat(1),
-    which must agree); and the shard sink at reduced depth (pk_3b at L=7,
+    which must agree; then 9 timed runs of each); and the shard sink at reduced depth (pk_3b at L=7,
     ba_cfree at 2M vertices: zlib writes ~10 MB/s) with a two-shard resume.
  7. the kernels line, then {"ok": true, "device": {...}} as the last line.
 
@@ -136,20 +142,38 @@ def device_us(e, calls: int = 1) -> float:
                    getattr(e, "self_cuda_time_total", 0)) / calls
 
 
-def device_ms_per_launch(torch, fn, kernel: str,
-                         launches: int = 20) -> tuple[float, int]:
+def device_ms_per_launch(torch, fn, kernel: str, launches: int = 20,
+                         attempts: int = 3) -> tuple[float, int]:
     """Mean device time of the ``kernel`` (a substring of the CUDA kernel's
     name) per launch over ``launches`` back-to-back calls of fn() after a
     warm-up call, and the launches the profiler saw. Unlike CUDA events
     around a call, it leaves out the host's launch overhead, which
-    dominates a kernel of a few microseconds."""
+    dominates a kernel of a few microseconds. The profiler now and then
+    records no device event at all; such a trace is taken again, up to
+    ``attempts`` traces."""
     fn()
-    prof, _ = profiled(torch, fn, launches)
-    rows = [e for e in prof.key_averages() if kernel in e.key]
-    calls = sum(e.count for e in rows)
-    if not calls:
-        raise AssertionError(f"the profiler saw no launch of {kernel}")
-    return sum(device_us(e) for e in rows) / 1e3 / calls, calls
+    for _ in range(attempts):
+        prof, _ = profiled(torch, fn, launches)
+        rows = [e for e in prof.key_averages() if kernel in e.key]
+        calls = sum(e.count for e in rows)
+        if calls:
+            return sum(device_us(e) for e in rows) / 1e3 / calls, calls
+    raise AssertionError(f"the profiler saw no launch of {kernel} in "
+                         f"{attempts} traces")
+
+
+def back_to_back_ms(torch, fn, calls: int = 200) -> float:
+    """Wall ms per call of ``calls`` back-to-back calls of fn() (after a
+    warm-up call), to the card's finish. For a kernel of a few
+    microseconds it is the host's cost per call: the wrapper's work and
+    the launch, which a stream pays once per slab."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
 
 
 def time_ms(torch, fn, reps: int = 7, warmup: int = 2) -> float:
@@ -187,7 +211,7 @@ def max_abs_diff(torch, got, want) -> int:
 
 def run_case(torch, results, name, wrapper, plain, library, args, nbytes,
              shape, ops: int = 0, plain_reps: int = 7,
-             device_kernel: str = "") -> dict:
+             device_kernel: str = "", back_to_back: bool = False) -> dict:
     """Hold one kernel call against its plain version (exact equality) and
     time both, and the library call where there is one. ``bound_ms`` is
     the larger of the byte bound (``nbytes`` over the memory rate) and
@@ -195,7 +219,8 @@ def run_case(torch, results, name, wrapper, plain, library, args, nbytes,
     rate). ``plain_reps=1`` times the comparison run of the plain version
     itself (the plain versions of the largest shapes take seconds).
     ``device_kernel`` adds the kernel's profiled device time per launch
-    (``kernel_device_ms``)."""
+    (``kernel_device_ms``), ``back_to_back`` the wall per call of
+    back-to-back calls (``back_to_back_ms``)."""
     got = wrapper(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -222,6 +247,9 @@ def run_case(torch, results, name, wrapper, plain, library, args, nbytes,
         row["kernel_device_ms"], row["profiled_launches"] = \
             device_ms_per_launch(torch, lambda: wrapper(*args),
                                  device_kernel)
+    if back_to_back:
+        row["back_to_back_ms"] = back_to_back_ms(torch,
+                                                 lambda: wrapper(*args))
     results.append(row)
     emit({"phase": "kernel_case", **row})
     if diff:
@@ -256,17 +284,33 @@ def gather_bytes(torch, idx, rows: int, m: int) -> int:
 GATHER_PATH_ROUNDS = (0, 5)     # the first round and a middle one
 
 
-def gather_cases(torch, np, pl, seed: int) -> list[dict]:
+def pba_path_setup(torch, pl) -> dict:
+    """The PBA main path's setup for the plan ``pl``, built once by the
+    port's own pba_stream_setup_block and shared by the gather and
+    band_compact path cases: the ranks and (a, occ, recv_counts)."""
+    from repro_torch.core import pba
+    from repro_torch.runtime.topology import Topology
+
+    table, dev = pl.table, pl.device
+    p = table.num_procs
+    ranks = torch.arange(p, dtype=torch.int32, device=dev)
+    a, occ, recv_counts = pba.pba_stream_setup_block(
+        ranks, torch.from_numpy(table.procs).to(dev),
+        torch.from_numpy(table.s).to(dev), pl.config, p, Topology.host())
+    return {"ranks": ranks, "a": a, "occ": occ, "recv_counts": recv_counts}
+
+
+def gather_cases(torch, np, pl, seed: int, setup: dict) -> list[dict]:
     """gather and gather_chunked against their plain version, with
     torch.gather (torch.take for the 1-D form) as the library call.
 
     Uniform cases: indices drawn uniform (a few past both ends) at the
     main path's shapes. Path cases: the indices the PBA main path itself
     gathers with, for the plan ``pl``, built by the port's own functions:
-    pba_stream_setup_block's (a, occ, recv_counts), _phase2_pool's pools,
-    and for each round of GATHER_PATH_ROUNDS the grant lookup
-    (pba.grant_indices, into the pools: gather_chunked) and the receive
-    lookup (pba.receive_indices, into that round's grants transposed by
+    ``setup`` (:func:`pba_path_setup`), _phase2_pool's pools, and for
+    each round of GATHER_PATH_ROUNDS the grant lookup (pba.grant_indices,
+    into the pools: gather_chunked) and the receive lookup
+    (pba.receive_indices, into that round's grants transposed by
     blocking.transpose_payload: gather). The headline cases of the
     kernels line are the path cases of round 0."""
     from repro_torch.core import pba
@@ -333,11 +377,9 @@ def gather_cases(torch, np, pl, seed: int) -> list[dict]:
     torch.cuda.empty_cache()
 
     # The main path's own indices.
-    ranks = torch.arange(p, dtype=torch.int32, device=dev)
+    ranks, a, occ, recv_counts = (setup[k] for k in (
+        "ranks", "a", "occ", "recv_counts"))
     topo = Topology.host()
-    a, occ, recv_counts = pba.pba_stream_setup_block(
-        ranks, torch.from_numpy(table.procs).to(dev),
-        torch.from_numpy(table.s).to(dev), cfg, p, topo)
     pool = pba._phase2_pool(ranks, cfg)
     for r in GATHER_PATH_ROUNDS:
         gidx, valid = pba.grant_indices(recv_counts, r, c_r, e_local, t_cap)
@@ -362,6 +404,83 @@ def gather_cases(torch, np, pl, seed: int) -> list[dict]:
         torch.cuda.empty_cache()
     del a, occ, recv_counts, pool
     torch.cuda.empty_cache()
+    return results
+
+
+def band_bytes(band, cap: int) -> int:
+    """Bytes a band compaction must move: band read once, u and v read
+    where band is set and kept, both outputs written in full."""
+    cap = min(cap, band.shape[1])
+    kept = int(band.sum(1).clamp(max=cap).sum())
+    return band.numel() + 8 * kept + 8 * band.shape[0] * cap
+
+
+def band_sector_bytes(torch, band, cap: int) -> int:
+    """The same bytes with u and v counted by the 32-byte sectors that
+    the kept band entries touch, as the card reads them (rows laid end to
+    end, the arrays 32-byte aligned)."""
+    cap = min(cap, band.shape[1])
+    kept = band & (torch.cumsum(band, 1, dtype=torch.int32) <= cap)
+    flat = kept.reshape(-1)
+    whole = flat.numel() // 8 * 8
+    sectors = int(flat[:whole].view(-1, 8).any(1).sum()) + \
+        int(flat[whole:].any())
+    return band.numel() + 2 * 32 * sectors + 8 * band.shape[0] * cap
+
+
+def band_compact_path_cases(torch, pl, setup: dict) -> list[dict]:
+    """band_compact against its plain version at every round of the
+    device stream of plan ``pl``'s spec, on the (u, v, band) that the
+    round hands the kernel, built by the port's own
+    pba.round_compact_inputs from ``setup`` (:func:`pba_path_setup`) and
+    the stream's pool (drawn at the stream's urn budget, as
+    PBAShardedStream draws it). Each round's row carries its band size;
+    round 0's row (the kernels line's headline) carries the per-run
+    totals over all rounds of kernel, plain and bound ms."""
+    from repro_torch.core import pba, stream
+    from repro_torch.kernels import band_compact, ref
+    from repro_torch.runtime import streaming
+    from repro_torch.runtime.topology import Topology
+
+    cfg = pl.config
+    p, e_local, c_r = pl.table.num_procs, cfg.edges_per_proc, \
+        pl.round_capacity
+    ranks, a, occ, recv_counts = (setup[k] for k in (
+        "ranks", "a", "occ", "recv_counts"))
+    rounds = streaming.rounds_needed(max(int(recv_counts.max()), 1), c_r)
+    urn_budget = stream.stream_urn_budget(
+        cfg, int(recv_counts.sum(1, dtype=torch.int64).max()), True)
+    block_cap = pba.stream_block_capacity(e_local, p, c_r)
+    pool = pba._phase2_pool(ranks, cfg, urn_budget)
+    results = []
+    for r in range(rounds):
+        u, v, band = pba.round_compact_inputs(
+            r, a, occ, recv_counts, pool, ranks, cfg, p, c_r, urn_budget,
+            Topology.flat(1))
+        row = run_case(torch, results,
+                       f"band_compact path r{r} {p}x{e_local} cap "
+                       f"{block_cap}", band_compact.band_compact,
+                       ref.band_compact_ref, None, (u, v, band, block_cap),
+                       band_bytes(band, block_cap), [p, e_local, block_cap])
+        sector_bytes = band_sector_bytes(torch, band, block_cap)
+        row.update(round=r, band_entries=int(band.sum()),
+                   band_share=int(band.sum()) / band.numel(),
+                   sector_bytes=sector_bytes, computed_sector_floor_ms=(
+                       sector_bytes / HBM_BYTES_PER_S * 1e3))
+        del u, v, band
+        torch.cuda.empty_cache()
+    del pool
+    torch.cuda.empty_cache()
+    per_run = {"rounds": rounds, "urn_budget": urn_budget,
+               **{k: sum(c[k] for c in results) for k in (
+                   "kernel_ms", "plain_ms", "bound_ms")}}
+    results[0]["per_run"] = per_run
+    emit({"phase": "band_compact_path_run", **per_run,
+          "computed_sector_floor_ms": sum(
+              c["computed_sector_floor_ms"] for c in results),
+          **{f"{k}_per_round": [c[k] for c in results] for k in (
+              "band_entries", "kernel_ms", "bound_ms",
+              "computed_sector_floor_ms")}})
     return results
 
 
@@ -393,19 +512,13 @@ def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
     del ptr
     torch.cuda.empty_cache()
 
-    # Band compaction at a streamed round's shape: a ~1/12 band (a round
-    # of 12), an overflowing band (truncation at block_cap), and small
-    # rows that are empty, all band, or narrower than block_cap.
-    def band_bytes(band, cap: int) -> int:
-        """band read once, u and v read where band is set and kept, both
-        outputs written in full."""
-        cap = min(cap, band.shape[1])
-        kept = int(band.sum(1).clamp(max=cap).sum())
-        return band.numel() + 8 * kept + 8 * band.shape[0] * cap
-
+    # Band compaction off the path (the path's own rounds are
+    # band_compact_path_cases): a uniform ~1/12 band (a round of 12), an
+    # overflowing band (truncation at block_cap), and small rows that are
+    # empty, all band, or narrower than block_cap.
     bu = draw(procs, e_local, 2**31)
     bv = draw(procs, e_local, 2**31)
-    for label, share in (("round", 12), ("overflow", 2)):
+    for label, share in (("uniform", 12), ("overflow", 2)):
         band = draw(procs, e_local, share) == 0
         run(f"band_compact {label} {procs}x{e_local} cap {block_cap}",
             band_compact.band_compact, ref.band_compact_ref, None,
@@ -882,14 +995,17 @@ RMAT_SCALE = 26             # Graph500 scale 26, edge factor 16
 # lookup is a load). The card has no integer divider: a division by a
 # divisor known only at run time costs at least a multiply-high and a
 # shift, and its remainder a multiply-subtract, which is what pk_expand
-# now spends (cfree_expand's / and %, still hardware sequences, count one
-# each: a lower bound).
+# and cfree_expand's division by the degree spend. The chain's % (2j + 1)
+# and er's % n (divisors that change per draw, or numerators past 2^31)
+# run the hardware sequence; they count those three ops too, a lower
+# bound.
 HASH_OPS = 19               # (t^w0)+c, mix (8), ^w1, mix (8)
-BA_DRAW_OPS = HASH_OPS + 5  # bound 2j+1 (2), %, odd test (2)
-BA_EDGE_OPS = 3             # u = t/d; v = (r>>1)/d
+REM_OPS = 3                 # multiply-high, shift, multiply-subtract
+BA_DRAW_OPS = HASH_OPS + 4 + REM_OPS  # bound 2j+1 (2), odd test (2)
+BA_EDGE_OPS = 5             # r>>1; u = t/d, v = (r>>1)/d by multiply-high
 RMAT_LEVEL_OPS = HASH_OPS - 1 + 11  # t^w0 is common to the levels; 3
                                     # compares + 2 adds, u and v updates
-ER_EDGE_OPS = 2 * (HASH_OPS + 1)
+ER_EDGE_OPS = 2 * (HASH_OPS + REM_OPS)
 PK_LEVEL_OPS = 9            # multiply-high, shift, multiply-subtract (the
                             # / and % by e0), base add, carry add, compare,
                             # subtract, two multiply-adds; the powers of n0
@@ -943,7 +1059,7 @@ def pk_cfree_kernel_cases(torch, dev) -> list[dict]:
              pk_expand.pk_expand, ref.pk_expand_ref, None,
              (t, base, su, sv, n0, e0, PK_LEVELS), 12 * SLAB,
              [SLAB, PK_LEVELS], ops=PK_LEVEL_OPS * PK_LEVELS * SLAB,
-             device_kernel="pk_expand_kernel")
+             device_kernel="pk_expand_kernel", back_to_back=True)
 
     m = e0 ** PK_NOISE_LEVELS
     gen = torch.Generator(device=dev)
@@ -971,14 +1087,17 @@ def pk_cfree_kernel_cases(torch, dev) -> list[dict]:
     words = cfree.cfree_words(cfg)
     t0 = (cfree.cfree_sizes(cfg)[1] // SLAB // 2) * SLAB
     t = torch.arange(t0, t0 + SLAB, dtype=torch.int32, device=dev)
-    draws = cfree.ba_chain(words, t)[1]
+    per_edge = cfree.ba_chain(words, t)[1]
+    draws = int(per_edge.sum())
+    emit({"phase": "ba_chain_draws", "edges": SLAB, "draws": draws,
+          "draws_per_edge": draws / SLAB,
+          "longest_chain": int(per_edge.max())})
+    del per_edge
     run_case(torch, results, f"cfree_expand ba_cfree slab {SLAB} at {t0}",
              *cfree_pair("ba_cfree", cfg.vertices, 4, (0, 0, 0)), None,
              (t, words), 12 * SLAB, [SLAB],
              ops=BA_DRAW_OPS * draws + BA_EDGE_OPS * SLAB,
-             device_kernel="cfree_expand_kernel")
-    results[-1]["draws_per_edge"] = draws / SLAB
-    emit({"phase": "ba_chain_draws", "edges": SLAB, "draws": draws})
+             device_kernel="cfree_expand_kernel", back_to_back=True)
 
     # Graph500 scale 26: rmat and er over the host range [0, 2^30).
     e = 16 << RMAT_SCALE
@@ -1122,6 +1241,31 @@ def resume_check(torch, api, edge_digest, spec, dev, out_dir: str,
     return row
 
 
+def cfree_stream_walls(torch, api, dev, runs: int = 9) -> dict:
+    """Walls (s) of ``runs`` runs of preset("ba_cfree_1b") into memory on
+    each stream executor (Topology.host(): cfree_stream; flat(1):
+    cfree_stream_sharded), after one warm-up run of each, and their
+    medians. The stream is host-bound per slab, so this is where the
+    wrapper's host work per launch shows."""
+    spec = api.preset("ba_cfree_1b")
+    walls = {}
+    for name, topology in (("host", api.Topology.host()),
+                           ("flat1", api.Topology.flat(1))):
+        run = spec.replace(topology=topology)
+        times = []
+        for _ in range(runs + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = api.generate(run, device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del res
+        walls[f"{name}_wall_s"] = times[1:]
+        walls[f"{name}_median_s"] = statistics.median(times[1:])
+        torch.cuda.empty_cache()
+    return walls
+
+
 def pk_cfree_phases(torch, api, dispatch, ops, edge_digest, dev) -> dict:
     """R-MAT and ER at Graph500 scale 26, PK at the paper's scale, the PK
     noise path, ba_cfree at full width, and the shard sink at reduced
@@ -1182,6 +1326,8 @@ def pk_cfree_phases(torch, api, dispatch, ops, edge_digest, dev) -> dict:
         raise AssertionError("ba_cfree_1b: the two stream executors differ")
     del host_edges, flat
     torch.cuda.empty_cache()
+    emit({"phase": "ba_cfree_1b_stream_walls",
+          **cfree_stream_walls(torch, api, dev)})
     prof = profile_run(torch, api, spec, dev, "cfree_expand_kernel",
                        expect_calls=row["launches"]["cfree_expand"])
     emit({"phase": "ba_cfree_1b_profile",
@@ -1266,7 +1412,12 @@ def main() -> int:
     cases = kernel_cases(torch, np, dev, SEED, pl.num_procs,
                          spec.vertices_per_proc, spec.edges_per_vertex,
                          BLOCK_CAP)
-    cases += gather_cases(torch, np, pl, SEED)
+    setup = pba_path_setup(torch, pl)
+    cases += gather_cases(torch, np, pl, SEED, setup)
+    band_path = band_compact_path_cases(torch, pl, setup)
+    cases += band_path
+    del setup
+    torch.cuda.empty_cache()
     cases += resolve_cases(torch, pl)
     cases += pk_cfree_kernel_cases(torch, dev)
 
@@ -1386,6 +1537,11 @@ def main() -> int:
     # 5. the streamed main path
     stream_launches = streamed_phases(torch, api, dispatch, ops, edge_digest,
                                       dev, host_multiset)
+    if stream_launches["band_compact"] != band_path[0]["per_run"]["rounds"]:
+        raise AssertionError("the band_compact path cases cover "
+                             f"{band_path[0]['per_run']['rounds']} rounds, "
+                             "the streamed run launched it "
+                             f"{stream_launches['band_compact']} times")
 
     # 6. PK and the communication-free family
     pk_cfree_launches = pk_cfree_phases(torch, api, dispatch, ops,
@@ -1411,7 +1567,7 @@ def main() -> int:
                       f" bins {pl.num_procs}"),
         "band_compact": ("src/repro/kernels/band_compact.py:107",
                          "src/repro_torch/kernels/csrc/band_compact.cu",
-                         "band_compact round"),
+                         "band_compact path r0 "),
         "pk_expand": ("src/repro/kernels/pk_expand.py:72",
                       "src/repro_torch/kernels/csrc/pk_expand.cu",
                       "pk_expand slab"),
@@ -1460,6 +1616,8 @@ def main() -> int:
                                               "previous_design_ms",
                                               "previous_design_rounds")}
                 for c in mine}
+        if "per_run" in head:
+            kernels[-1]["per_run"] = head["per_run"]
     kernels[-2]["launches_other_paths"] = {
         k: v["pk_expand"] for k, v in pk_cfree_launches.items()
         if k.startswith("pk_")}

@@ -189,20 +189,20 @@ def ba_draw(words, j: torch.Tensor) -> torch.Tensor:
     return cfree_hash(words, j, 0) % bound
 
 
-def ba_chain(words, t: torch.Tensor) -> tuple[torch.Tensor, int]:
+def ba_chain(words, t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The last draw of BA edge ``t``'s chain (module doc), and the draws
-    all chains took.
+    each chain took (int32, 1 to CHAIN_BOUND + 1, ``t``'s shape).
 
     Only the chains whose draw is still odd are recomputed at each hop;
     an even draw is final, so this equals the reference's 64 masked hops
     over every edge."""
     r = ba_draw(words, t)
-    draws = r.numel()
+    draws = torch.ones(t.shape, dtype=torch.int32, device=t.device)
     live = torch.nonzero(r & 1).reshape(-1)
     for _ in range(CHAIN_BOUND):
         if live.numel() == 0:
             break
-        draws += live.numel()
+        draws[live] += 1
         rr = ba_draw(words, r[live] >> 1)
         r[live] = rr
         live = live[(rr & 1) == 1]

@@ -395,6 +395,26 @@ def pba_stream_round_block(r: int, a: torch.Tensor, occ: torch.Tensor,
     grants), and counts (lp, P): this round's per-provider band sizes,
     which the host checks against the compacted block.
     """
+    u, v, band = round_compact_inputs(r, a, occ, recv_counts, pool, ranks,
+                                      cfg, num_procs, round_cap, urn_budget,
+                                      topo)
+    counts = ops.histogram(torch.where(band, a, -1), num_procs)
+    u, v = ops.band_compact(u, v, band, block_cap)
+    return u, v, counts
+
+
+def round_compact_inputs(r: int, a: torch.Tensor, occ: torch.Tensor,
+                         recv_counts: torch.Tensor, pool: torch.Tensor,
+                         ranks: torch.Tensor, cfg: PBAConfig, num_procs: int,
+                         round_cap: int, urn_budget: int, topo: Topology):
+    """What round ``r`` of the device stream hands to the band compaction:
+    (u, v, band), each (lp, E), -1 in ``u`` and ``v`` off the band.
+
+    Grants request ranks [r*C_r, (r+1)*C_r) of every pair from the
+    resident pool (the gather kernel), routes the (lp, P, C_r) buffer
+    through the blocked transpose and looks the band up in it (the gather
+    kernel); ``u`` is each edge's own endpoint.
+    """
     lp = a.shape[0]
     e_local = cfg.edges_per_proc
     out = _grant_round(pool, recv_counts, r, round_cap, e_local, urn_budget)
@@ -408,10 +428,7 @@ def pba_stream_round_block(r: int, a: torch.Tensor, occ: torch.Tensor,
     j = torch.arange(e_local, dtype=_I32, device=a.device)
     u = (ranks[:, None] * cfg.vertices_per_proc
          + torch.div(j, cfg.edges_per_vertex, rounding_mode="floor")[None])
-    u = torch.where(band, u, -1)
-    counts = ops.histogram(torch.where(band, a, -1), num_procs)
-    u, v = ops.band_compact(u, v, band, block_cap)
-    return u, v, counts
+    return torch.where(band, u, -1), v, band
 
 
 def stream_block_capacity(edges_per_proc: int, num_procs: int,

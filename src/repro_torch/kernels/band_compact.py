@@ -8,20 +8,23 @@ kernel is ``csrc/band_compact.cu``.
 Replaces: the JAX package's ``kernels/band_compact.py::band_compact_pallas``
 (:107, ``pallas_call`` at :133, body ``_band_compact_kernel`` at :40), an
 O(e * cap) one-hot accumulation with an SMEM cursor, because Mosaic has no
-scatter. On the card the same permutation is a prefix-scan compaction: a
-ballot count per tile of 4096 entries, an exclusive scan of the tile
-counts per row, and a scatter that ranks each tile's band entries with
-warp ballots. Three launches, one C entry, counted as one launch here.
+scatter. On the card the same permutation is a prefix-sum compaction in
+two launches behind one C entry (counted as one launch here): a count
+pass reads ``band`` as 16-byte vectors and keeps a 16-bit mask per 16
+flags; a scatter pass sums its row's tile counts, writes its chunk of the
+-1 padding, and, where its tile holds band entries, stages them in shared
+memory and writes them with 16-byte stores.
 
 Bound: bytes. The function must read ``band`` once (1 byte per entry),
-``u`` and ``v`` only where ``band`` is set, and write both outputs in
-full; the kernel reads ``band`` twice (count and scatter passes).
+``u`` and ``v`` only where ``band`` is set, and write both outputs once;
+the kernel writes every output element once and adds the masks (an eighth
+of ``band``'s bytes, written and read once).
 
 The wrapper runs the plain version (``kernels/ref.py``) for a CPU tensor
 and launches the kernel for a CUDA tensor (counted in :data:`launches`);
-it raises on anything the kernel does not take, fills the outputs with -1
-by ``torch.full``, launches on the current stream and does not
-synchronise.
+it raises on anything the kernel does not take, allocates the outputs and
+the kernel's scratch with ``torch.empty``, launches on the current stream
+and does not synchronise.
 """
 from __future__ import annotations
 
@@ -48,11 +51,12 @@ def _fn():
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.repro_band_compact_tile.restype = ctypes.c_int64
+        scratch = lib.repro_band_compact_scratch_bytes
+        scratch.argtypes = [ctypes.c_int64] * 2
+        scratch.restype = ctypes.c_int64
         lib.repro_band_compact_error.argtypes = [ctypes.c_int]
         lib.repro_band_compact_error.restype = ctypes.c_char_p
-        _c_fn = (fn, int(lib.repro_band_compact_tile()),
-                 lib.repro_band_compact_error)
+        _c_fn = (fn, scratch, lib.repro_band_compact_error)
     return _c_fn
 
 
@@ -84,17 +88,18 @@ def band_compact(u: torch.Tensor, v: torch.Tensor, band: torch.Tensor,
     _check("band", band, torch.bool, u)
     rows, e = u.shape
     cap = min(e, block_cap)
-    uo = torch.full((rows, cap), -1, dtype=torch.int32, device=u.device)
-    vo = torch.full((rows, cap), -1, dtype=torch.int32, device=u.device)
+    uo = torch.empty((rows, cap), dtype=torch.int32, device=u.device)
+    vo = torch.empty((rows, cap), dtype=torch.int32, device=u.device)
     if rows == 0 or e == 0:
         return uo, vo
-    fn, tile, err = _fn()
-    tile_counts = torch.empty((rows, -(-e // tile)), dtype=torch.int32,
-                              device=u.device)
+    fn, scratch_bytes, err = _fn()
+    # int32 elements: the kernel's tile counts need 4-byte alignment.
+    scratch = torch.empty(-(-scratch_bytes(rows, e) // 4), dtype=torch.int32,
+                          device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(u.data_ptr(), v.data_ptr(), band.data_ptr(), uo.data_ptr(),
-                  vo.data_ptr(), tile_counts.data_ptr(), rows, e, cap, stream)
+                  vo.data_ptr(), scratch.data_ptr(), rows, e, cap, stream)
     if code:
         raise RuntimeError(f"band_compact kernel launch failed: "
                            f"{err(code).decode()} ({code})")

@@ -67,7 +67,8 @@ def division_magic(divisor: int) -> tuple[int, int]:
     """The round-up multiplier of ``divisor`` (Granlund-Montgomery):
     (magic, shift) with ``n // divisor == (n * magic) >> (32 + shift)``
     for every 0 <= n < 2^31, which the kernel computes as
-    ``__umulhi(n, magic) >> shift``.
+    ``__umulhi(n, magic) >> shift`` (``cfree_expand`` divides by the BA
+    degree with it too).
 
     shift = ceil(log2 divisor) - 1 (0 for 1 and 2) and magic =
     ceil(2^(32 + shift) / divisor). magic < 2^32 for every divisor >= 2;

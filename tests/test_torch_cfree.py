@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro import api as japi
 from repro.core import cfree as jcfree
@@ -27,6 +28,8 @@ from repro_torch.core import spec as tspec
 from repro_torch.core import storage as tstorage
 from repro_torch.kernels import cfree_expand as tcfree_expand
 from repro_torch.kernels import ops, ref
+
+import cfree_queue_model
 
 CPU = torch.device("cpu")
 
@@ -167,24 +170,106 @@ def test_ba_cfree_matches_serial_batagelj_brandes():
 
 
 def test_ba_chain_counts_the_draws_of_each_chain():
-    """``ba_chain``'s last draws and draw count against a serial walk of
-    each chain through the reference's ``hash_int`` (one draw per edge,
-    one more per hop while the draw is odd)."""
+    """``ba_chain``'s last draws and per-edge draw counts against a serial
+    walk of each chain through the reference's ``hash_int`` (one draw per
+    edge, one more per hop while the draw is odd)."""
     jcfg = jcfree.CFreeConfig(model="ba_cfree", vertices=700, ba_degree=3,
                               seed=9)
     w0, w1 = (int(x) for x in np.asarray(jcfree.cfree_words(jcfg))[:2])
-    want_r, want_draws = [], 0
+    want_r, want_draws = [], []
     for t in range(700 * 3):
         r, draws = jcfree.hash_int(w0, w1, t, 0) % (2 * t + 1), 1
         while r & 1 and draws <= jcfree.CHAIN_BOUND:
             j = r >> 1
             r, draws = jcfree.hash_int(w0, w1, j, 0) % (2 * j + 1), draws + 1
         want_r.append(r)
-        want_draws += draws
+        want_draws.append(draws)
     r, draws = tcfree.ba_chain(tcfree.cfree_words(_cfg(jcfg)),
                                torch.arange(700 * 3, dtype=torch.int32))
     np.testing.assert_array_equal(r.numpy(), np.array(want_r))
-    assert draws == want_draws > 700 * 3
+    assert draws.dtype == torch.int32
+    np.testing.assert_array_equal(draws.numpy(), np.array(want_draws))
+    assert int(draws.sum()) > 700 * 3
+
+
+@settings(max_examples=60, deadline=None)
+@given(degree=st.integers(2, 2**31 - 1),
+       extra=st.lists(st.integers(0, 2**31 - 1), min_size=1, max_size=16))
+def test_degree_magic_is_exact(degree, extra):
+    """The kernel's u = t / degree and v = (r >> 1) / degree, as
+    umulhi(n, magic) >> shift with the wrapper's magic, emulated as
+    (n * magic) >> (32 + shift), equal // for numerators below 2^31 (t is
+    int32 >= 0; r < 2j + 1 <= 2^32 - 1): the edges of each quotient step
+    near 0, near the top and around a few multiples of the degree."""
+    magic, shift = tcfree_expand.division_magic(degree)
+    assert 0 < magic < 2**32
+    top = 2**31 - 1
+    k = top // degree
+    near = [0, 1, degree - 1, degree, degree + 1, top - 1, top,
+            k * degree - 1, k * degree, 2 * degree - 1, 2 * degree]
+    n = np.array([x for x in near + extra if 0 <= x <= top], np.uint64)
+    q = (n * np.uint64(magic)) >> np.uint64(32 + shift)
+    np.testing.assert_array_equal(q, n // np.uint64(degree))
+
+
+def _model_draws(rng, m):
+    """Chain lengths shaped like the slab's: each draw odd w.p. 1/2, at
+    most 65 draws (mean 2)."""
+    return np.minimum(rng.geometric(0.5, m), 65)
+
+
+@settings(max_examples=40, deadline=None)
+@given(m=st.integers(1, 3000), per_lane=st.sampled_from([1, 2, 4, 8, 16]),
+       seed=st.integers(0, 2**16))
+def test_queue_schedule_claims_each_edge_once_in_order(m, per_lane, seed):
+    """The numpy model of the ba_cfree kernel's warp queue: every edge is
+    started exactly once, a tile's edges start in edge order (lane i takes
+    edge i first, then finishing lanes take the next ones in lane order),
+    and the lane-trips that draw are the draws the chains take."""
+    rng = np.random.default_rng(seed)
+    draws = _model_draws(rng, m)
+    draws[rng.integers(0, m)] = 65                # a chain at the bound
+    start, trips = cfree_queue_model.queue_schedule(draws, per_lane)
+    width = 32 * per_lane
+    assert start.shape == (m,) and (start >= 0).all()
+    for k in range(len(trips)):
+        s = start[k * width:(k + 1) * width]
+        assert (np.diff(s) >= 0).all()
+        assert (s[:32] == 0).all() and trips[k] >= s.max() + 1
+        d = draws[k * width:(k + 1) * width]
+        assert trips[k] >= max(-(-int(d.sum()) // 32), int(d.max()))
+    assert 0 < cfree_queue_model.queue_lane_use(draws, per_lane) <= 1
+
+
+def test_queue_keeps_lanes_busier_than_one_edge_per_trip():
+    """On chains of the slab's shape the queue's modelled lane use is well
+    above one edge per lane per trip (the earlier design), and rises with
+    the edges each lane owns; the kernel's own edges per lane lie in the
+    range modelled."""
+    draws = _model_draws(np.random.default_rng(1), 1 << 16)
+    old = cfree_queue_model.trip_lane_use(draws)
+    uses = [cfree_queue_model.queue_lane_use(draws, k) for k in (4, 8, 16)]
+    assert old < 0.45 and uses[0] > 0.55 and uses[0] < uses[1] < uses[2]
+    assert cfree_queue_model.kernel_per_lane() in (4, 8, 16)
+
+
+def test_queue_model_on_ba_cfree_1b_chains():
+    """The model over real chain lengths: ``ba_chain``'s per-edge draws
+    for 2^14 edges from the middle of ba_cfree_1b, at the kernel's own
+    edges per lane. Every edge starts once, the draws equal the chains'
+    total, and the queue keeps lanes busier than one edge per trip."""
+    cfg = tcfree.CFreeConfig(model="ba_cfree", vertices=250_000_000,
+                             ba_degree=4, seed=7)
+    t0 = tcfree.cfree_sizes(cfg)[1] // 2
+    _, draws = tcfree.ba_chain(
+        tcfree.cfree_words(cfg),
+        torch.arange(t0, t0 + (1 << 14), dtype=torch.int32))
+    draws = draws.numpy()
+    per_lane = cfree_queue_model.kernel_per_lane()
+    start, _ = cfree_queue_model.queue_schedule(draws, per_lane)
+    assert (start >= 0).all() and draws.min() >= 1
+    assert cfree_queue_model.queue_lane_use(draws, per_lane) > \
+        cfree_queue_model.trip_lane_use(draws) + 0.2
 
 
 HOST_CASES = {

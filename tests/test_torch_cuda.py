@@ -220,6 +220,114 @@ def test_band_compact_matches_plain(dev, rows, e, cap, p_band):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _band_equal(u, v, band, cap):
+    before = ops.launch_counts()["band_compact"]
+    got = ops.band_compact(u, v, band, cap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["band_compact"] == before + 1
+    want = ref.band_compact_ref(u, v, band, cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _window_band(rng, rows, e, providers, lo, hi, dev):
+    """The path's band: edges whose rank among the row's edges with the
+    same provider lies in [lo, hi), a window of the row."""
+    a = rng.integers(0, providers, (rows, e))
+    occ = np.zeros((rows, e), dtype=np.int64)
+    for q in range(providers):
+        hit = a == q
+        occ += np.where(hit, np.cumsum(hit, axis=1) - 1, 0)
+    return torch.from_numpy((occ >= lo) & (occ < hi)).to(dev)
+
+
+@pytest.mark.parametrize("case", [
+    "window_r0", "window_late", "all_empty", "total_is_cap",
+    "total_is_cap_plus_1", "cap_1", "below_one_tile"])
+def test_band_compact_path_like_bands(dev, case):
+    rng = np.random.default_rng(len(case))
+    rows, e, cap = 4, 100_000, 40_000
+    u = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    v = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    if case == "window_r0":
+        band = _window_band(rng, rows, e, 16, 0, 1024, dev)
+    elif case == "window_late":
+        band = _window_band(rng, rows, e, 16, 5000, 5100, dev)
+    elif case == "all_empty":
+        band = torch.zeros((rows, e), dtype=torch.bool, device=dev)
+    elif case.startswith("total_is_cap"):
+        band = torch.zeros((rows, e), dtype=torch.bool, device=dev)
+        extra = case.endswith("plus_1")
+        for r in range(rows):
+            pos = rng.choice(e, cap + extra, replace=False)
+            band[r, torch.from_numpy(pos).to(dev)] = True
+    elif case == "cap_1":
+        band = torch.from_numpy(rng.random((rows, e)) < 0.01).to(dev)
+        band[0] = False
+        cap = 1
+    else:                                    # e below one tile
+        e = 5000
+        u, v = u[:, :e].contiguous(), v[:, :e].contiguous()
+        band = torch.from_numpy(rng.random((rows, e)) < 0.3).to(dev)
+        cap = 3000
+    _band_equal(u, v, band, cap)
+
+
+@pytest.mark.parametrize("e", list(range(1, 16)) + [16 * 1024 + 7])
+def test_band_compact_row_widths_off_16(dev, e):
+    """e % 16 != 0: every row after the first starts off a 16-byte
+    boundary, so rows take a scalar head and tail."""
+    rng = np.random.default_rng(e)
+    rows = 37
+    u = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    v = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    band = torch.from_numpy(rng.random((rows, e)) < 0.4).to(dev)
+    for cap in (e, max(e // 2, 1)):
+        _band_equal(u, v, band, cap)
+
+
+@pytest.mark.parametrize("band_off,uv_off", [(0, 1), (3, 0), (5, 2),
+                                             (15, 3)])
+def test_band_compact_views_off_16_bytes(dev, band_off, uv_off):
+    """band, u and v as contiguous views that start off 16 bytes: the
+    scalar head, and u/v out of phase with band (scalar u/v loads)."""
+    rng = np.random.default_rng(band_off * 4 + uv_off)
+    rows, e = 5, 50_003
+    n = rows * e
+    ubuf = _int32(rng, (n + 3,), -2**31, 2**31 - 1, dev)
+    vbuf = _int32(rng, (n + 3,), -2**31, 2**31 - 1, dev)
+    bbuf = torch.from_numpy(rng.random(n + 15) < 0.2).to(dev)
+    u = ubuf[uv_off:uv_off + n].view(rows, e)
+    v = vbuf[uv_off:uv_off + n].view(rows, e)
+    band = bbuf[band_off:band_off + n].view(rows, e)
+    _band_equal(u, v, band, 20_000)
+
+
+def test_band_compact_many_rows(dev):
+    """More than 65,535 rows: the grid's y dimension loops."""
+    rng = np.random.default_rng(70_001)
+    rows, e = 70_001, 40
+    u = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    v = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    band = torch.from_numpy(rng.random((rows, e)) < 0.3).to(dev)
+    _band_equal(u, v, band, 17)
+
+
+def test_band_compact_writes_every_output_element(dev):
+    """Outputs come from torch.empty: fill the allocator's cache with a
+    pattern other than -1 first, so a column the kernel leaves unwritten
+    shows."""
+    rng = np.random.default_rng(5)
+    rows, e, cap = 6, 300_000, 120_000
+    u = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    v = _int32(rng, (rows, e), -2**31, 2**31 - 1, dev)
+    band = _window_band(rng, rows, e, 8, 100, 2000, dev)
+    for _ in range(3):
+        junk = torch.full((4, rows * cap), 0x5A5A5A5A, dtype=torch.int32,
+                          device=dev)
+        del junk
+        _band_equal(u, v, band, cap)
+
+
 def test_device_stream_on_the_card_equals_the_cpu(dev):
     spec = api.preset("paper_smoke", procs=16, vertices_per_proc=300,
                       exchange_rounds=8, pair_capacity=64,
@@ -453,6 +561,73 @@ def test_cfree_expand_matches_plain(dev, m, model, n, degree):
     want = ref.cfree_expand_ref(t, words, model=model, n=n,
                                 ba_degree=degree, thresholds=th)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _cfree_model(model, degree=4, n=None):
+    """(words, n, thresholds) of a small config of ``model``."""
+    from repro_torch.core import cfree
+    n = n or (1 << 20 if model == "rmat" else 300_000)
+    cfg = cfree.CFreeConfig(model=model, vertices=n,
+                            edges=0 if model == "ba_cfree" else 1 << 30,
+                            ba_degree=degree, seed=degree * 13 + n % 97)
+    return cfree.cfree_words(cfg), n, cfree.rmat_thresholds(cfg)
+
+
+def _cfree_equal(t, model, degree=4, n=None):
+    from repro_torch.kernels import cfree_expand
+    words, n, th = _cfree_model(model, degree, n)
+    kw = dict(model=model, n=n, ba_degree=degree, thresholds=th)
+    before = ops.launch_counts()["cfree_expand"]
+    got = cfree_expand.cfree_expand(t, words, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cfree_expand"] == before + 1
+    assert got[0].is_contiguous() and got[0].shape == t.shape
+    want = ref.cfree_expand_ref(t, words, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("model", ["ba_cfree", "rmat", "er"])
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_cfree_expand_misaligned_views(dev, model, off):
+    """t as a view 1-3 entries off 16 bytes: scalar head and tail quads,
+    outputs allocated at t's phase."""
+    rng = np.random.default_rng(off)
+    buf = _int32(rng, (20_011,), 0, 1_200_000, dev)
+    _cfree_equal(buf[off:off + 20_003], model)
+
+
+@pytest.mark.parametrize("model", ["ba_cfree", "rmat", "er"])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 255, 256, 257, 4097])
+def test_cfree_expand_lengths(dev, model, m):
+    """m % 4 in 0..3, m = 1, one warp tile and its neighbours."""
+    rng = np.random.default_rng(m)
+    _cfree_equal(_int32(rng, (m,), 0, 1_200_000, dev), model)
+
+
+@pytest.mark.parametrize("model", ["ba_cfree", "rmat", "er"])
+def test_cfree_expand_indices_near_int32_max(dev, model):
+    t = (2**31 - 1) - torch.arange(50_001, dtype=torch.int32, device=dev)
+    _cfree_equal(t, model, degree=1, n=(1 << 30) if model == "rmat"
+                 else 2**31 - 1)
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 7, 1 << 20])
+def test_cfree_expand_ba_degrees(dev, degree):
+    """u = t / degree and v = (r >> 1) / degree by the multiply-high (by
+    nothing for degree 1)."""
+    n = min(300_000, (2**31 - 1) // degree)
+    rng = np.random.default_rng(degree)
+    _cfree_equal(_int32(rng, (30_000,), 0, n * degree, dev), "ba_cfree",
+                 degree=degree, n=n)
+
+
+def test_cfree_expand_ba_cfree_1b_slab(dev):
+    """A slab from the middle of ba_cfree_1b's 10^9 edges, as its stream
+    hands it to the kernel."""
+    slab = 1 << 20
+    t0 = (1_000_000_000 // slab // 2) * slab
+    t = torch.arange(t0, t0 + slab, dtype=torch.int32, device=dev)
+    _cfree_equal(t, "ba_cfree", degree=4, n=250_000_000)
 
 
 @pytest.mark.parametrize("name,overrides,kernel", [

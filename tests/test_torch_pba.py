@@ -364,6 +364,46 @@ def test_round_indices_match_reference(r):
         np.testing.assert_array_equal(vals[q][band[q]].numpy(), jv[q, :nb])
 
 
+@pytest.mark.parametrize("r", [0, 2, 5])
+def test_round_compact_inputs_match_reference(r):
+    """pba.round_compact_inputs, which the device stream's round and
+    chip_smoke.py's band_compact path cases share, against the JAX
+    package's own round: the plain band compaction of the helper's
+    (u, v, band) must be jpba.pba_stream_round_block's (u, v), on the
+    same setup and pools."""
+    from repro.runtime.topology import Topology as JTopology
+    from repro_torch.kernels import ref
+    from repro_torch.runtime.topology import Topology
+    cfg, table, tcfg, _ = _pinned("paper_smoke", procs=16,
+                                  vertices_per_proc=500, exchange_rounds=8,
+                                  pair_capacity=64)
+    p, e_local = table.num_procs, cfg.edges_per_proc
+    t_cap = cfg.total_capacity_factor * e_local
+    c_r = jstreaming.round_capacity(cfg.pair_capacity, cfg.exchange_rounds)
+    jtopo = JTopology.host()
+    ranks = jnp.arange(p, dtype=jnp.int32)
+    a, occ, recv_counts = jpba.pba_stream_setup_block(
+        ranks, jnp.asarray(table.procs), jnp.asarray(table.s), cfg, p, jtopo)
+    assert r < jstreaming.rounds_needed(int(recv_counts.max()), c_r)
+    pool = jax.vmap(lambda q: jpba._phase2_pool(q, cfg, t_cap))(ranks)
+    block_cap = jpba.stream_block_capacity(e_local, p, c_r)
+    ju, jv, _ = jpba.pba_stream_round_block(
+        r, a, occ, recv_counts, pool, ranks, cfg, p, c_r, t_cap, block_cap,
+        jtopo)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    u, v, band = tpba.round_compact_inputs(
+        r, t(a), t(occ), t(recv_counts), t(pool), t(ranks), tcfg, p, c_r,
+        t_cap, Topology.host())
+    assert u.shape == v.shape == band.shape == (p, e_local)
+    assert band.dtype == torch.bool and 0 < int(band.sum()) < band.numel()
+    cu, cv = ref.band_compact_ref(u, v, band, block_cap)
+    np.testing.assert_array_equal(cu.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(cv.numpy(), np.asarray(jv))
+
+
 def test_host_rejects_device_topology():
     from repro_torch.runtime.topology import Topology
     _, _, tcfg, ttab = _pinned("paper_smoke", vertices_per_proc=10)
