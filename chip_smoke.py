@@ -19,16 +19,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     pba functions); band_compact at uniform bands and at every round of
     the device stream, on the (u, v, band) that pba.round_compact_inputs
     builds for it, with the sum over the rounds (what one streamed run
-    pays); the path cases of round 0 are the kernels line's headline
-    cases. The PK and ba_cfree slabs add the wall per call of back-to-back
-    calls (the wrapper's host work plus the launch, which bound the
-    streams' per-slab loop).
+    pays); histogram at uniform values (64 and 70,000 bins), on phase 1's
+    tags and on every round's census (pba.round_census: the tags counted
+    where the round's band is set, beside the torch.where(band, a, -1)
+    plus unmasked count it replaced), with the per-run sum of phase 1 and
+    the censuses; the path cases of round 0 (histogram: phase 1) are the
+    kernels line's headline cases. The PK and ba_cfree slabs add the wall
+    per call of back-to-back calls (the wrapper's host work plus the
+    launch, which bound the streams' per-slab loop).
     Kernel, plain and library-call times are CUDA event medians of 7
     runs after 2 warm-ups (the plain versions over 2^30 edges: their one
     comparison run; resolve_roots: each run on a fresh copy of the urn,
     the plain version and the replaced design 3 runs); the PK and
-    communication-free cases add the kernel's profiled device time per
-    launch, which leaves out the host's launch overhead. Bounds: bytes over the memory rate, or
+    communication-free cases and histogram's path cases add the kernel's
+    profiled device time per launch, which leaves out the host's launch
+    overhead. Bounds: bytes over the memory rate, or
     32-bit integer operations over the INT32 rate, the larger.
  3. reference digests: generate() on the card for the specs in
     src/repro_torch/reference_digests.json (made by the JAX package: PBA
@@ -40,8 +45,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     (1M vertices x k=5 per rank, R=8) with procs cut from 1000 to 64 to
     fit one card; zero dropped edges, no kernel fallbacks, every kernel of
     the path launched; then the same spec under forced_mode("ref") must
-    give identical edges; then 4 + 4 timed runs of the kernel and plain
-    paths in turns, a per-stage timing run and a profiled run.
+    give identical edges; histogram at degree counting's shape on this
+    run's edges (both endpoints into num_vertices + 1 bins, as the JAX
+    package's core/analysis.py::degree_counts_device builds it) and at
+    as many uniform values (device-memory atomics saturated); then 4 + 4
+    timed runs of the kernel and plain paths in turns, a per-stage timing
+    run and a profiled run.
  5. streamed main path: the same preset at its own execution="streamed"
     on Topology.flat(1) (the device stream), same single cut: into memory
     (every kernel launched, band_compact once per block); under
@@ -415,30 +424,51 @@ def band_bytes(band, cap: int) -> int:
     return band.numel() + 8 * kept + 8 * band.shape[0] * cap
 
 
+def touched_sectors(flags) -> int:
+    """32-byte sectors of an int32 array of ``flags``'s shape that its set
+    entries touch, as the card reads them (rows laid end to end, the
+    array 32-byte aligned)."""
+    flat = flags.reshape(-1)
+    whole = flat.numel() // 8 * 8
+    return int(flat[:whole].view(-1, 8).any(1).sum()) + \
+        int(flat[whole:].any())
+
+
 def band_sector_bytes(torch, band, cap: int) -> int:
     """The same bytes with u and v counted by the 32-byte sectors that
-    the kept band entries touch, as the card reads them (rows laid end to
-    end, the arrays 32-byte aligned)."""
+    the kept band entries touch."""
     cap = min(cap, band.shape[1])
     kept = band & (torch.cumsum(band, 1, dtype=torch.int32) <= cap)
-    flat = kept.reshape(-1)
-    whole = flat.numel() // 8 * 8
-    sectors = int(flat[:whole].view(-1, 8).any(1).sum()) + \
-        int(flat[whole:].any())
-    return band.numel() + 2 * 32 * sectors + 8 * band.shape[0] * cap
+    return band.numel() + 2 * 32 * touched_sectors(kept) + \
+        8 * band.shape[0] * cap
 
 
-def band_compact_path_cases(torch, pl, setup: dict) -> list[dict]:
-    """band_compact against its plain version at every round of the
-    device stream of plan ``pl``'s spec, on the (u, v, band) that the
-    round hands the kernel, built by the port's own
-    pba.round_compact_inputs from ``setup`` (:func:`pba_path_setup`) and
-    the stream's pool (drawn at the stream's urn budget, as
-    PBAShardedStream draws it). Each round's row carries its band size;
-    round 0's row (the kernels line's headline) carries the per-run
-    totals over all rounds of kernel, plain and bound ms."""
+def row_bincount(torch, values, num_bins: int):
+    """The library call for a row-batched histogram: one torch.bincount
+    over the values offset by row (out-of-range values to a spill bin of
+    their row), on int64 indices built beforehand."""
+    rows = values.shape[0]
+    ok = (values >= 0) & (values < num_bins)
+    off = torch.arange(rows, device=values.device)[:, None] * (num_bins + 1)
+    flat = (torch.where(ok, values, num_bins).long() + off).reshape(-1)
+    return lambda: torch.bincount(flat, minlength=rows * (num_bins + 1))
+
+
+def round_path_cases(torch, pl, setup: dict) -> list[dict]:
+    """The PBA main path's own inputs to histogram and band_compact,
+    for plan ``pl``'s spec: phase 1's count of the tags ``a`` (``setup``,
+    :func:`pba_path_setup`), then every round of the device stream, on
+    what the round hands the kernels, built once per round by the port's
+    own pba.round_compact_inputs from ``setup`` and the stream's pool
+    (drawn at the stream's urn budget, as PBAShardedStream draws it):
+    band_compact on (u, v, band) and the census pba.round_census(a, band)
+    (histogram with ``mask=band``), beside the torch.where(band, a, -1)
+    plus unmasked count it replaced, each timed on its own. Each round's
+    rows carry the band size; the phase-1 histogram row and round 0's
+    band_compact row (the kernels line's headlines) carry the per-run
+    totals."""
     from repro_torch.core import pba, stream
-    from repro_torch.kernels import band_compact, ref
+    from repro_torch.kernels import band_compact, histogram, ref
     from repro_torch.runtime import streaming
     from repro_torch.runtime.topology import Topology
 
@@ -451,42 +481,122 @@ def band_compact_path_cases(torch, pl, setup: dict) -> list[dict]:
     urn_budget = stream.stream_urn_budget(
         cfg, int(recv_counts.sum(1, dtype=torch.int64).max()), True)
     block_cap = pba.stream_block_capacity(e_local, p, c_r)
+    hist, compact = [], []
+    phase1 = run_case(torch, hist, f"histogram path phase1 {p}x{e_local} "
+                      f"bins {p}", histogram.histogram, ref.histogram_ref,
+                      row_bincount(torch, a, p), (a, p),
+                      4 * (a.numel() + p * p), [p, e_local, p],
+                      device_kernel="histogram")
+    phase1["zeros_ms"] = time_ms(torch, lambda: torch.zeros(
+        (p, p), dtype=torch.int32, device=a.device))
     pool = pba._phase2_pool(ranks, cfg, urn_budget)
-    results = []
     for r in range(rounds):
         u, v, band = pba.round_compact_inputs(
             r, a, occ, recv_counts, pool, ranks, cfg, p, c_r, urn_budget,
             Topology.flat(1))
-        row = run_case(torch, results,
+        entries = int(band.sum())
+        row = run_case(torch, compact,
                        f"band_compact path r{r} {p}x{e_local} cap "
                        f"{block_cap}", band_compact.band_compact,
                        ref.band_compact_ref, None, (u, v, band, block_cap),
                        band_bytes(band, block_cap), [p, e_local, block_cap])
         sector_bytes = band_sector_bytes(torch, band, block_cap)
-        row.update(round=r, band_entries=int(band.sum()),
-                   band_share=int(band.sum()) / band.numel(),
+        row.update(round=r, band_entries=entries,
+                   band_share=entries / band.numel(),
                    sector_bytes=sector_bytes, computed_sector_floor_ms=(
                        sector_bytes / HBM_BYTES_PER_S * 1e3))
-        del u, v, band
+        del u, v
+        torch.cuda.empty_cache()
+        # The census. The library call counts the where's output.
+        where = torch.where(band, a, -1)
+        row = run_case(torch, hist, f"histogram census r{r} {p}x{e_local} "
+                       f"bins {p}", histogram.histogram, ref.histogram_ref,
+                       row_bincount(torch, where, p), (a, p, band),
+                       band.numel() + 4 * entries + 4 * p * p,
+                       [p, e_local, p], device_kernel="histogram")
+        # The mask once, the tags by the sectors the band touches.
+        sector_bytes = band.numel() + 32 * touched_sectors(band) + 4 * p * p
+        row.update(
+            round=r, band_entries=entries, band_share=entries / band.numel(),
+            where_ms=time_ms(torch, lambda: torch.where(band, a, -1)),
+            unmasked_kernel_ms=time_ms(
+                torch, lambda: histogram.histogram(where, p)),
+            sector_bytes=sector_bytes,
+            computed_sector_floor_ms=sector_bytes / HBM_BYTES_PER_S * 1e3)
+        row["where_plus_unmasked_ms"] = row["where_ms"] + \
+            row["unmasked_kernel_ms"]
+        del band, where
         torch.cuda.empty_cache()
     del pool
     torch.cuda.empty_cache()
     per_run = {"rounds": rounds, "urn_budget": urn_budget,
-               **{k: sum(c[k] for c in results) for k in (
+               **{k: sum(c[k] for c in compact) for k in (
                    "kernel_ms", "plain_ms", "bound_ms")}}
-    results[0]["per_run"] = per_run
+    compact[0]["per_run"] = per_run
     emit({"phase": "band_compact_path_run", **per_run,
           "computed_sector_floor_ms": sum(
-              c["computed_sector_floor_ms"] for c in results),
-          **{f"{k}_per_round": [c[k] for c in results] for k in (
+              c["computed_sector_floor_ms"] for c in compact),
+          **{f"{k}_per_round": [c[k] for c in compact] for k in (
               "band_entries", "kernel_ms", "bound_ms",
               "computed_sector_floor_ms")}})
+    census = hist[1:]
+    totals = {k: phase1[k] + sum(c[k] for c in census) for k in (
+        "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+        "library_ms")}
+    phase1["per_run"] = {
+        **totals, "where_plus_unmasked_ms": phase1["kernel_ms"] + sum(
+            c["where_plus_unmasked_ms"] for c in census)}
+    emit({"phase": "histogram_path_run", "rounds": rounds,
+          **phase1["per_run"], "computed_floor_ms": phase1["bound_ms"] + sum(
+              c["computed_sector_floor_ms"] for c in census),
+          "zeros_ms": phase1["zeros_ms"],
+          "phase1_kernel_device_ms": phase1["kernel_device_ms"],
+          **{f"{k}_per_round": [c[k] for c in census] for k in (
+              "band_entries", "kernel_ms", "kernel_device_ms", "where_ms",
+              "unmasked_kernel_ms", "bound_ms", "computed_sector_floor_ms",
+              "library_ms")}})
+    return hist + compact
+
+
+def degree_count_cases(torch, src, dst, num_vertices: int) -> list[dict]:
+    """histogram at the shape degree counting gives it (the JAX package's
+    core/analysis.py::degree_counts_device, :258-270): both endpoints of
+    the host path's edges, an endpoint of an invalid edge mapped to n,
+    concatenated and counted into n + 1 bins (n = num_vertices); then the
+    same number of values drawn uniform over those bins (torch generator
+    seeded with SEED), where almost every value is an atomic into a line
+    the 50 MB L2 does not hold: the rate at which device-memory atomics
+    into the (n + 1)-entry counts saturate."""
+    from repro_torch.kernels import histogram, ref
+
+    n = num_vertices
+    src, dst = src.reshape(-1), dst.reshape(-1)
+    valid = (src >= 0) & (dst >= 0)
+    both = torch.cat([torch.where(valid, src, n), torch.where(valid, dst, n)])
+    del valid
+    results = []
+    gen = torch.Generator(device=src.device)
+    gen.manual_seed(SEED)
+    for label in ("degree count", "uniform"):
+        if label == "uniform":
+            both = torch.randint(0, n + 1, both.shape, generator=gen,
+                                 dtype=torch.int32, device=src.device)
+        flat = both.long()
+        run_case(torch, results, f"histogram {label} {both.numel()} bins "
+                 f"{n + 1}", histogram.histogram, ref.histogram_ref,
+                 lambda: torch.bincount(flat, minlength=n + 1),
+                 (both, n + 1), 4 * (both.numel() + n + 1),
+                 [both.numel(), n + 1])
+        del flat
+        torch.cuda.empty_cache()
+    del both
+    torch.cuda.empty_cache()
     return results
 
 
 def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
                  block_cap: int) -> list[dict]:
-    from repro_torch.kernels import band_compact, edge_resolve, histogram, ref
+    from repro_torch.kernels import band_compact, edge_resolve, ref
 
     gen = np.random.default_rng(seed)
     e_local = vpp * k
@@ -513,7 +623,7 @@ def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
     torch.cuda.empty_cache()
 
     # Band compaction off the path (the path's own rounds are
-    # band_compact_path_cases): a uniform ~1/12 band (a round of 12), an
+    # round_path_cases): a uniform ~1/12 band (a round of 12), an
     # overflowing band (truncation at block_cap), and small rows that are
     # empty, all band, or narrower than block_cap.
     bu = draw(procs, e_local, 2**31)
@@ -538,20 +648,26 @@ def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
     del su, sv, band
     torch.cuda.empty_cache()
 
-    # Phase-1 counts (P bins) and a bin count past shared memory; -1 and
-    # past-the-end values must be ignored.
+    return results
+
+
+def histogram_uniform_cases(torch, np, dev, seed: int, procs: int,
+                            e_local: int) -> list[dict]:
+    """histogram off the path (the path's own inputs are
+    round_path_cases): values drawn uniform at phase 1's shape into P
+    bins, and into 70,000 bins (past one block's shared memory); -1 and
+    past-the-end values must be ignored."""
+    from repro_torch.kernels import histogram, ref
+
+    gen = np.random.default_rng(seed)
+    results = []
     for nb in (procs, 70_000):
-        vals = draw(procs, e_local, nb + 2) - 1
-        ok = (vals >= 0) & (vals < nb)
-        rows = torch.arange(procs, device=dev)[:, None] * (nb + 1)
-        flat = (torch.where(ok, vals, nb).long() + rows).reshape(-1)
-        del ok, rows
-        run(f"histogram {procs}x{e_local} bins {nb}", histogram.histogram,
-            ref.histogram_ref,
-            lambda: torch.bincount(flat, minlength=procs * (nb + 1)),
-            (vals, nb), 4 * (vals.numel() + procs * nb),
-            [procs, e_local, nb])
-        del vals, flat
+        vals = draw_ints(torch, np, gen, dev, procs, e_local, nb + 2) - 1
+        run_case(torch, results, f"histogram uniform {procs}x{e_local} "
+                 f"bins {nb}", histogram.histogram, ref.histogram_ref,
+                 row_bincount(torch, vals, nb), (vals, nb),
+                 4 * (vals.numel() + procs * nb), [procs, e_local, nb])
+        del vals
         torch.cuda.empty_cache()
     return results
 
@@ -1412,10 +1528,14 @@ def main() -> int:
     cases = kernel_cases(torch, np, dev, SEED, pl.num_procs,
                          spec.vertices_per_proc, spec.edges_per_vertex,
                          BLOCK_CAP)
+    cases += histogram_uniform_cases(torch, np, dev, SEED, pl.num_procs,
+                                     pl.config.edges_per_proc)
     setup = pba_path_setup(torch, pl)
     cases += gather_cases(torch, np, pl, SEED, setup)
-    band_path = band_compact_path_cases(torch, pl, setup)
-    cases += band_path
+    round_path = round_path_cases(torch, pl, setup)
+    cases += round_path
+    band_runs = next(c["per_run"]["rounds"] for c in round_path
+                     if c["kernel"] == "band_compact" and "per_run" in c)
     del setup
     torch.cuda.empty_cache()
     cases += resolve_cases(torch, pl)
@@ -1479,10 +1599,12 @@ def main() -> int:
     if min(host_launches[k] for k in HOST_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel of the host path never launched: "
                              f"{host_launches}")
-    if host_launches["resolve_roots"] != URNS_PER_PBA_RUN:
+    if host_launches["resolve_roots"] != URNS_PER_PBA_RUN or \
+            host_launches["histogram"] != 1:
         raise AssertionError(f"resolve_roots launched "
-                             f"{host_launches['resolve_roots']} times on "
-                             f"the host path")
+                             f"{host_launches['resolve_roots']} and "
+                             f"histogram {host_launches['histogram']} times "
+                             "on the host path")
     digest = edge_digest(res.edges.src, res.edges.dst)
     host_multiset = multiset_digest(torch, res.edges.src, res.edges.dst,
                                     st.num_vertices)
@@ -1506,7 +1628,11 @@ def main() -> int:
           "multiset_sha256": host_multiset})
     if not same:
         raise AssertionError("kernel path and plain path disagree")
-    del plain, kernel_src, kernel_dst
+    del plain
+    torch.cuda.empty_cache()
+    cases += degree_count_cases(torch, kernel_src, kernel_dst,
+                                st.num_vertices)
+    del kernel_src, kernel_dst
     torch.cuda.empty_cache()
 
     # Kernel path vs plain path end to end, in turns, on the same card.
@@ -1537,11 +1663,13 @@ def main() -> int:
     # 5. the streamed main path
     stream_launches = streamed_phases(torch, api, dispatch, ops, edge_digest,
                                       dev, host_multiset)
-    if stream_launches["band_compact"] != band_path[0]["per_run"]["rounds"]:
-        raise AssertionError("the band_compact path cases cover "
-                             f"{band_path[0]['per_run']['rounds']} rounds, "
-                             "the streamed run launched it "
-                             f"{stream_launches['band_compact']} times")
+    if stream_launches["band_compact"] != band_runs or \
+            stream_launches["histogram"] != 1 + band_runs:
+        raise AssertionError(f"the path cases cover {band_runs} rounds, the "
+                             "streamed run launched band_compact "
+                             f"{stream_launches['band_compact']} and "
+                             f"histogram {stream_launches['histogram']} "
+                             "times")
 
     # 6. PK and the communication-free family
     pk_cfree_launches = pk_cfree_phases(torch, api, dispatch, ops,
@@ -1563,8 +1691,7 @@ def main() -> int:
                            "gather_chunked path grants r0 "),
         "histogram": ("src/repro/kernels/histogram.py:47",
                       "src/repro_torch/kernels/csrc/histogram.cu",
-                      f"histogram {pl.num_procs}x{pl.config.edges_per_proc}"
-                      f" bins {pl.num_procs}"),
+                      "histogram path phase1 "),
         "band_compact": ("src/repro/kernels/band_compact.py:107",
                          "src/repro_torch/kernels/csrc/band_compact.cu",
                          "band_compact path r0 "),

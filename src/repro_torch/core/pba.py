@@ -398,9 +398,17 @@ def pba_stream_round_block(r: int, a: torch.Tensor, occ: torch.Tensor,
     u, v, band = round_compact_inputs(r, a, occ, recv_counts, pool, ranks,
                                       cfg, num_procs, round_cap, urn_budget,
                                       topo)
-    counts = ops.histogram(torch.where(band, a, -1), num_procs)
+    counts = round_census(a, band, num_procs)
     u, v = ops.band_compact(u, v, band, block_cap)
     return u, v, counts
+
+
+def round_census(a: torch.Tensor, band: torch.Tensor,
+                 num_procs: int) -> torch.Tensor:
+    """A round's census: per row of the (lp, E) tags ``a``, how many of
+    the edges in ``band`` name each provider, (lp, P) (the histogram
+    kernel, counting only where ``band`` is set)."""
+    return ops.histogram(a, num_procs, mask=band)
 
 
 def round_compact_inputs(r: int, a: torch.Tensor, occ: torch.Tensor,

@@ -69,9 +69,11 @@ def gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return edge_resolve.gather(src, idx)
 
 
-def histogram(values: torch.Tensor, num_bins: int) -> torch.Tensor:
-    """Bincount into [0, num_bins), out-of-range ignored, per row."""
-    return _histogram.histogram(values, num_bins)
+def histogram(values: torch.Tensor, num_bins: int,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Bincount into [0, num_bins), out-of-range ignored, per row; with a
+    bool ``mask`` of the values' shape, only where it is set."""
+    return _histogram.histogram(values, num_bins, mask)
 
 
 def band_compact(u: torch.Tensor, v: torch.Tensor, band: torch.Tensor,

@@ -55,11 +55,16 @@ def gather_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(src, -1, idx.clamp(0, m - 1).long())
 
 
-def histogram_ref(values: torch.Tensor, num_bins: int) -> torch.Tensor:
+def histogram_ref(values: torch.Tensor, num_bins: int,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
     """Bincount of int32 values in [0, num_bins), out-of-range ignored.
 
     ``values`` (n,) gives (num_bins,); (rows, n) gives (rows, num_bins).
+    With a bool ``mask`` of the values' shape, only the values where it
+    is set are counted: the bincount of ``where(mask, values, -1)``.
     """
+    if mask is not None:
+        values = torch.where(mask, values, -1)
     rows = values.reshape(1, -1) if values.ndim == 1 else values
     ok = (rows >= 0) & (rows < num_bins)
     v = torch.where(ok, rows, num_bins).long()

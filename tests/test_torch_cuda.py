@@ -201,6 +201,136 @@ def test_histogram_matches_plain(dev, rows, n, nbins):
                        ref.histogram_ref(vals[0], nbins))
 
 
+def _hist_check(vals, nbins, mask=None):
+    """One launch, equal to the plain version."""
+    before = ops.launch_counts()["histogram"]
+    got = ops.histogram(vals, nbins, mask)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["histogram"] == before + 1
+    assert torch.equal(got, ref.histogram_ref(vals, nbins, mask))
+    return got
+
+
+def _regime_bins(dev):
+    """Bin counts at each of the regime boundaries of this card, and one
+    past each."""
+    from repro_torch.kernels import histogram
+    _, optin = histogram._limits(dev)
+    per_block = (optin - histogram._layout()[1]) // 4
+    top = histogram.CLUSTER_MAX * per_block
+    return [12_288, 12_289, per_block, per_block + 1, top, top + 1]
+
+
+@pytest.mark.parametrize("nbins", [1, 64, 70_000, 3_000_000])
+def test_histogram_every_value_in_one_bin(dev, nbins):
+    """A warp's worst contention: every lane adds to the same bin."""
+    vals = torch.full((3, 100_003), nbins - 1, dtype=torch.int32, device=dev)
+    got = _hist_check(vals, nbins)
+    assert int(got[:, -1].min()) == 100_003
+
+
+@pytest.mark.parametrize("nbins", [64, 70_000, 3_000_000])
+def test_histogram_every_value_out_of_range(dev, nbins):
+    rng = np.random.default_rng(nbins)
+    vals = _int32(rng, (5, 40_001), nbins, 2**31 - 1, dev)
+    vals[:, ::3] = -1
+    vals[1] = torch.iinfo(torch.int32).min
+    assert int(_hist_check(vals, nbins).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 7, 13, 4097, 4098, 4099])
+def test_histogram_row_widths(dev, n):
+    """n % 4 in 0..3: every row but the first starts off 16 bytes, and
+    each row has a scalar tail."""
+    rng = np.random.default_rng(n)
+    vals = _int32(rng, (5, n), -1, 65, dev)
+    _hist_check(vals, 64)
+    mask = torch.from_numpy(rng.random((5, n)) < 0.5).to(dev)
+    _hist_check(vals, 64, mask)
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("nbins", [64, 70_000])
+def test_histogram_views_off_16_bytes(dev, off, nbins):
+    rng = np.random.default_rng(off)
+    base = _int32(rng, (100_003 + 8,), -1, nbins + 1, dev)
+    vals = base[off:off + 100_003]
+    assert vals.data_ptr() % 16 == 4 * off
+    _hist_check(vals, nbins)
+    flags = torch.from_numpy(rng.random(100_003 + 32) < 0.3).to(dev)
+    for moff in (0, 4 * off, off):       # in phase with the values, or not
+        _hist_check(vals, nbins, flags[moff:moff + 100_003])
+
+
+def test_histogram_many_rows(dev):
+    """More rows than grid y holds, each owned by one block."""
+    rng = np.random.default_rng(7)
+    vals = _int32(rng, (70_001, 7), -1, 65, dev)
+    _hist_check(vals, 64)
+    _hist_check(vals, 64, torch.from_numpy(rng.random((70_001, 7)) < 0.5)
+                .to(dev))
+
+
+def test_histogram_at_each_regime_boundary(dev):
+    from repro_torch.kernels import histogram
+    _, optin = histogram._limits(dev)
+    kinds = [histogram.regime(nb, optin, *histogram._layout()).kind
+             for nb in _regime_bins(dev)]
+    assert kinds == ["block", "block", "block", "cluster", "cluster",
+                     "global"]
+    rng = np.random.default_rng(3)
+    for nbins in _regime_bins(dev):
+        vals = _int32(rng, (3, 200_003), -1, nbins + 2, dev)
+        vals[0, :1000] = nbins - 1             # the last bin of the slice
+        _hist_check(vals, nbins)
+        _hist_check(vals[1], nbins)
+
+
+def test_histogram_power_law_past_the_cluster(dev):
+    """Degree-count-like values: power-law hubs into bins past what a
+    cluster holds (device-memory atomics), -1 mapped to n."""
+    rng = np.random.default_rng(11)
+    n = 2_000_000
+    vals = np.minimum(rng.zipf(1.8, 3_000_000) - 1, n).astype(np.int32)
+    vals[::97] = n
+    _hist_check(torch.from_numpy(vals).to(dev), n + 1)
+
+
+@pytest.mark.parametrize("density", [0.415, 0.316, 0.067, 0.0093, 1e-5,
+                                     0.0, 1.0])
+@pytest.mark.parametrize("nbins", [64, 70_000])
+def test_histogram_masked_round_densities(dev, density, nbins):
+    """The census: a band at each round's density (PBA rounds 0-10 run
+    from 41.5% down to a few entries), as scattered entries and as
+    windows of runs."""
+    rng = np.random.default_rng(int(density * 1e6) + nbins)
+    vals = _int32(rng, (6, 300_007), -1, nbins + 1, dev)
+    scattered = torch.from_numpy(rng.random((6, 300_007)) < density).to(dev)
+    _hist_check(vals, nbins, scattered)
+    runs = np.zeros((6, 300_007), dtype=bool)
+    for row in runs:
+        for start in rng.integers(0, 300_007, max(1, int(density * 40))):
+            row[start:start + int(rng.integers(1, 3000))] = density > 0
+    _hist_check(vals, nbins, torch.from_numpy(runs).to(dev))
+
+
+@pytest.mark.parametrize("rows,nbins", [(3000, 64), (64, 70_000)])
+def test_histogram_over_stale_memory(dev, rows, nbins):
+    """Where a block or cluster owns each row the counts come from
+    torch.empty: every bin must be written over whatever the allocator's
+    cache held."""
+    junk = torch.full((rows * nbins + 4096,), 0x5A5A5A5A, dtype=torch.int32,
+                      device=dev)
+    del junk
+    rng = np.random.default_rng(rows)
+    vals = _int32(rng, (rows, 20_000), -1, nbins // 2, dev)
+    _hist_check(vals, nbins)
+    junk = torch.full((rows * nbins + 4096,), -7, dtype=torch.int32,
+                      device=dev)
+    del junk
+    _hist_check(vals, nbins, vals > 3)
+
+
 @pytest.mark.parametrize("rows,e,cap,p_band", [
     (1, 1, 1, 0.5), (3, 4096, 1000, 0.3), (2, 4097, 5000, 0.9),
     (4, 70_001, 20_000, 0.5), (3, 100_000, 9000, 1 / 12)])
@@ -368,6 +498,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         ops.histogram(t.long(), 3)
     with pytest.raises(ValueError):
         ops.histogram(t[:, ::2], 3)
+    with pytest.raises(TypeError):
+        ops.histogram(t, 3, t)             # mask must be bool
+    with pytest.raises(ValueError):
+        ops.histogram(t, 3, (t > 0)[:, :2])   # mask's shape
+    with pytest.raises(ValueError):
+        ops.histogram(t, 3, (t > 0).t().contiguous().t())
     with pytest.raises(TypeError):
         ops.band_compact(t, t, t, 3)       # band must be bool
     with pytest.raises(ValueError):

@@ -167,6 +167,98 @@ def test_histogram_rows():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _windows(rng, shape, runs):
+    """A bool mask of ``runs`` windows of random length per row."""
+    mask = np.zeros(shape, dtype=bool)
+    for row in mask.reshape(-1, shape[-1]):
+        for start in rng.integers(0, shape[-1], runs):
+            row[start:start + int(rng.integers(1, 400))] = True
+    return mask
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "windows", "scattered"])
+def test_masked_histogram_matches_pallas(kind):
+    """The masked plain version (the census's contract): the Pallas
+    kernel's count of where(mask, values, -1)."""
+    rng = np.random.default_rng(len(kind))
+    vals = rng.integers(-1, 70, (3, 5003)).astype(np.int32)
+    mask = {"none": np.zeros(vals.shape, dtype=bool),
+            "all": np.ones(vals.shape, dtype=bool),
+            "windows": _windows(rng, vals.shape, 6),
+            "scattered": rng.random(vals.shape) < 0.3}[kind]
+    want = np.stack([np.asarray(histogram_pallas(
+        jnp.where(jnp.asarray(m), jnp.asarray(r), -1), 64, interpret=True))
+        for r, m in zip(vals, mask)])
+    vt, mt = torch.from_numpy(vals), torch.from_numpy(mask)
+    np.testing.assert_array_equal(ref.histogram_ref(vt, 64, mt).numpy(), want)
+    np.testing.assert_array_equal(ops.histogram(vt, 64, mt).numpy(), want)
+    np.testing.assert_array_equal(
+        ops.histogram(vt[1], 64, mt[1]).numpy(), want[1])
+    with pytest.raises(ValueError, match="mask has shape"):
+        ops.histogram(vt, 64, mt[:, 1:])
+
+
+#: An H100's limits: 227 KB of opt-in shared memory per block, 8 blocks
+#: in a portable cluster, 132 SMs; and a kernel layout of 1024 threads a
+#: block and 16 KB of masked-step staging (what the library's
+#: ``repro_histogram_threads`` / ``repro_histogram_stage_bytes`` give).
+H100_OPTIN, H100_SMS = 232_448, 132
+THREADS, STAGE_BYTES = 1024, 16384
+
+
+def test_regime_at_each_boundary():
+    """The pure choice of where the kernel's adds land, at each boundary
+    of a given card's limits, and one past it."""
+    per_block = (H100_OPTIN - STAGE_BYTES) // 4
+    top = thist.CLUSTER_MAX * per_block
+
+    def kind(nb, optin=H100_OPTIN, cluster_max=thist.CLUSTER_MAX):
+        reg = thist.regime(nb, optin, THREADS, STAGE_BYTES, cluster_max)
+        return reg.kind, reg.blocks
+
+    assert kind(1) == kind(64) == kind(12_288) == kind(12_289) == \
+        kind(per_block) == ("block", 1)
+    assert kind(per_block + 1) == ("cluster", 2)
+    assert kind(2 * per_block) == ("cluster", 2)
+    assert kind(2 * per_block + 1) == ("cluster", 3)
+    assert kind(top) == ("cluster", thist.CLUSTER_MAX)
+    assert kind(top + 1) == ("global", 1)
+    assert kind(2**31 - 1) == ("global", 1)
+    # A card with the 48 KB default only, and clusters of at most 2.
+    small = (48 * 1024 - STAGE_BYTES) // 4
+    assert kind(small, 48 * 1024, 2) == ("block", 1)
+    assert kind(small + 1, 48 * 1024, 2) == ("cluster", 2)
+    assert kind(2 * small + 1, 48 * 1024, 2) == ("global", 1)
+
+
+@pytest.mark.parametrize("nb", [1, 64, 12_288, 12_289, 53_000, 54_016,
+                                54_017, 70_000, 432_128, 432_129])
+def test_regime_windows_cover_the_bins(nb):
+    """Each regime's shared memory fits the card, its copies fit their
+    budget, and a cluster's windows cover [0, nb) exactly once."""
+    reg = thist.regime(nb, H100_OPTIN, THREADS, STAGE_BYTES)
+    if reg.kind == "global":
+        assert reg.slice == 0
+        return
+    assert STAGE_BYTES + 4 * reg.slice * reg.copies <= H100_OPTIN
+    assert reg.copies == 1 or 4 * reg.copies * nb <= thist.COPIES_BYTES
+    assert 1 <= reg.copies <= THREADS // 32
+    assert reg.blocks * reg.slice >= nb > (reg.blocks - 1) * reg.slice
+
+
+@pytest.mark.parametrize("rows,nb,per_row,owned", [
+    (64, 64, 2, False),            # phase 1 and the census
+    (1, 64, 132, False),           # a 1-D call spreads over the card
+    (64, 70_000, 2, True),         # one cluster of 2 per row
+    (132, 64, 1, True), (70_001, 64, 1, True),
+    (1, 64_000_001, 132, False)])  # the degree count: device memory
+def test_blocks_per_row(rows, nb, per_row, owned):
+    reg = thist.regime(nb, H100_OPTIN, THREADS, STAGE_BYTES)
+    got = thist.blocks_per_row(rows, reg, H100_SMS)
+    assert got == per_row and got % reg.blocks == 0
+    assert (reg.kind != "global" and got == reg.blocks) == owned
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.reset_launch_counts()
     t = torch.arange(10, dtype=torch.int32)

@@ -404,6 +404,52 @@ def test_round_compact_inputs_match_reference(r):
     np.testing.assert_array_equal(cv.numpy(), np.asarray(jv))
 
 
+@pytest.mark.parametrize("r", [0, 3, 7])
+def test_round_census_matches_reference(r):
+    """The round's census, per provider: the counts of the port's
+    pba_stream_round_block (its third output, from pba.round_census) equal
+    those of the JAX package's round on the same setup and pools, and
+    pba.round_census of (a, band) equals the unmasked count of
+    where(band, a, -1), which the JAX round counts."""
+    from repro.runtime.topology import Topology as JTopology
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.topology import Topology
+    cfg, table, tcfg, _ = _pinned("paper_smoke", procs=16,
+                                  vertices_per_proc=500, exchange_rounds=8,
+                                  pair_capacity=64)
+    p, e_local = table.num_procs, cfg.edges_per_proc
+    t_cap = cfg.total_capacity_factor * e_local
+    c_r = jstreaming.round_capacity(cfg.pair_capacity, cfg.exchange_rounds)
+    jtopo = JTopology.host()
+    ranks = jnp.arange(p, dtype=jnp.int32)
+    a, occ, recv_counts = jpba.pba_stream_setup_block(
+        ranks, jnp.asarray(table.procs), jnp.asarray(table.s), cfg, p, jtopo)
+    assert r < jstreaming.rounds_needed(int(recv_counts.max()), c_r)
+    pool = jax.vmap(lambda q: jpba._phase2_pool(q, cfg, t_cap))(ranks)
+    block_cap = jpba.stream_block_capacity(e_local, p, c_r)
+    _, _, jcounts = jpba.pba_stream_round_block(
+        r, a, occ, recv_counts, pool, ranks, cfg, p, c_r, t_cap, block_cap,
+        jtopo)
+    jcounts = np.asarray(jcounts)
+    assert jcounts.shape == (p, p) and jcounts.sum() > 0
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    ta, tocc, trc, tpool, tranks = (t(x) for x in (a, occ, recv_counts,
+                                                    pool, ranks))
+    _, _, counts = tpba.pba_stream_round_block(
+        r, ta, tocc, trc, tpool, tranks, tcfg, p, c_r, t_cap, block_cap,
+        Topology.host())
+    assert counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), jcounts)
+    band, _ = tpba.receive_indices(ta, tocc, r, c_r)
+    census = tpba.round_census(ta, band, p)
+    np.testing.assert_array_equal(census.numpy(), jcounts)
+    np.testing.assert_array_equal(
+        ops.histogram(torch.where(band, ta, -1), p).numpy(), jcounts)
+
+
 def test_host_rejects_device_topology():
     from repro_torch.runtime.topology import Topology
     _, _, tcfg, ttab = _pinned("paper_smoke", vertices_per_proc=10)
