@@ -70,7 +70,24 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     (10^9 edges) on both stream executors (Topology.host() and flat(1),
     which must agree; then 9 timed runs of each); and the shard sink at reduced depth (pk_3b at L=7,
     ba_cfree at 2M vertices: zlib writes ~10 MB/s) with a two-shard resume.
- 7. the kernels line, then {"ok": true, "device": {...}} as the last line.
+ 7. distributed: the torch.distributed code path through a world-size-1
+    NCCL group over the card (file:// rendezvous in a temp dir,
+    device_id the card; the runs pass no device, so each takes the
+    rank's): the 64-rank paper_1b_5b cut with execution="sharded" on
+    flat(1) and on pods(1, 1) (the two-hop transpose over size-1
+    subgroups), both equal to phase 4's host-path digest; the same preset
+    streamed on flat(1), equal to phase 5's device-stream digest; PK at
+    L=9 and R-MAT at scale 26 sharded, equal to their host digests (run
+    here); the shard sink at reduced depth (preset hub_stress on flat(1):
+    rank 0 gathers and writes each block), read back and resumed. Each
+    run has its launch counts set to 0 just before it and read just
+    after, then a profiled run (the card's idle share) and a run with its
+    host ops traced, which must show c10d::alltoall_base_ once for
+    exchange 1 plus once per exchange round (twice that on pods(1, 1);
+    none for PK and R-MAT); each prints its wall, peak device memory (and
+    its excess over phase 4's) and idle share. The group is destroyed at the end of the phase.
+ 8. the kernels line (with each kernel's launches in the distributed
+    runs), then {"ok": true, "device": {...}} as the last line.
 
 Exits with a non-zero code and prints no result when CUDA is not
 available or the repository's src/ is not beside this file.
@@ -810,6 +827,26 @@ def stage_times(torch, api, pl) -> dict:
     return out
 
 
+def host_op_calls(torch, fn, names: tuple) -> dict:
+    """Calls of each host-side op in ``names`` (e.g. a collective's
+    dispatcher op, ``c10d::alltoall_base_``) during one fn(), from
+    torch.profiler's trace of the host's ops. The trace's raw events are
+    scanned: building its event tree would take ~0.3 ms per event, and
+    a PBA run records hundreds of thousands."""
+    from torch.profiler import ProfilerActivity, profile
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)       # a gloo rehearsal on the CPU
+    sync()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        sync()
+    calls = dict.fromkeys(names, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in calls:
+            calls[e.name()] += 1
+    return calls
+
+
 def profile_run(torch, api, spec, dev, kernel: str = "",
                 expect_calls=None, attempts: int = 3) -> dict:
     """Device-time share and the top device ops of a main-path run,
@@ -950,8 +987,9 @@ def stream_stage_times(torch, api, pl) -> dict:
 
 
 def streamed_phases(torch, api, dispatch, ops, edge_digest, dev,
-                    host_multiset: str) -> dict:
-    """The streamed main path at full width; returns its launch counts."""
+                    host_multiset: str) -> tuple[dict, str]:
+    """The streamed main path at full width; returns its launch counts
+    and the device stream's digest."""
     spec = api.preset("paper_1b_5b", procs=PROCS,
                       vertices_per_proc=VERTICES_PER_PROC,
                       pair_capacity=PAIR_CAPACITY,
@@ -1097,7 +1135,7 @@ def streamed_phases(torch, api, dispatch, ops, edge_digest, dev,
               "overlap_on_s": walls[True], "overlap_off_s": walls[False]})
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    return launches
+    return launches, digest
 
 
 # --- phase 6: PK and the communication-free family ---------------------------------
@@ -1489,6 +1527,156 @@ def pk_cfree_phases(torch, api, dispatch, ops, edge_digest, dev) -> dict:
     return launches
 
 
+# --- phase 7: the torch.distributed path -------------------------------------------
+
+A2A_OP = "c10d::alltoall_base_"     # all_to_all_single's dispatcher op
+DIST_PK_LEVELS = 9                  # L=10's 3.49B edges pass int32 only
+                                    # split over several ranks
+
+
+def distributed_phases(torch, api, ops, edge_digest, dev, host_digest: str,
+                       stream_digest: str, host_peak: int) -> dict:
+    """The port's torch.distributed code path at world size 1: a NCCL
+    group over the card (file:// rendezvous in a temp dir, ``device_id``
+    the card) carries the collectives of each run, which must give the
+    one-device paths' digests. Returns each run's launch counts."""
+    import torch.distributed as dist
+
+    rdzv = tempfile.mkdtemp(prefix="chip_smoke_rdzv_")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/store",
+                            world_size=1, rank=0, device_id=dev)
+    launches = {}
+    try:
+        pba = api.preset("paper_1b_5b", procs=PROCS,
+                         vertices_per_proc=VERTICES_PER_PROC,
+                         pair_capacity=PAIR_CAPACITY)
+        e = 16 << RMAT_SCALE
+        rmat = api.GraphSpec(model="rmat", cfree_vertices=1 << RMAT_SCALE,
+                             cfree_edges=e, seed=7)
+        pk = api.preset("pk_3b", levels=DIST_PK_LEVELS)
+        hosts = {}
+        for name, spec in (("pk", pk), ("rmat", rmat)):
+            res = api.generate(spec.replace(execution="host"), device=dev)
+            hosts[name] = edge_digest(res.edges.src, res.edges.dst)
+            del res
+        torch.cuda.empty_cache()
+        cases = (
+            ("a_sharded_flat1", pba.replace(
+                execution="sharded", topology=api.Topology.flat(1)),
+             host_digest, "generate_pba_sharded", 1),
+            ("b_sharded_pods1x1", pba.replace(
+                execution="sharded", topology=api.Topology.pods(1, 1)),
+             host_digest, "generate_pba_sharded", 2),
+            ("c_streamed_flat1", pba.replace(
+                execution="streamed", topology=api.Topology.flat(1)),
+             stream_digest, "pba_stream_sharded", 1),
+            ("d_pk_L9_sharded", pk.replace(execution="sharded"),
+             hosts["pk"], "generate_pk", 0),
+            ("e_rmat_scale26_sharded", rmat.replace(execution="sharded"),
+             hosts["rmat"], "generate_cfree", 0))
+        for label, spec, want, executor, hops in cases:
+            row, launches[label] = distributed_run(
+                torch, api, ops, edge_digest, dev, label, spec, want,
+                executor, hops)
+            row["peak_over_host_path_bytes"] = \
+                row["peak_allocated_bytes"] - host_peak
+            emit(row)
+        launches["f_shard_sink_hub_stress"] = distributed_shards(
+            torch, api, ops, edge_digest, dev)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    return launches
+
+
+def distributed_run(torch, api, ops, edge_digest, dev, label: str, spec,
+                    want: str, executor: str, hops: int):
+    """One run through the group: launch counts set to 0 just before and
+    read just after, the digest against ``want``, then a profiled run
+    whose all-to-all count must be ``hops`` x (exchange 1 + one per
+    exchange round) (0: no all-to-all at all), counted in one more run
+    whose host ops are traced."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = api.generate(spec)          # the rank's device: cuda:rank % count
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st = res.stats
+    got = edge_digest(res.edges.src, res.edges.dst)
+    row = {"phase": "distributed", "case": label,
+           "executor": res.plan.executor,
+           "topology": res.plan.topology.label, "lp": res.plan.lp,
+           "device": str(res.plan.device), "world_size": 1,
+           "requested_edges": st.requested_edges,
+           "dropped_edges": st.dropped_edges,
+           "exchange_rounds": st.exchange_rounds,
+           "fallback_counts": st.fallback_counts, "launches": launches,
+           "wall_s": wall, "edges_per_s": st.requested_edges / wall,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "sha256": got, "matches_one_device_path": got == want}
+    del res
+    torch.cuda.empty_cache()
+    rounds = st.exchange_rounds
+    expect = hops * (1 + rounds)
+    prof = profile_run(torch, api, spec, dev)
+    row["profile"] = {k: prof[k] for k in (
+        "wall_s", "profiled_runs", "complete", "kernels_busy_s",
+        "device_idle_share_of_wall")}
+    row["op_calls"] = host_op_calls(
+        torch, lambda: api.generate(spec, device=dev), (A2A_OP,))
+    row["expected_all_to_all_per_run"] = expect
+    kernels = {"generate_pk": ("pk_expand",),
+               "generate_cfree": ("cfree_expand",)}.get(
+        executor, STREAM_PATH_KERNELS if executor == "pba_stream_sharded"
+        else HOST_PATH_KERNELS)
+    if row["executor"] != executor or not row["matches_one_device_path"] \
+            or st.dropped_edges or st.fallback_counts != {} \
+            or min(launches[k] for k in kernels) < 1 \
+            or row["op_calls"][A2A_OP] != expect:
+        emit(row)
+        raise AssertionError(f"{label}: the distributed path differs from "
+                             "the one-device path, or took another route")
+    return row, launches
+
+
+def distributed_shards(torch, api, ops, edge_digest, dev) -> dict:
+    """The stream's shard sink through the group, at reduced depth
+    (preset hub_stress on flat(1)): rank 0 gathers and writes each block;
+    read back, resumed after two blocks are dropped, against the same
+    spec's memory digest."""
+    spec = api.preset("hub_stress", execution="streamed",
+                      topology=api.Topology.flat(1))
+    res = api.generate(spec)
+    digest = edge_digest(res.edges.src, res.edges.dst)
+    del res
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_shards_")
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sres = api.generate(spec.replace(sink="shards", out_dir=out_dir))
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        row = {"phase": "distributed", "case": "f_shard_sink_hub_stress",
+               "executor": sres.plan.executor,
+               "num_shards": sres.manifest["num_shards"],
+               "dropped_edges": sres.stats.dropped_edges, "wall_s": wall,
+               "launches": launches, "memory_sha256": digest}
+        row.update(resume_check(torch, api, edge_digest, spec, dev,
+                                out_dir, digest))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit(row)
+    if sres.plan.executor != "pba_stream_sharded" or \
+            launches["band_compact"] != sres.manifest["num_shards"]:
+        raise AssertionError("shard sink through the group took another "
+                             "route")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1661,8 +1849,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the streamed main path
-    stream_launches = streamed_phases(torch, api, dispatch, ops, edge_digest,
-                                      dev, host_multiset)
+    stream_launches, stream_digest = streamed_phases(
+        torch, api, dispatch, ops, edge_digest, dev, host_multiset)
     if stream_launches["band_compact"] != band_runs or \
             stream_launches["histogram"] != 1 + band_runs:
         raise AssertionError(f"the path cases cover {band_runs} rounds, the "
@@ -1675,7 +1863,12 @@ def main() -> int:
     pk_cfree_launches = pk_cfree_phases(torch, api, dispatch, ops,
                                         edge_digest, dev)
 
-    # 7. the kernels line and the last line
+    # 7. the torch.distributed path through a world-size-1 NCCL group
+    dist_launches = distributed_phases(
+        torch, api, ops, edge_digest, dev, host_digest=digest,
+        stream_digest=stream_digest, host_peak=main["peak_allocated_bytes"])
+
+    # 8. the kernels line and the last line
     table = {
         "resolve_roots": ("src/repro/kernels/edge_resolve.py:87",
                           "src/repro_torch/kernels/csrc/resolve.cu",
@@ -1745,6 +1938,8 @@ def main() -> int:
                 for c in mine}
         if "per_run" in head:
             kernels[-1]["per_run"] = head["per_run"]
+        kernels[-1]["launches_distributed"] = {
+            k: v[name] for k, v in dist_launches.items() if v.get(name)}
     kernels[-2]["launches_other_paths"] = {
         k: v["pk_expand"] for k, v in pk_cfree_launches.items()
         if k.startswith("pk_")}

@@ -13,19 +13,21 @@ Entry points run on the current CUDA device and raise when there is none;
 plain PyTorch path on the CPU. The device is a keyword, not a spec field:
 every field of a spec is part of its digest.
 
-Ported so far, each into memory or into resumable shards:
+Every model and execution of the JAX package, into memory or into
+resumable shards: ``execution="host"`` (one device), ``"sharded"``
+(``generate_pba`` / ``generate_pba_sharded``, ``generate_pk``,
+``generate_cfree``) and ``"streamed"`` (``PBAStream`` and
+``PBAShardedStream``, ``PKStream``, ``CFreeStream``).
 
-  * ``model="pba"`` with ``execution="host"`` (P logical processors on
-    one device) and ``execution="streamed"`` (the host-driven stream, or
-    the device-resident stream on ``Topology.flat(1)``);
-  * ``model="pk"`` with ``execution="host"`` and ``"streamed"``
-    (``PKStream``);
-  * ``model="ba_cfree" | "rmat" | "er"`` with ``execution="host"`` and
-    ``"streamed"`` (``CFreeStream`` on ``Topology.host()`` or
-    ``Topology.flat(1)``).
-
-Sharded execution, and streams over more than one device, raise
-``NotImplementedError`` naming the ROADMAP item that will port them.
+A device topology of D > 1 devices runs one process per device under a
+``torch.distributed`` process group of world size D that the caller
+initialises (``torchrun``: NCCL on the card, gloo on the CPU); the
+process rank is the linear device index, and with no device given a rank
+runs on ``cuda:LOCAL_RANK``. The planner reads D from the group (1 with
+no group). Each rank's ``GenResult`` holds the global ``GenStats`` and
+its own share of the edges: its rows [d*lp, (d+1)*lp) of the sharded
+arrays, or its rows' edges of each streamed block; rank 0 writes the
+shards of the whole graph and every rank returns the manifest.
 """
 from __future__ import annotations
 
@@ -46,18 +48,12 @@ from repro_torch.core.graph import EdgeList, GenStats
 from repro_torch.core.pba import PBAConfig
 from repro_torch.core.pk import PKConfig, SeedGraph
 from repro_torch.core.spec import EXECUTIONS, MODELS, SINKS, GraphSpec
-from repro_torch.runtime import spmd, streaming
+from repro_torch.runtime import blocking, spmd, streaming
+from repro_torch.runtime import topology as topology_lib
 from repro_torch.runtime.topology import Topology
 
 __all__ = ["GraphSpec", "GenPlan", "GenResult", "plan", "generate",
            "preset", "PRESETS", "Topology", "FactionSpec"]
-
-def _not_ported(what: str) -> NotImplementedError:
-    """The error for a path over more than one device (not ported yet)."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP Queue 1 item 9 "
-        "(multi-GPU)")
-
 
 # --- plan ---------------------------------------------------------------------
 
@@ -67,12 +63,13 @@ class GenPlan:
 
     The same fields as the JAX package's GenPlan (executor, topology and
     P = lp * D, derived budgets, byte estimates), plus the ``device`` the
-    plan was made for: the derived pair capacity reads its memory.
+    plan was made for (the derived pair capacity reads its memory) and
+    the ``rank`` of this process: its device index in the topology.
     """
 
     spec: GraphSpec
     model: str
-    execution: str              # resolved: host | streamed
+    execution: str              # resolved: host | sharded | streamed
     sink: str
     executor: str               # internal entry point the plan dispatches to
     topology: Topology
@@ -93,6 +90,7 @@ class GenPlan:
     block_bytes: int = 0        # streamed: per-round gathered block
     overlap_bytes: int = 0      # streamed: extra in-flight double-buffer
     device: Optional[torch.device] = None
+    rank: int = 0               # this process's device index (0 on host)
 
     def describe(self) -> str:
         """Human-readable resolved plan."""
@@ -104,7 +102,10 @@ class GenPlan:
             f"  executor:  {self.executor} (execution={self.execution}, "
             f"sink={self.sink}, device={self.device})",
             f"  topology:  {self.topology.label}  "
-            f"P = lp*D = {self.lp} * {d} = {self.num_procs}",
+            f"P = lp*D = {self.lp} * {d} = {self.num_procs}"
+            + (f"; rank {self.rank} of {d} holds logical procs "
+               f"[{self.rank * self.lp}, {(self.rank + 1) * self.lp})"
+               if d > 1 else ""),
             f"  exchange:  pair_capacity={self.pair_capacity}, "
             f"rounds={self.exchange_rounds}, C_r={self.round_capacity}, "
             f"urn_budget={self.urn_budget}",
@@ -174,10 +175,9 @@ def _resolve_factions(spec: GraphSpec) -> FactionTable:
     return table
 
 
-def _resolve_execution(spec: GraphSpec, divisible: bool,
-                       device: torch.device) -> str:
-    """Pick the execution path for ``auto`` as the JAX package does; raise
-    for the paths not ported yet."""
+def _resolve_execution(spec: GraphSpec, divisible: bool) -> str:
+    """Pick the execution path for ``auto`` as the JAX package does, with
+    D the process group's world size; validate explicit requests."""
     ex = spec.execution
     if ex not in EXECUTIONS:
         raise ValueError(f"unknown execution {ex!r}: one of {EXECUTIONS}")
@@ -189,7 +189,7 @@ def _resolve_execution(spec: GraphSpec, divisible: bool,
             ex = "host"
         else:
             d = topo.num_devices if topo is not None \
-                else spmd.device_count(device)
+                else spmd.device_count()
             ex = "sharded" if d > 1 and divisible else "host"
     if ex == "host" and topo is not None and not topo.is_host:
         raise ValueError(
@@ -199,9 +199,20 @@ def _resolve_execution(spec: GraphSpec, divisible: bool,
         raise ValueError(
             "sharded execution needs a device topology, got "
             "Topology.host(); use execution='host'")
-    if ex == "sharded":
-        raise _not_ported(f"execution={ex!r}")
     return ex
+
+
+def _device_topology(spec: GraphSpec, device: torch.device,
+                     num_procs: Optional[int] = None
+                     ) -> tuple[Topology, int]:
+    """(topology, lp) for a run over a device topology, checked before any
+    work: D must be the process group's world size (1 with no group),
+    and the group's backend must carry ``device``'s tensors.
+    ``num_procs=None`` skips the P = lp * D factorization (PK partitions
+    the index space per device)."""
+    topo = topology_lib.resolve(spec.topology, device=device)
+    lp = topo.lp(num_procs) if num_procs is not None else 1
+    return topo, lp
 
 
 def _streamed_pba_topology(spec: GraphSpec, num_procs: int,
@@ -209,21 +220,20 @@ def _streamed_pba_topology(spec: GraphSpec, num_procs: int,
                            ) -> tuple[Topology, int, str]:
     """(topology, lp, executor) for a streamed PBA plan, resolved as the
     JAX package resolves it: the device stream whenever a device topology
-    is usable (an explicit one, or D > 1 present devices that P divides),
-    the host-driven stream otherwise and for ``Topology.host()``. Device
-    topologies of more than one device raise (not ported yet)."""
+    is usable (an explicit one, or a process group of D > 1 ranks that P
+    divides), the host-driven stream otherwise and for
+    ``Topology.host()``."""
     topo = spec.topology
     if topo is not None:
         if topo.is_host:
             return Topology.host(), num_procs, "pba_stream"
-    else:
-        d = spmd.device_count(device)
-        if not (d > 1 and num_procs % d == 0):
-            return Topology.host(), num_procs, "pba_stream"
-        topo = Topology.flat(d)
-    if topo.num_devices != 1:
-        raise _not_ported(f"streamed execution over {topo.label}")
-    return topo, topo.lp(num_procs), "pba_stream_sharded"
+        topo, lp = _device_topology(spec, device, num_procs)
+        return topo, lp, "pba_stream_sharded"
+    d = spmd.device_count()
+    if d > 1 and num_procs % d == 0:
+        topo, lp = _device_topology(spec, device, num_procs)
+        return topo, lp, "pba_stream_sharded"
+    return Topology.host(), num_procs, "pba_stream"
 
 
 def _plan_pba(spec: GraphSpec, device: torch.device) -> GenPlan:
@@ -243,9 +253,13 @@ def _plan_pba(spec: GraphSpec, device: torch.device) -> GenPlan:
                     seed=spec.seed)
     p = spec.procs
     execution = _resolve_execution(
-        spec, divisible=p % spmd.device_count(device) == 0
-        if spec.topology is None else True, device=device)
-    if execution == "streamed":
+        spec, divisible=p % spmd.device_count() == 0
+        if spec.topology is None else True)
+    if execution == "sharded":
+        topo, lp = _device_topology(spec, device, p)
+        executor = ("generate_pba" if lp == 1 and topo.num_devices == p
+                    else "generate_pba_sharded")
+    elif execution == "streamed":
         topo, lp, executor = _streamed_pba_topology(spec, p, device)
     else:
         topo, lp, executor = Topology.host(), p, "generate_pba_host"
@@ -295,7 +309,8 @@ def _plan_pba(spec: GraphSpec, device: torch.device) -> GenPlan:
                    urn_budget=t_cap, device_bytes=device_bytes,
                    host_bytes=host_bytes, disk_bytes=disk_bytes,
                    config=cfg, table=table, block_bytes=block_bytes,
-                   overlap_bytes=overlap_bytes, device=device)
+                   overlap_bytes=overlap_bytes, device=device,
+                   rank=blocking.device_index(topo))
 
 
 def _plan_pk(spec: GraphSpec, device: torch.device) -> GenPlan:
@@ -310,7 +325,7 @@ def _plan_pk(spec: GraphSpec, device: torch.device) -> GenPlan:
         raise ValueError(
             f"n0^L = {n} exceeds int32 vertex-id space "
             f"(n0={seed_graph.num_vertices}, L={cfg.levels})")
-    execution = _resolve_execution(spec, divisible=True, device=device)
+    execution = _resolve_execution(spec, divisible=True)
     if execution == "streamed" and spec.topology is not None \
             and not spec.topology.is_host:
         raise ValueError(
@@ -318,10 +333,16 @@ def _plan_pk(spec: GraphSpec, device: torch.device) -> GenPlan:
             f"communication-free); it cannot run over device topology "
             f"{spec.topology.label} — use execution='sharded' for "
             "on-device expansion or drop the topology")
-    topo, num_procs, lp = Topology.host(), 1, 1
-    chunk = spec.slab_edges if execution == "streamed" else e
-    executor = ("pk_stream" if execution == "streamed"
-                else "generate_pk_host")
+    if execution == "sharded":
+        topo, lp = _device_topology(spec, device)
+        num_procs = topo.num_devices
+        chunk = -(-e // num_procs)
+        executor = "generate_pk"
+    else:
+        topo, num_procs, lp = Topology.host(), 1, 1
+        chunk = spec.slab_edges if execution == "streamed" else e
+        executor = ("pk_stream" if execution == "streamed"
+                    else "generate_pk_host")
     if chunk > 2**31 - 1:
         raise ValueError(
             f"per-device chunk {chunk} exceeds int32 — shard over more "
@@ -342,7 +363,7 @@ def _plan_pk(spec: GraphSpec, device: torch.device) -> GenPlan:
                    device_bytes=device_bytes, host_bytes=host_bytes,
                    disk_bytes=disk_bytes, config=cfg,
                    seed_graph=seed_graph, block_bytes=block_bytes,
-                   device=device)
+                   device=device, rank=blocking.device_index(topo))
 
 
 def _plan_cfree(spec: GraphSpec, device: torch.device) -> GenPlan:
@@ -353,24 +374,30 @@ def _plan_cfree(spec: GraphSpec, device: torch.device) -> GenPlan:
     CFreeConfig.validate(cfg)
     n, e = cfree_lib.cfree_sizes(cfg)
     p_req = spec.procs
-    d = spmd.device_count(device)
+    d = spmd.device_count()
     execution = _resolve_execution(
         spec, divisible=True if spec.topology is not None or p_req == 0
-        else p_req % max(d, 1) == 0, device=device)
+        else p_req % max(d, 1) == 0)
 
     # Working set per logical rank: the index vector, the endpoint pair,
     # and the ba chain-resolution temporaries — a handful of int32 arrays
     # of the rank's chunk, no pools, no round buffers, no exchange (the
     # JAX package's estimate).
     block_bytes = 0
-    if execution == "streamed":
+    if execution == "sharded":
+        p = p_req or (spec.topology.num_devices if spec.topology is not None
+                      else d)
+        topo, lp = _device_topology(spec, device, p)
+        executor = "generate_cfree"
+        chunk = -(-e // p) if e else 0
+        device_bytes = 4 * lp * chunk * 6
+    elif execution == "streamed":
         topo = spec.topology
         if topo is None and d > 1:
             topo = Topology.flat(d)
         if topo is not None and not topo.is_host:
-            if topo.num_devices != 1:
-                raise _not_ported(f"streamed execution over {topo.label}")
-            p, lp, executor = 1, 1, "cfree_stream_sharded"
+            topo = topology_lib.resolve(topo, device=device)
+            p, lp, executor = topo.num_devices, 1, "cfree_stream_sharded"
         else:
             topo, p, lp = Topology.host(), 1, 1
             executor = "cfree_stream"
@@ -392,7 +419,8 @@ def _plan_cfree(spec: GraphSpec, device: torch.device) -> GenPlan:
                    round_capacity=0, urn_budget=0,
                    device_bytes=device_bytes, host_bytes=host_bytes,
                    disk_bytes=disk_bytes, config=cfg,
-                   block_bytes=block_bytes, device=device)
+                   block_bytes=block_bytes, device=device,
+                   rank=blocking.device_index(topo))
 
 
 def plan(spec: GraphSpec, *, device=None) -> GenPlan:
@@ -400,8 +428,9 @@ def plan(spec: GraphSpec, *, device=None) -> GenPlan:
     ``device`` (default: the current CUDA device; raises without one).
 
     Pure resolution: nothing is generated. Raises ``ValueError`` for an
-    invalid spec and ``NotImplementedError`` for a valid one whose path
-    is not ported yet.
+    invalid spec, and for a device topology that the process group
+    cannot run (D other than the world size, or a backend that cannot
+    carry the device's tensors).
     """
     device = spmd.resolve_device(device)
     if spec.model not in MODELS:
@@ -427,11 +456,13 @@ def _edges_from_stream(stream, device: torch.device, overlap: bool = True
     flight while block i is gathered), and its blocks stay on the device;
     PK and communication-free blocks are made on the device and copied
     into one preallocated output there; the host-driven stream's numpy
-    blocks are copied to the device once."""
+    blocks are copied to the device once. Over a process group the edges
+    are this rank's and the stats the whole graph's."""
     if hasattr(stream, "block_on_device"):
         src, dst = stream_lib.drain_on_device(stream, device)
         edges = EdgeList(src=src, dst=dst, num_vertices=stream.num_vertices)
-        return edges, stream_lib.stream_stats(stream, int(src.numel()))
+        return edges, stream_lib.stream_stats(
+            stream, stream_lib.kept_total(stream, src.numel()))
     srcs, dsts = [], []
     if hasattr(stream, "dispatch_block"):
         def gather(i, handle):
@@ -452,7 +483,24 @@ def _edges_from_stream(stream, device: torch.device, overlap: bool = True
     dst = (torch.cat(dsts) if dsts else empty).to(device)
     del dsts
     edges = EdgeList(src=src, dst=dst, num_vertices=stream.num_vertices)
-    return edges, stream_lib.stream_stats(stream, int(src.numel()))
+    return edges, stream_lib.stream_stats(
+        stream, stream_lib.kept_total(stream, src.numel()))
+
+
+def _write_shards(edges: EdgeList, pl: GenPlan) -> dict:
+    """Write a generated graph as ``num_shards`` shards: the whole graph's
+    padded edge arrays in rank order, gathered to rank 0 and written
+    there; every rank returns the manifest."""
+    topo = pl.topology
+    flat = edges.flat()
+    whole = blocking.gather_to_root((flat.src, flat.dst), topo)
+    del flat
+    return blocking.run_on_root(
+        lambda: storage_lib.write_shards(
+            EdgeList(*whole, edges.num_vertices), pl.spec.out_dir,
+            num_shards=pl.spec.num_shards,
+            meta={"spec_digest": pl.spec.digest()}),
+        topo, pl.device)
 
 
 def _make_stream(pl: GenPlan):
@@ -479,8 +527,9 @@ def generate(plan_or_spec: Union[GenPlan, GraphSpec], *,
     """Execute a plan (or plan a spec for ``device`` and execute it).
 
     Bit-identical to the JAX package's ``generate`` for the same spec and
-    pair capacity. A plan runs on the device it was made for; passing
-    another ``device`` with a plan raises.
+    pair capacity: over a process group, the concatenation of the ranks'
+    edges in rank order. A plan runs on the device it was made for;
+    passing another ``device`` with a plan raises.
     """
     if isinstance(plan_or_spec, GenPlan):
         pl = plan_or_spec
@@ -505,20 +554,33 @@ def generate(plan_or_spec: Union[GenPlan, GraphSpec], *,
         return GenResult(plan=pl, stats=stats, edges=edges,
                          stream_meta=stream.meta())
 
+    dev = pl.device
     if pl.model == "pba":
-        edges, stats = pba_lib.generate_pba_host(pl.config, pl.table,
-                                                 device=pl.device)
+        if pl.execution == "host":
+            edges, stats = pba_lib.generate_pba_host(pl.config, pl.table,
+                                                     device=dev)
+        elif pl.executor == "generate_pba":
+            edges, stats = pba_lib.generate_pba(
+                pl.config, pl.table, topology=pl.topology, device=dev)
+        else:
+            edges, stats = pba_lib.generate_pba_sharded(
+                pl.config, pl.table, topology=pl.topology, device=dev)
     elif pl.model == "pk":
-        edges, stats = pk_lib.generate_pk_host(pl.seed_graph, pl.config,
-                                               device=pl.device)
+        if pl.execution == "host":
+            edges, stats = pk_lib.generate_pk_host(pl.seed_graph, pl.config,
+                                                   device=dev)
+        else:
+            edges, stats = pk_lib.generate_pk(
+                pl.seed_graph, pl.config, topology=pl.topology, device=dev)
+    elif pl.execution == "host":
+        edges, stats = cfree_lib.generate_cfree_host(pl.config, device=dev)
     else:
-        edges, stats = cfree_lib.generate_cfree_host(pl.config,
-                                                     device=pl.device)
+        edges, stats = cfree_lib.generate_cfree(
+            pl.config, topology=pl.topology, num_procs=pl.num_procs,
+            device=dev)
     result = GenResult(plan=pl, stats=stats, edges=edges)
     if pl.sink == "shards":
-        result.manifest = storage_lib.write_shards(
-            edges.flat(), spec.out_dir, num_shards=spec.num_shards,
-            meta={"spec_digest": spec.digest()})
+        result.manifest = _write_shards(edges, pl)
         result.out_dir = spec.out_dir
     return result
 

@@ -8,9 +8,12 @@ R-MAT; two independent uniform draws for G(n, m)), so every executor just
 slices the global index range ``[0, E)`` with zero exchange:
 
   * :func:`generate_cfree_host` expands the whole range on one device;
+  * :func:`generate_cfree` spreads P = lp * D logical ranks' contiguous
+    chunks over a topology of D devices (one process per device of a
+    ``torch.distributed`` group when D > 1);
   * :class:`CFreeStream` expands slab ``i`` = ``[i*slab, (i+1)*slab)``
-    per block, on ``Topology.host()`` and on ``Topology.flat(1)`` alike
-    (one device either way).
+    per block, on one device, or over D devices, each expanding its
+    contiguous span of every slab.
 
 The words come from one clean-lineage threefry draw per (seed, stream)
 (``rng.STREAM_CFREE_*``); the per-edge hash is a murmur-style uint32
@@ -28,9 +31,6 @@ ends at source ``(r/2) // d``; an odd ``r`` recurses into edge
 an even ``r`` never changes again, so stopping a chain at its first even
 draw gives the same values (a residual odd ``r`` after 64 hops maps to
 ``(r >> 1) // d`` in both).
-
-The sharded executor over several devices (``generate_cfree``) waits for
-ROADMAP Queue 1 item 9 (multi-GPU).
 """
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ import torch
 from repro_torch.core import rng as rng_lib
 from repro_torch.core.graph import EdgeList, GenStats
 from repro_torch.kernels import ops
-from repro_torch.runtime import spmd
+from repro_torch.runtime import blocking, spmd
+from repro_torch.runtime import topology as topology_lib
 from repro_torch.runtime.topology import Topology
 
 CFREE_MODELS = ("ba_cfree", "rmat", "er")
@@ -302,14 +303,47 @@ def generate_cfree_host(cfg: CFreeConfig, *, device=None
     return EdgeList(src=u, dst=v, num_vertices=n), _cfree_stats(e, n)
 
 
+def generate_cfree(cfg: CFreeConfig, topology: Optional[Topology] = None,
+                   num_procs: Optional[int] = None, *, device=None
+                   ) -> tuple[EdgeList, GenStats]:
+    """P = lp * D logical ranks over a topology of D devices (``topology``
+    None: flat over the process group's world size; ``num_procs`` None:
+    P = D). Rank q owns the global indices [q*chunk, (q+1)*chunk), chunk
+    = ceil(e / P), -1 past e; a device expands its lp ranks' contiguous
+    range in one launch. Returns this rank's (lp, chunk) rows of the JAX
+    package's ``generate_cfree`` arrays (their concatenation in rank
+    order, compacted, is the host path's edge list) and the stats. No
+    collective of any kind."""
+    CFreeConfig.validate(cfg)
+    device = spmd.resolve_device(device)
+    topo = topology_lib.resolve(topology, device=device)
+    p = num_procs or topo.num_devices
+    lp = topo.lp(p)
+    n, e = cfree_sizes(cfg)
+    chunk = -(-e // p)
+    if chunk > 2**31 - 1:
+        raise ValueError(f"per-rank chunk {chunk} exceeds int32")
+    start = blocking.device_index(topo) * lp * chunk
+    t = start + torch.arange(lp * chunk, dtype=torch.int32, device=device)
+    u, v = cfree_endpoints(cfg, t, cfree_words(cfg))
+    del t
+    if chunk * p > e:       # the global indices past e
+        u, v = blocking.mask_tail((u, v), 0, lp * chunk, e - start)
+    return (EdgeList(src=u.reshape(lp, chunk), dst=v.reshape(lp, chunk),
+                     num_vertices=n), _cfree_stats(e, n))
+
+
 class CFreeStream:
     """Out-of-core communication-free stream: block i covers global edge
-    indices ``[i*slab, (i+1)*slab)``, expanded on one device.
+    indices ``[i*slab, (i+1)*slab)``.
 
     Any slab size yields the same edge sequence, and a restart regenerates
-    exactly the missing blocks. ``topology`` may be ``None``,
-    ``Topology.host()`` or ``Topology.flat(1)``: one device runs the same
-    code on all three, as in the JAX package. Blocks stay on the device
+    exactly the missing blocks. ``topology`` None, ``Topology.host()`` or
+    a one-device topology runs every slab on one device; over D > 1
+    devices (one process per device of a ``torch.distributed`` group)
+    device d expands the span [d*per_dev, (d+1)*per_dev) of each slab,
+    per_dev = ceil(slab / D), cut back to the slab's true length, and
+    block i on rank d is that span. Blocks stay on the device
     (:meth:`block_on_device`); :meth:`block` copies one to the host.
     """
 
@@ -319,20 +353,20 @@ class CFreeStream:
         n, e = cfree_sizes(cfg)
         if not 1 <= slab_edges <= 2**31 - 1:
             raise ValueError(f"slab_edges {slab_edges} out of range")
-        if topology is not None and not topology.is_host \
-                and topology.num_devices > 1:
-            raise NotImplementedError(
-                f"CFreeStream over {topology.label} is not ported to "
-                "repro_torch yet: ROADMAP Queue 1 item 9 (multi-GPU)")
         self.cfg = cfg
         self.device = spmd.resolve_device(device)
+        self.topology = topology_lib.resolve(topology, device=self.device) \
+            if topology is not None and not topology.is_host \
+            else Topology.host()
         self.num_vertices = n
         self.requested_edges = e
         self.slab_edges = int(slab_edges)
         self.num_blocks = -(-e // self.slab_edges)
         self.exchange_rounds = 0
         self._words = cfree_words(cfg)
-        self._t_rel = torch.arange(min(self.slab_edges, e),
+        self._per_dev = -(-self.slab_edges // self.topology.num_devices)
+        self._offset = blocking.device_index(self.topology) * self._per_dev
+        self._t_rel = torch.arange(min(self._per_dev, e),
                                    dtype=torch.int32, device=self.device)
 
     def meta(self) -> dict:
@@ -342,13 +376,16 @@ class CFreeStream:
                 "seed": self.cfg.seed, "spec_digest": spec_digest(self.cfg)}
 
     def block_on_device(self, i: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Block ``i``'s (src, dst) int32 tensors on the stream's device."""
+        """Block ``i``'s (src, dst) int32 tensors on the stream's device:
+        this rank's span of the slab."""
         if not 0 <= i < self.num_blocks:
             raise ValueError(f"block {i} out of range "
                              f"[0, {self.num_blocks})")
         t0 = i * self.slab_edges
         m = min(self.slab_edges, self.requested_edges - t0)
-        return cfree_endpoints(self.cfg, self._t_rel[:m] + t0, self._words)
+        k = min(max(m - self._offset, 0), self._per_dev)
+        return cfree_endpoints(self.cfg, self._t_rel[:k] + (t0 + self._offset),
+                               self._words)
 
     def block(self, i: int) -> tuple[np.ndarray, np.ndarray]:
         u, v = self.block_on_device(i)

@@ -1,6 +1,6 @@
 """Parallel Barabási–Albert (PBA) generator: two-phase preferential
-attachment, with P logical processors on one device (the host topology,
-and the device stream's setup and rounds on ``Topology.flat(1)``).
+attachment, with P = lp * D logical processors over a topology of D
+devices (the host topology: all P on one device).
 
 The JAX package's ``core/pba.py`` in torch, bit-identical to it for the
 same config, faction table and pair capacity:
@@ -23,6 +23,13 @@ Where the JAX package vmaps a per-rank body, this module draws the random
 words one rank at a time (``blocking.map_logical``: a whole (P, n) draw
 would hold several (P, n) int64 temporaries) and runs everything after
 the draws, the kernels included, on the whole (lp, n) batch at once.
+
+Over D > 1 devices each device is one process of a ``torch.distributed``
+group and runs its lp rows (:func:`generate_pba_sharded`;
+:func:`generate_pba` with lp = 1); the two exchanges are the blocked
+transposes of ``runtime/blocking.py``, and the drop count is summed over
+the group, so every rank returns the same stats and its own rows of the
+host path's (P, E) edge arrays.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.core.factions import FactionTable, validate_table
 from repro_torch.core.graph import EdgeList, GenStats
 from repro_torch.kernels import ops
 from repro_torch.runtime import blocking, spmd, streaming
+from repro_torch.runtime import topology as topology_lib
 from repro_torch.runtime.topology import Topology
 
 _I32 = torch.int32
@@ -287,8 +295,8 @@ def pba_logical_block(ranks: torch.Tensor, procs_blk: torch.Tensor,
 
     ranks: (lp,) int32 global logical ids; procs_blk: (lp, max_s) faction
     rows; s_blk: (lp,) faction sizes. Returns (u (lp, E), v (lp, E),
-    dropped over all procs, granted (lp,), rounds run). Host path:
-    ``Topology.host()`` with lp == P.
+    dropped over all procs of every device, granted (lp,), rounds run).
+    Host path: ``Topology.host()`` with lp == P.
     """
     a, counts = _phase1(ranks, procs_blk, s_blk, cfg, num_procs)
     recv_counts = blocking.transpose_counts(counts, topo)
@@ -317,7 +325,7 @@ def pba_logical_block(ranks: torch.Tensor, procs_blk: torch.Tensor,
     u = (ranks[:, None] * cfg.vertices_per_proc
          + torch.div(j, cfg.edges_per_vertex, rounding_mode="floor")[None])
     u = torch.where(v >= 0, u, -1)
-    dropped = blocking.all_reduce_sum(int((v < 0).sum()), topo)
+    dropped = int(blocking.all_reduce_sum((v < 0).sum(), topo))
     return u, v, dropped, granted, rounds
 
 
@@ -456,6 +464,103 @@ def _derived_pair_capacity(cfg: PBAConfig, table: FactionTable,
         exchange_rounds=cfg.exchange_rounds, device=device)
 
 
+def pba_shard_body(rank: int, faction_row: torch.Tensor, s: int,
+                   cfg: PBAConfig, num_procs: int, pair_capacity: int,
+                   topo: Topology):
+    """One device's program with one logical proc (rank ``rank``, its
+    (max_s,) faction row and size ``s``): the lp = 1 case of
+    :func:`pba_logical_block`. Returns (u (E,), v (E,), dropped over all
+    procs, granted, rounds run)."""
+    ranks = torch.tensor([rank], dtype=_I32, device=faction_row.device)
+    s_blk = torch.tensor([s], dtype=faction_row.dtype,
+                         device=faction_row.device)
+    u, v, dropped, granted, rounds = pba_logical_block(
+        ranks, faction_row[None], s_blk, cfg, num_procs, pair_capacity,
+        topo)
+    return u[0], v[0], dropped, granted[0], rounds
+
+
+def _check_vertex_space(cfg: PBAConfig, num_procs: int) -> int:
+    num_vertices = num_procs * cfg.vertices_per_proc
+    if num_vertices > 2**31 - 1:
+        raise ValueError(
+            f"P * vertices_per_proc = {num_vertices} exceeds the int32 "
+            "vertex-id space")
+    return num_vertices
+
+
+def _block_inputs(table: FactionTable, lp: int, topo: Topology, device):
+    """This device's (ranks (lp,), faction rows (lp, max_s), sizes (lp,))."""
+    d = blocking.device_index(topo)
+    rows = slice(d * lp, (d + 1) * lp)
+    return (blocking.logical_ranks(lp, topo, device),
+            torch.from_numpy(table.procs[rows]).to(device),
+            torch.from_numpy(table.s[rows]).to(device))
+
+
+def _stats(cfg: PBAConfig, num_procs: int, dropped: int, rounds: int,
+           pair_capacity: int) -> GenStats:
+    n = num_procs * cfg.vertices_per_proc
+    requested = num_procs * cfg.edges_per_proc
+    return GenStats(requested_edges=requested,
+                    emitted_edges=requested - dropped,
+                    dropped_edges=dropped, num_vertices=n,
+                    exchange_rounds=rounds, pair_capacity=pair_capacity,
+                    fallback_counts=ops.fallback_counts())
+
+
+def generate_pba(cfg: PBAConfig, table: FactionTable,
+                 topology: Optional[Topology] = None, *,
+                 device=None) -> tuple[EdgeList, GenStats]:
+    """PBA with one logical processor per device: P == D, each device one
+    process of the ``torch.distributed`` group (``topology`` None: flat
+    over P devices). Returns this rank's (1, E) row of the host path's
+    edges and the global stats. ``device`` as in
+    :func:`generate_pba_host`, defaulting to this rank's card."""
+    validate_table(table)
+    device = spmd.resolve_device(device)
+    num_procs = table.num_procs
+    topo = topology_lib.resolve(topology, default_devices=num_procs,
+                                device=device)
+    if topo.num_devices != num_procs:
+        raise ValueError(
+            f"generate_pba runs 1 proc per device: table has {num_procs} "
+            f"procs but topology {topo.label} has {topo.num_devices} "
+            "devices; use generate_pba_sharded for P = lp * D")
+    n = _check_vertex_space(cfg, num_procs)
+    pair_capacity = _derived_pair_capacity(cfg, table, device)
+    ranks, procs, s = _block_inputs(table, 1, topo, device)
+    u, v, dropped, _, rounds = pba_shard_body(
+        int(ranks[0]), procs[0], int(s[0]), cfg, num_procs, pair_capacity,
+        topo)
+    return (EdgeList(src=u[None], dst=v[None], num_vertices=n),
+            _stats(cfg, num_procs, dropped, rounds, pair_capacity))
+
+
+def generate_pba_sharded(cfg: PBAConfig, table: FactionTable,
+                         topology: Optional[Topology] = None, *,
+                         device=None) -> tuple[EdgeList, GenStats]:
+    """P = lp * D logical processors over a topology of D devices, one
+    process per device of the ``torch.distributed`` group (``topology``
+    None: flat over the world size). Each rank runs its lp rows; the
+    exchanges are one all-to-all each on a flat topology, two on
+    ``Topology.pods(r, c)``. Returns this rank's (lp, E) rows of
+    :func:`generate_pba_host`'s edges, bit for bit, and the global stats.
+    """
+    validate_table(table)
+    device = spmd.resolve_device(device)
+    num_procs = table.num_procs
+    topo = topology_lib.resolve(topology, device=device)
+    lp = topo.lp(num_procs)
+    n = _check_vertex_space(cfg, num_procs)
+    pair_capacity = _derived_pair_capacity(cfg, table, device)
+    ranks, procs, s = _block_inputs(table, lp, topo, device)
+    u, v, dropped, _, rounds = pba_logical_block(
+        ranks, procs, s, cfg, num_procs, pair_capacity, topo)
+    return (EdgeList(src=u, dst=v, num_vertices=n),
+            _stats(cfg, num_procs, dropped, rounds, pair_capacity))
+
+
 def generate_pba_host(cfg: PBAConfig, table: FactionTable,
                       topology: Optional[Topology] = None, *,
                       device=None) -> tuple[EdgeList, GenStats]:
@@ -473,23 +578,11 @@ def generate_pba_host(cfg: PBAConfig, table: FactionTable,
             f"generate_pba_host runs the host topology, got {topology.label}")
     device = spmd.resolve_device(device)
     num_procs = table.num_procs
-    num_vertices = num_procs * cfg.vertices_per_proc
-    if num_vertices > 2**31 - 1:
-        raise ValueError(
-            f"P * vertices_per_proc = {num_vertices} exceeds the int32 "
-            "vertex-id space")
+    n = _check_vertex_space(cfg, num_procs)
     pair_capacity = _derived_pair_capacity(cfg, table, device)
-    procs = torch.from_numpy(table.procs).to(device)
-    s = torch.from_numpy(table.s).to(device)
-    ranks = torch.arange(num_procs, dtype=_I32, device=device)
-
+    topo = Topology.host()
+    ranks, procs, s = _block_inputs(table, num_procs, topo, device)
     u, v, dropped, _, rounds = pba_logical_block(
-        ranks, procs, s, cfg, num_procs, pair_capacity, Topology.host())
-    requested = num_procs * cfg.edges_per_proc
-    return (EdgeList(src=u, dst=v, num_vertices=num_vertices),
-            GenStats(requested_edges=requested,
-                     emitted_edges=requested - dropped,
-                     dropped_edges=dropped, num_vertices=num_vertices,
-                     exchange_rounds=rounds,
-                     pair_capacity=pair_capacity,
-                     fallback_counts=ops.fallback_counts()))
+        ranks, procs, s, cfg, num_procs, pair_capacity, topo)
+    return (EdgeList(src=u, dst=v, num_vertices=n),
+            _stats(cfg, num_procs, dropped, rounds, pair_capacity))

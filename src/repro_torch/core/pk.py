@@ -20,12 +20,15 @@ counter-based; optional deletion sampling emits -1 slots. The paper's
 second randomization, XOR with a sparse Erdős–Rényi graph, is
 :func:`xor_randomize` (numpy on the host).
 
-The sharded executor over several devices (``generate_pk``) waits for
-ROADMAP Queue 1 item 9 (multi-GPU).
+:func:`generate_pk` spreads the index range over the devices of a
+topology, one contiguous chunk per device (one process per device of a
+``torch.distributed`` group), with no collective but the emitted-edge
+count.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,11 +36,13 @@ import torch
 from repro_torch.core.graph import EdgeList, GenStats
 from repro_torch.core.spec import SeedGraph
 from repro_torch.kernels import ops
-from repro_torch.runtime import spmd
+from repro_torch.runtime import blocking, spmd
+from repro_torch.runtime import topology as topology_lib
+from repro_torch.runtime.topology import Topology
 
 __all__ = ["SeedGraph", "PKConfig", "star_clique_seed", "dense_power_seed",
            "pk_sizes", "decompose_base", "expand_chunk", "generate_pk_host",
-           "xor_randomize", "dense_kronecker_power"]
+           "generate_pk", "xor_randomize", "dense_kronecker_power"]
 
 
 def star_clique_seed(num_vertices: int = 5) -> SeedGraph:
@@ -146,6 +151,39 @@ def generate_pk_host(seed: SeedGraph, cfg: PKConfig, *, device=None
     return edges, GenStats(requested_edges=e, emitted_edges=emitted,
                            dropped_edges=e - emitted, num_vertices=n,
                            fallback_counts=ops.fallback_counts())
+
+
+def generate_pk(seed: SeedGraph, cfg: PKConfig,
+                topology: Optional[Topology] = None, *, device=None
+                ) -> tuple[EdgeList, GenStats]:
+    """PK over a topology of D devices (``topology`` None: flat over the
+    process group's world size): device d expands the contiguous chunk
+    [d*chunk, (d+1)*chunk), chunk = ceil(e / D), with RNG rank d, its
+    range start digit-decomposed on the host; indices past e are -1.
+    Returns this rank's (chunk,) share of the JAX package's
+    ``generate_pk`` arrays and the global stats. Zero communication but
+    the emitted count."""
+    SeedGraph.validate(seed)
+    device = spmd.resolve_device(device)
+    topo = topology_lib.resolve(topology, device=device)
+    num_procs = topo.num_devices
+    n, e = pk_sizes(seed, cfg)
+    chunk = -(-e // num_procs)
+    _check_int32(seed, cfg, chunk)
+    rank = blocking.device_index(topo)
+    base = decompose_base(min(rank * chunk, e), seed.num_edges, cfg.levels)
+    su, sv = seed_tables(seed, device)
+    t = torch.arange(chunk, dtype=torch.int32, device=device)
+    u, v = expand_chunk(t, base, su, sv, seed.num_vertices, seed.num_edges,
+                        cfg.levels, cfg, rank=rank)
+    del t
+    if chunk * num_procs > e:
+        u, v = blocking.mask_tail((u, v), rank, chunk, e)
+    emitted = int(blocking.all_reduce_sum((u >= 0).sum(), topo))
+    return (EdgeList(src=u, dst=v, num_vertices=n),
+            GenStats(requested_edges=e, emitted_edges=emitted,
+                     dropped_edges=e - emitted, num_vertices=n,
+                     fallback_counts=ops.fallback_counts()))
 
 
 def _xor_apply(src: np.ndarray, dst: np.ndarray, er_u: np.ndarray,

@@ -12,11 +12,14 @@ package's streams of the same spec):
   * :class:`PBAStream`, host-driven: phase 1 and one processor's urn pool
     at a time run on the device; the host resolves every edge once in
     numpy and buckets the edges by round.
-  * :class:`PBAShardedStream`, device-resident on ``Topology.flat(1)``
-    (one GPU): phase 1, the request ranks, the demand and the urn pools
-    stay on the device, every round's grant, transpose, band lookup,
-    census and compaction run there, and only the round's kept edges
-    cross to the host.
+  * :class:`PBAShardedStream`, device-resident on a device topology
+    (``Topology.flat(d)`` or ``pods(r, c)``, one process per device of a
+    ``torch.distributed`` group when d > 1): phase 1, the request ranks,
+    the demand and the urn pools stay on the devices, every round's
+    grant, transpose, band lookup, census and compaction run there, and
+    only the round's kept edges leave. A rank's blocks are its own rows'
+    edges: the one-device stream's edges whose ``u`` falls in its
+    vertex range, in the same order.
 
 :class:`PKStream` expands one slab of the Kronecker index range per
 block on the device. It and ``CFreeStream`` keep their blocks on the
@@ -25,7 +28,9 @@ device for the memory sink (:func:`drain_on_device`).
 :func:`stream_to_shards` drives a stream into ``storage.ShardWriter``; a
 preempted run restarts by regenerating only the blocks the manifest says
 are missing. The device stream is driven double-buffered through
-:func:`repro_torch.runtime.streaming.drive_rounds`.
+:func:`repro_torch.runtime.streaming.drive_rounds`. Over a process group
+rank 0 gathers each block from every rank, in rank order, and writes it;
+the shard set equals the one-device run's.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from repro_torch.core.pk import PKConfig
 from repro_torch.core.spec import SeedGraph, spec_digest
 from repro_torch.kernels import ops
 from repro_torch.runtime import blocking, spmd, streaming
+from repro_torch.runtime import topology as topology_lib
 from repro_torch.runtime.topology import Topology
 
 
@@ -116,13 +122,6 @@ def _pba_stream_meta(cfg: PBAConfig, table: FactionTable,
             "spec_digest": spec_digest(cfg, table, auto_capacity)}
 
 
-def _check_vertex_space(cfg: PBAConfig, num_procs: int) -> None:
-    if num_procs * cfg.vertices_per_proc > 2**31 - 1:
-        raise ValueError(
-            f"P * vertices_per_proc = {num_procs * cfg.vertices_per_proc} "
-            "exceeds the int32 vertex-id space")
-
-
 def _narrow_keys(keys: np.ndarray, num_keys: int) -> np.ndarray:
     """``keys`` in [0, num_keys) in the narrowest unsigned type: a stable
     argsort then gives the same order by radix sort."""
@@ -156,8 +155,7 @@ class PBAStream:
         self.table = table
         self._auto_capacity = auto_capacity
         num_procs = self.num_procs = table.num_procs
-        _check_vertex_space(cfg, num_procs)
-        self.num_vertices = num_procs * cfg.vertices_per_proc
+        self.num_vertices = pba._check_vertex_space(cfg, num_procs)
         self.requested_edges = num_procs * cfg.edges_per_proc
         self.pair_capacity = pba._derived_pair_capacity(cfg, table, device)
         self.round_cap = streaming.round_capacity(
@@ -250,19 +248,22 @@ class PBAStream:
 
 
 class PBAShardedStream:
-    """Device-resident streaming PBA on a one-device topology.
+    """Device-resident streaming PBA over a device topology, P = lp * D.
 
-    The round contract of :class:`PBAStream`, executed on the device:
-    phase 1 tags and request ranks (P, E), the transposed demand (P, P)
-    and every processor's urn pool stay resident across rounds, and each
-    round (``core/pba.py::pba_stream_round_block``) returns a compacted
-    (P, min(E, P*C_r)) block. Blocks are bit-identical to
+    The round contract of :class:`PBAStream`, executed on the devices:
+    each device's phase 1 tags and request ranks (lp, E), transposed
+    demand (lp, P) and urn pools stay resident across rounds, and each
+    round (``core/pba.py::pba_stream_round_block``, its grant buffer
+    through the topology's blocked transpose) returns a compacted
+    (lp, min(E, P*C_r)) block. Blocks are bit-identical to
     :class:`PBAStream` for the same (cfg, table, auto_capacity), so
     manifests written by either driver resume under the other.
 
-    ``topology`` defaults to ``Topology.flat`` over the present devices
-    and must span one device (``Topology.flat(1)``, one GPU); multi-GPU
-    topologies are not ported yet and the host topology belongs to
+    ``topology`` defaults to ``Topology.flat`` over the process group's
+    world size (1 with no group); a topology of D > 1 devices runs one
+    process per device of the group, and the round count and urn budget
+    come from the demand of all P procs, reduced over the group, so every
+    rank runs the same rounds. The host topology belongs to
     :class:`PBAStream`. ``dispatch_block(i)`` enqueues round i and
     returns at once; ``gather_block(handle)`` waits for that round alone,
     checks it, and copies the kept edges to the host. On the card the
@@ -276,40 +277,44 @@ class PBAShardedStream:
                  auto_capacity: bool = True, *, device=None):
         validate_table(table)
         device = spmd.resolve_device(device)
-        topo = topology if topology is not None \
-            else Topology.flat(spmd.device_count(device))
-        if topo.is_host:
+        if topology is not None and topology.is_host:
             raise ValueError(
                 "PBAShardedStream runs a device topology; the host "
                 "topology's stream is PBAStream")
-        blocking.require_one_device(topo)
+        topo = topology_lib.resolve(topology, device=device)
         self.device = device
         self.topology = topo
         self.cfg = cfg
         self.table = table
         self._auto_capacity = auto_capacity
         num_procs = self.num_procs = table.num_procs
-        _check_vertex_space(cfg, num_procs)
-        self.num_vertices = num_procs * cfg.vertices_per_proc
+        self.num_vertices = pba._check_vertex_space(cfg, num_procs)
         self.requested_edges = num_procs * cfg.edges_per_proc
         self.pair_capacity = pba._derived_pair_capacity(cfg, table, device)
         self.round_cap = streaming.round_capacity(
             self.pair_capacity, cfg.exchange_rounds or 1)
         self.lp = topo.lp(num_procs)
 
-        self._ranks = blocking.logical_ranks(self.lp, topo, device)
+        self._ranks, procs, s = pba._block_inputs(table, self.lp, topo,
+                                                  device)
         self._a, self._occ, self._recv = pba.pba_stream_setup_block(
-            self._ranks, torch.from_numpy(table.procs).to(device),
-            torch.from_numpy(table.s).to(device), cfg, num_procs, topo)
-        recv_h = self._recv.cpu().numpy()
-        demand = recv_h.sum(axis=1, dtype=np.int64)    # per provider
-        self.num_blocks = streaming.rounds_needed(
-            max(int(recv_h.max()), 1), self.round_cap)
-        self.urn_budget = stream_urn_budget(cfg, int(demand.max()),
-                                            auto_capacity)
+            self._ranks, procs, s, cfg, num_procs, topo)
+        del procs, s
+        # The round count and the urn budget are the whole graph's: the
+        # largest pair count and provider demand over every rank, and the
+        # demand's sum over all P providers for the mean.
+        demand = self._recv.sum(1, dtype=torch.int64)  # per provider
+        big_pair, big_demand = blocking.all_reduce_max(
+            torch.stack([self._recv.max().long(), demand.max()]),
+            topo).tolist()
+        total_demand = int(blocking.all_reduce_sum(demand.sum(), topo))
+        del demand
+        self.num_blocks = streaming.rounds_needed(max(big_pair, 1),
+                                                  self.round_cap)
+        self.urn_budget = stream_urn_budget(cfg, big_demand, auto_capacity)
         if auto_capacity:
-            _warn_skewed_budget(cfg, self.urn_budget, float(demand.mean()),
-                                self.lp)
+            _warn_skewed_budget(cfg, self.urn_budget,
+                                total_demand / num_procs, self.lp)
         self.block_cap = pba.stream_block_capacity(
             cfg.edges_per_proc, num_procs, self.round_cap)
         self._pool = pba._phase2_pool(self._ranks, cfg, self.urn_budget)
@@ -367,11 +372,11 @@ class PBAShardedStream:
         after this one."""
         return self._compact(*handle[:3])
 
-    @staticmethod
-    def _compact(u, v, counts) -> tuple[torch.Tensor, torch.Tensor]:
+    def _compact(self, u, v, counts) -> tuple[torch.Tensor, torch.Tensor]:
         u, v = u.reshape(-1), v.reshape(-1)
-        band_slots, counted = torch.stack(
-            [(u >= 0).sum(), counts.sum()]).tolist()
+        band_slots, counted = blocking.all_reduce_sum(
+            torch.stack([(u >= 0).sum(), counts.sum()]),
+            self.topology).tolist()
         if band_slots != counted:
             raise AssertionError(
                 f"round block inconsistency: compaction kept {band_slots} "
@@ -481,8 +486,22 @@ def drain_on_device(stream, device) -> tuple[torch.Tensor, torch.Tensor]:
     return src[:n], dst[:n]
 
 
+def stream_topology(stream) -> Topology:
+    """The topology a stream's blocks are spread over (the host topology
+    for the streams that run on one device)."""
+    return getattr(stream, "topology", None) or Topology.host()
+
+
+def kept_total(stream, kept: int) -> int:
+    """The edges every rank of the stream's topology kept, from this
+    rank's ``kept``: the same on every rank."""
+    return blocking.all_reduce_sum(int(kept), stream_topology(stream),
+                                   stream.device)
+
+
 def stream_stats(stream, emitted: int) -> GenStats:
-    """The one stats contract for a drained stream (shards or memory)."""
+    """The one stats contract for a drained stream (shards or memory);
+    ``emitted`` counts the edges of every rank."""
     return GenStats(requested_edges=stream.requested_edges,
                     emitted_edges=emitted,
                     dropped_edges=stream.requested_edges - emitted,
@@ -500,8 +519,11 @@ def stream_to_shards(stream, out_dir: str, meta: Optional[dict] = None,
     reports missing are generated. Streams with the
     ``dispatch_block`` / ``gather_block`` pair (the device stream) are
     driven double-buffered: block i+1's round is dispatched before block i
-    is gathered and written (``overlap=False`` serializes them).
+    is gathered and written (``overlap=False`` serializes them). A stream
+    spread over a process group writes through :func:`_shards_from_ranks`.
     """
+    if blocking.collective(stream_topology(stream)):
+        return _shards_from_ranks(stream, out_dir, meta, overlap)
     writer = storage.ShardWriter(out_dir, stream.num_vertices,
                                  stream.num_blocks,
                                  meta={**stream.meta(), **(meta or {})})
@@ -517,3 +539,44 @@ def stream_to_shards(stream, out_dir: str, meta: Optional[dict] = None,
             src, dst = stream.block(i)
             writer.write_block(i, src, dst)
     return writer.manifest, stream_stats(stream, writer.edges_written)
+
+
+def _shards_from_ranks(stream, out_dir: str, meta: Optional[dict],
+                       overlap: bool) -> tuple[dict, GenStats]:
+    """:func:`stream_to_shards` for a stream spread over a process group.
+
+    Rank 0 opens (or resumes) the shard set and sends every rank the
+    blocks it is missing, so all ranks drive the same blocks in the same
+    order; each block's kept edges are gathered to rank 0 in rank order
+    (the one-device block) and written there. Other ranks write nothing
+    and wait for rank 0's manifest, which every rank returns.
+    """
+    topo, dev = stream_topology(stream), stream.device
+    writer = None
+
+    def open_writer():
+        nonlocal writer
+        writer = storage.ShardWriter(out_dir, stream.num_vertices,
+                                     stream.num_blocks,
+                                     meta={**stream.meta(), **(meta or {})})
+        return writer.missing()
+
+    missing = blocking.run_on_root(open_writer, topo, dev)
+
+    def write(i, src, dst):
+        block = blocking.gather_to_root((src, dst), topo)
+        if writer is not None:
+            writer.write_block(i, block[0].cpu().numpy(),
+                               block[1].cpu().numpy())
+
+    if hasattr(stream, "dispatch_block"):
+        streaming.drive_rounds(
+            missing, stream.dispatch_block,
+            lambda i, handle: write(i, *stream.gather_block_on_device(
+                handle)),
+            overlap=overlap)
+    else:
+        for i in missing:
+            write(i, *stream.block_on_device(i))
+    manifest = blocking.run_on_root(lambda: writer.manifest, topo, dev)
+    return manifest, stream_stats(stream, sum(manifest["counts"].values()))

@@ -9,11 +9,14 @@ ships request ranks [r*C_r, (r+1)*C_r) of every (sender, receiver) pair,
 and the rounds repeat while the all-reduced residual is positive, bounded
 by a static ``max_rounds``. The JAX package runs them in a
 ``lax.while_loop``; here the loop is Python and the trip-count rule is
-the same, so both run the same rounds on the same values.
+the same, so both run the same rounds on the same values. The residual
+is summed over every device of the topology before the loop tests it, so
+every rank of a process group runs the same rounds and issues the same
+collectives in the same order.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Iterable
 
 import torch
 

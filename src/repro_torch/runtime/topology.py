@@ -9,16 +9,22 @@ without the mesh building:
   Topology.flat(d)       one ``proc`` axis of d devices
   Topology.pods(r, c)    r pods x c devices per pod
 
-The logical-over-physical factorization P = lp * D is :meth:`lp`. This
-package runs the one-device topologies so far (host, and ``flat(1)``:
-one GPU); the others are accepted by the planner and refused with the
-ROADMAP item that will port them.
+The logical-over-physical factorization P = lp * D is :meth:`lp`. A
+device topology of D devices runs one process per device under a
+``torch.distributed`` group of world size D (:func:`resolve` checks it);
+the process rank is the linear device index, outer-major, so on
+``pods(r, c)`` device d = pod * c + chip. :func:`pod_groups` builds the
+subgroups the two-hop transpose runs over.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
+
+import torch.distributed as dist
+
+from repro_torch.runtime import spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +112,73 @@ class Topology:
         if self.ndim == 1:
             return f"flat_1x{self.axis_sizes[0]}"
         return "pods_" + "x".join(str(s) for s in self.axis_sizes)
+
+
+def resolve(topology: Optional[Topology], default_devices: Optional[int] = None,
+            *, device=None, axis_name: str = "proc") -> Topology:
+    """The device topology a distributed program runs on, checked against
+    the process group before any work.
+
+    ``topology`` None means flat over ``default_devices`` (the group's
+    world size when that is None too). The host topology is refused: its
+    callers run the host-path generators. A topology of D devices needs
+    D == the world size of the default group; with no group only D == 1
+    runs (one device, no collectives). With a group, its backend must
+    carry tensors on ``device`` (:func:`spmd.check_backend`). Raises
+    ``ValueError`` naming both numbers.
+    """
+    if topology is None:
+        topology = Topology.flat(default_devices if default_devices
+                                 is not None else spmd.device_count(),
+                                 axis_name)
+    if topology.is_host:
+        raise ValueError(
+            "host topology has no devices to spread over: run the host-path "
+            "generator (generate_*_host) instead")
+    d, world = topology.num_devices, spmd.world_size()
+    if spmd.group_active():
+        if d != world:
+            raise ValueError(
+                f"topology {topology.label} spans {d} devices but the "
+                f"process group's world size is {world}: run one process "
+                "per device of the topology")
+        if device is not None:
+            spmd.check_backend(device)
+    elif d != 1:
+        raise ValueError(
+            f"topology {topology.label} spans {d} devices and needs a "
+            f"torch.distributed process group of world size {d}, one "
+            f"process per device; none is initialised (world size "
+            f"{world}): start the run with torchrun or call "
+            "init_process_group first")
+    return topology
+
+
+#: Subgroups of each pods topology, built once per default group:
+#: {label: (world group, intra-pod groups, cross-pod groups)}.
+_POD_GROUPS: dict = {}
+
+
+def pod_groups(topology: Topology):
+    """(intra, cross): this rank's process subgroups on ``pods(r, c)``.
+
+    ``intra`` holds the c chips of this rank's pod (group rank = chip),
+    ``cross`` the r pods' ranks of this rank's chip column (group rank =
+    pod). ``dist.new_group`` is a collective: every rank builds all r + c
+    groups, pods first then columns, in one fixed order, and the groups
+    are cached by label for the life of the default group.
+    """
+    if topology.ndim != 2:
+        raise ValueError(f"pod groups need a 2-D topology, got "
+                         f"{topology.label}")
+    r, c = topology.axis_sizes
+    world = dist.group.WORLD
+    cached = _POD_GROUPS.get(topology.label)
+    if cached is None or cached[0] is not world:
+        intra = [dist.new_group([p * c + j for j in range(c)])
+                 for p in range(r)]
+        cross = [dist.new_group([p * c + j for p in range(r)])
+                 for j in range(c)]
+        cached = _POD_GROUPS[topology.label] = (world, intra, cross)
+    pod, chip = divmod(spmd.rank(), c)
+    return cached[1][pod], cached[2][chip]

@@ -10,6 +10,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro import api as japi
 from repro.core import factions as jfactions
@@ -202,20 +203,69 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         tapi.generate(pl, device="cuda")
 
 
-@pytest.mark.parametrize("spec,item", [
-    (dict(model="pk", levels=3, execution="sharded"), "item 9"),
+@pytest.mark.parametrize("spec,want", [
+    (dict(model="pk", levels=3, execution="sharded"),
+     ("generate_pk", "flat_1x1", 1)),
     (dict(model="rmat", cfree_vertices=64, cfree_edges=64,
-          execution="sharded"), "item 9"),
+          execution="sharded"), ("generate_cfree", "flat_1x1", 1)),
     (dict(model="pba", procs=4, vertices_per_proc=10, edges_per_vertex=2,
-          execution="streamed", topology=tapi.Topology.flat(2)), "item 9"),
+          execution="streamed", topology=tapi.Topology.flat(2)),
+     "world size (is )?1"),
     (dict(model="pba", procs=4, vertices_per_proc=10, edges_per_vertex=2,
-          execution="sharded"), "item 9"),
+          execution="sharded"), ("generate_pba_sharded", "flat_1x1", 4)),
     (dict(model="ba_cfree", cfree_vertices=64, execution="streamed",
-          topology=tapi.Topology.flat(2)), "item 9"),
+          topology=tapi.Topology.flat(2)), "world size (is )?1"),
 ])
-def test_unported_paths_name_their_roadmap_item(spec, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tapi.plan(tapi.GraphSpec(**spec), device="cpu")
+def test_unported_paths_name_their_roadmap_item(spec, want, tmp_path):
+    """The multi-device paths, refused before they were ported: each spec
+    resolves to the JAX package's executor, topology and lp on one
+    device, with no process group and under a world-size-1 gloo group;
+    a topology of two devices raises ``ValueError`` naming the world
+    size it lacks, as the JAX package refuses it on one device."""
+    tspec = tapi.GraphSpec(**spec)
+    jspec = japi.GraphSpec(**{**spec, **(
+        {"topology": JTopology.flat(spec["topology"].num_devices)}
+        if "topology" in spec else {})})
+    for grouped in (False, True):
+        if grouped:
+            dist.init_process_group(
+                "gloo", init_method=f"file://{tmp_path}/rdzv",
+                world_size=1, rank=0)
+        try:
+            if isinstance(want, str):
+                with pytest.raises(ValueError, match=want):
+                    tapi.plan(tspec, device="cpu")
+                with pytest.raises(ValueError, match="devices"):
+                    japi.plan(jspec)
+                continue
+            pl, jpl = tapi.plan(tspec, device="cpu"), japi.plan(jspec)
+            assert (pl.executor, pl.topology.label, pl.lp) == want == (
+                jpl.executor, jpl.topology.label, jpl.lp)
+            assert pl.execution == "sharded" and pl.rank == 0
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+
+
+def test_only_the_runtime_calls_torch_distributed():
+    """Collectives and group probes live in repro_torch/runtime/ (the JAX
+    package's rule for shard_map and all_to_all, runtime/__init__.py)."""
+    for path in sorted(PORT.rglob("*.py")):
+        if path.parent.name == "runtime":
+            continue
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}"
+                                         for a in node.names]
+            elif isinstance(node, ast.Attribute) and isinstance(
+                    node.value, ast.Name) and node.value.id == "torch":
+                names = [f"torch.{node.attr}"]
+            assert not any(n.startswith("torch.distributed")
+                           for n in names), (path, node.lineno)
 
 
 def test_invalid_specs_raise_value_error():

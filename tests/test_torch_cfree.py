@@ -314,7 +314,7 @@ def test_cfree_stream_blocks_match_reference(slab, model):
             np.testing.assert_array_equal(got[1], want[1])
     with pytest.raises(ValueError):
         ts.block(ts.num_blocks)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="world size 1"):
         tcfree.CFreeStream(_cfg(jcfg), slab, topology=tapi.Topology.flat(2),
                            device=CPU)
 

@@ -27,6 +27,7 @@ from repro_torch.core import stream as tstream
 from repro_torch.core.graph import EdgeList
 from repro_torch.kernels import ops, ref
 from repro_torch.runtime import blocking, streaming
+from repro_torch.runtime import topology as topology_lib
 from repro_torch.runtime.topology import Topology
 
 CPU = torch.device("cpu")
@@ -140,11 +141,12 @@ def test_one_device_topologies_and_labels():
             x.numpy().swapaxes(0, 1))
         assert blocking.all_reduce_sum(7, topo) == 7
         assert blocking.logical_ranks(3, topo).tolist() == [0, 1, 2]
+    # More than one device needs a process group of that world size.
     for topo in (Topology.flat(2), Topology.pods(1, 2)):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="world size 1"):
             blocking.transpose_payload(x, topo)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            blocking.logical_ranks(1, topo)
+        with pytest.raises(ValueError, match="world size 1"):
+            topology_lib.resolve(topo)
     for topo in (Topology.host(), Topology.flat(1), Topology.flat(8),
                  Topology.pods(2, 4)):
         assert Topology.from_label(topo.label) == topo
@@ -224,7 +226,7 @@ def test_device_stream_needs_a_one_device_topology():
     with pytest.raises(ValueError, match="host topology"):
         tstream.PBAShardedStream(tcfg, ttab, topology=Topology.host(),
                                  device=CPU)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="world size 1"):
         tstream.PBAShardedStream(tcfg, ttab, topology=Topology.flat(2),
                                  device=CPU)
 
