@@ -39,7 +39,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     src/repro_torch/reference_digests.json (made by the JAX package: PBA
     with host execution, the device stream and the host-driven stream;
     PK, rmat, er and ba_cfree with host execution and their streams) must
-    reproduce their sha256.
+    reproduce their sha256; on the card's edges of each host-execution
+    case, every analytics function (analytics_record) must give the JAX
+    package's results in src/repro_torch/reference_analytics.json
+    (exactly; the degree assortativity to rel 1e-9, abs 1e-12), and
+    degree_counts_device on the histogram kernel must equal degree_counts;
+    serial_ba_reference(4000, 4, seed=0) must give the file's digest.
  4. host main path: generate(preset("paper_1b_5b", procs=64,
     execution="host", pair_capacity=262144)), the paper's per-rank scale
     (1M vertices x k=5 per rank, R=8) with procs cut from 1000 to 64 to
@@ -48,17 +53,30 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     give identical edges; histogram at degree counting's shape on this
     run's edges (both endpoints into num_vertices + 1 bins, as the JAX
     package's core/analysis.py::degree_counts_device builds it) and at
-    as many uniform values (device-memory atomics saturated); then 4 + 4
-    timed runs of the kernel and plain paths in turns, a per-stage timing
-    run and a profiled run.
+    as many uniform values (device-memory atomics saturated); the
+    analytics step on its graph, with the launch counts set to 0 just
+    before it and read just after: degree_counts_device on the histogram
+    kernel (exactly 1 launch, equal to degree_counts), fit_power_law
+    (kmin 5, gamma_mle in (1.5, 3.5)), sampled_path_stats (16 sources),
+    community_contrast (16 blocks), sampled_clustering_coefficient (200
+    samples), degree_assortativity and rich_club_coefficient (k = 10),
+    each with its value, wall and peak device memory, then profiles of
+    to_csr and of one BFS; self_similarity_score (n0 = 5) on PK at L=9
+    (pk_3b cut to L=9: its L=10 edges and their int64 block ids would not
+    fit beside each other); histogram at the block densities' cells
+    (community_contrast's B = 16 on this graph, B = 5 and 25 on PK L=9)
+    held to its plain version and to torch.bincount; then 4 + 4 timed
+    runs of the kernel and plain paths in turns, a per-stage timing run
+    and a profiled run.
  5. streamed main path: the same preset at its own execution="streamed"
     on Topology.flat(1) (the device stream), same single cut: into memory
     (every kernel launched, band_compact once per block); under
     forced_mode("ref") (identical edges); parity mode (auto_capacity=False:
     the host path's edge multiset); the host-driven stream (the device
-    stream's digest); a profiled run; and the shard sink with overlap on
-    and off, read back, then resumed after two blocks are dropped from the
-    manifest (only those two shards rewritten).
+    stream's digest); a profiled run; and the shard sink at full width
+    with overlap on, read back, then resumed after two blocks are dropped
+    from the manifest (only those two shards rewritten); then overlap on
+    against off at reduced depth (procs 64 -> 8: zlib's rate).
  6. PK and the communication-free family, each path with its launch
     counts set to 0 just before it and read just after, then rerun under
     forced_mode("ref") and compared on the card, then profiled: R-MAT
@@ -85,16 +103,24 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     host ops traced, which must show c10d::alltoall_base_ once for
     exchange 1 plus once per exchange round (twice that on pods(1, 1);
     none for PK and R-MAT); each prints its wall, peak device memory (and
-    its excess over phase 4's) and idle share. The group is destroyed at the end of the phase.
- 8. the kernels line (with each kernel's launches in the distributed
-    runs), then {"ok": true, "device": {...}} as the last line.
+    its excess over phase 4's) and idle share. The sharded analytics
+    (degree_counts_sharded, edge_count_sharded, max_degree_sharded) of a
+    flat(1) run must equal phase 4's degree counts, the run's emitted
+    edges and their max. The group is destroyed at the end of the phase.
+ 8. the seconds from the start to each phase's end; the kernels line
+    (with each kernel's launches in the distributed runs; histogram's
+    also in the analytics runs), then
+    {"ok": true, "device": {...}} as the last line.
 
 Exits with a non-zero code and prints no result when CUDA is not
 available or the repository's src/ is not beside this file.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -118,6 +144,10 @@ PROCS = 64                  # the paper's 1000 ranks, cut to fit one card
 VERTICES_PER_PROC = 1_000_000   # the paper's per-rank scale, not cut
 PAIR_CAPACITY = 262144      # pinned: C_r = 32768 per pair at R=8
 BLOCK_CAP = 2_097_152       # min(E, P * C_r): a streamed round's block
+# The procs of the PBA shard sink's overlap on/off pair: np.savez_compressed
+# writes 4-10 MB/s, so each write of the 64-rank cut's 1.39 GB takes
+# 130-180 s of the script's 1200 s; one such write stays, with its resume.
+SHARD_SINK_PROCS = 8
 SEED = 0                    # numpy seed of the kernel-case inputs
 M32 = 0xFFFFFFFF
 
@@ -611,6 +641,37 @@ def degree_count_cases(torch, src, dst, num_vertices: int) -> list[dict]:
     return results
 
 
+def block_cell_cases(torch, analysis, edges, label: str,
+                     blocks: tuple) -> list[dict]:
+    """histogram at the shapes the block densities give it: the int32
+    cells ``b * B + c`` of ``edges``' valid edges (analysis.block_cells,
+    as block_density counts them) into B * B bins, for each B of
+    ``blocks``; held to the plain version and, with torch.equal, to
+    torch.bincount."""
+    from repro_torch.kernels import histogram, ref
+
+    results = []
+    for nb in blocks:
+        cells = analysis.block_cells(edges, nb)
+        bins = nb * nb
+        flat = cells.long()
+        run_case(torch, results, f"histogram block cells {label} B={nb} "
+                 f"{cells.numel()} bins {bins}", histogram.histogram,
+                 ref.histogram_ref,
+                 lambda: torch.bincount(flat, minlength=bins),
+                 (cells, bins), 4 * (cells.numel() + bins),
+                 [cells.numel(), bins], plain_reps=1)
+        same = torch.equal(histogram.histogram(cells, bins),
+                           torch.bincount(flat, minlength=bins).int())
+        results[-1]["equals_bincount"] = same
+        del cells, flat
+        torch.cuda.empty_cache()
+        if not same:
+            raise AssertionError(f"{results[-1]['case']}: kernel differs "
+                                 "from torch.bincount")
+    return results
+
+
 def kernel_cases(torch, np, dev, seed: int, procs: int, vpp: int, k: int,
                  block_cap: int) -> list[dict]:
     from repro_torch.kernels import band_compact, edge_resolve, ref
@@ -849,10 +910,17 @@ def host_op_calls(torch, fn, names: tuple) -> dict:
 
 def profile_run(torch, api, spec, dev, kernel: str = "",
                 expect_calls=None, attempts: int = 3) -> dict:
-    """Device-time share and the top device ops of a main-path run,
-    profiled after one warm-up run; a path shorter than half a second is
-    profiled over as many runs as fill half a second, and times are per
-    run. ``kernel`` (a substring of a CUDA kernel's name) adds its device
+    """:func:`profile_fn` of one ``api.generate(spec)`` run."""
+    return profile_fn(torch, lambda: api.generate(spec, device=dev), kernel,
+                      expect_calls, attempts)
+
+
+def profile_fn(torch, run, kernel: str = "", expect_calls=None,
+               attempts: int = 3) -> dict:
+    """Device-time share and the top device ops of run(), a main-path run
+    or step, profiled after one warm-up run; a path shorter than half a
+    second is profiled over as many runs as fill half a second, and times
+    are per run. ``kernel`` (a substring of a CUDA kernel's name) adds its device
     time and calls per run. The tracer has returned no device event, or
     too few, for a 20-45 ms path late in a long process: a trace with no
     device event, or with other than ``expect_calls`` calls of ``kernel``
@@ -860,9 +928,6 @@ def profile_run(torch, api, spec, dev, kernel: str = "",
     complete, the busy and idle figures are None ("not measured"), never
     a number from a partial trace."""
     from torch.autograd import DeviceType
-
-    def run():
-        api.generate(spec, device=dev)
 
     # CUPTI marks the spans where the launch queue was full (the host
     # waited on the device) as device events; they are not kernels.
@@ -1107,31 +1172,40 @@ def streamed_phases(torch, api, dispatch, ops, edge_digest, dev,
           **profile_run(torch, api, spec, dev)})
     torch.cuda.empty_cache()
 
-    # Shard sink: overlap on, overlap off, read back, resume two blocks.
+    # Shard sink at full width: overlap on, read back, resume two blocks.
     out_root = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_root, exist_ok=True)
+
+    def write_shards(shard_spec, overlap, reduced=None):
+        shutil.rmtree(out_dir)
+        with PeakRss() as rss:
+            sres, wall = timed(lambda: api.generate(
+                shard_spec.replace(sink="shards", out_dir=out_dir,
+                                   overlap=overlap), device=dev))
+        emit({"phase": "stream_shards", "overlap": overlap,
+              **({"reduced": reduced} if reduced else {}),
+              "wall_s": wall,
+              "edges_per_s": sres.stats.requested_edges / wall,
+              "num_shards": sres.manifest["num_shards"],
+              "dropped_edges": sres.stats.dropped_edges,
+              "peak_host_rss_bytes": rss.peak,
+              "disk_bytes": sum(os.path.getsize(os.path.join(out_dir, f))
+                                for f in os.listdir(out_dir))})
+        return wall
+
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_shards_", dir=out_root)
     try:
-        walls = {}
-        for overlap in (True, False):
-            shutil.rmtree(out_dir)
-            with PeakRss() as rss:
-                sres, walls[overlap] = timed(lambda: api.generate(
-                    spec.replace(sink="shards", out_dir=out_dir,
-                                 overlap=overlap), device=dev))
-            emit({"phase": "stream_shards", "overlap": overlap,
-                  "wall_s": walls[overlap],
-                  "edges_per_s": sres.stats.requested_edges
-                  / walls[overlap],
-                  "num_shards": sres.manifest["num_shards"],
-                  "dropped_edges": sres.stats.dropped_edges,
-                  "peak_host_rss_bytes": rss.peak,
-                  "disk_bytes": sum(
-                      os.path.getsize(os.path.join(out_dir, f))
-                      for f in os.listdir(out_dir))})
+        full_wall = write_shards(spec, True)
         emit({"phase": "stream_shards_resume",
               **resume_check(torch, api, edge_digest, spec, dev, out_dir,
-                             digest),
+                             digest), "overlap_on_s": full_wall})
+        # Overlap on against off at reduced depth (procs cut to
+        # SHARD_SINK_PROCS), the two writes of one size in one run.
+        shard_spec = spec.replace(procs=SHARD_SINK_PROCS)
+        reduced = f"procs {PROCS} -> {SHARD_SINK_PROCS}"
+        walls = {overlap: write_shards(shard_spec, overlap, reduced)
+                 for overlap in (True, False)}
+        emit({"phase": "stream_shards_overlap", "reduced": reduced,
               "overlap_on_s": walls[True], "overlap_off_s": walls[False]})
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -1527,6 +1601,247 @@ def pk_cfree_phases(torch, api, dispatch, ops, edge_digest, dev) -> dict:
     return launches
 
 
+# --- the analytics: phases 3, 4 and 7 ---------------------------------------------
+
+ANALYTICS_BLOCKS = 16       # community_contrast's B (the reference's default)
+ANALYTICS_SOURCES = 16      # sampled_path_stats' BFS sources (its default)
+ANALYTICS_SAMPLES = 200     # sampled_clustering_coefficient's (its default)
+RICH_CLUB_K = 10
+# degree_assortativity's float64 sums over 2E values run on the card in
+# another order than numpy's pairwise sums: the one result held to a
+# tolerance.
+ASSORTATIVITY_RTOL = 1e-9
+ASSORTATIVITY_ATOL = 1e-12
+SERIAL_BA = (4000, 4, 0)    # serial_ba_reference's (num_vertices, k, seed)
+
+
+def array_sha256(np, dtype: str, *arrays) -> str:
+    """sha256 of the arrays as ``dtype`` (e.g. "<i4"), one after another."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a, dtype=dtype).tobytes())
+    return h.hexdigest()
+
+
+def analytics_record(np, analysis, edges, valid_edges, to_numpy,
+                     n0=None) -> dict:
+    """Every analytics function of ``analysis`` (either package's
+    ``core.analysis``: the names and signatures are the same) on
+    ``edges``: arrays by their sha256, scalars and dataclasses as they
+    are. ``valid_edges(edges)`` gives the package's (src, dst) without
+    invalid slots, ``to_numpy`` a host copy of one of its arrays; ``n0``,
+    a PK seed's vertex count, adds self_similarity_score."""
+    n = edges.num_vertices
+    deg = to_numpy(analysis.degree_counts(edges))
+    indptr, indices = analysis.to_csr(*valid_edges(edges), n)
+    rec = {
+        "degree_counts_sha256": array_sha256(np, "<i4", deg),
+        "degree_histogram_sha256": array_sha256(
+            np, "<i8", *analysis.degree_histogram(deg)),
+        "csr_sha256": array_sha256(np, "<i8", to_numpy(indptr),
+                                   to_numpy(indices)),
+        "bfs_from_0_sha256": array_sha256(np, "<i4", to_numpy(
+            analysis.bfs_distances(indptr, indices, 0, n))),
+        "power_law": dataclasses.asdict(analysis.fit_power_law(deg)),
+        "path_stats": dataclasses.asdict(analysis.sampled_path_stats(
+            edges, ANALYTICS_SOURCES, seed=0)),
+        "block_density_sha256": array_sha256(
+            np, "<f8", analysis.block_density(edges, ANALYTICS_BLOCKS)),
+        "community_contrast": analysis.community_contrast(
+            edges, ANALYTICS_BLOCKS),
+        "clustering": analysis.sampled_clustering_coefficient(
+            edges, ANALYTICS_SAMPLES, seed=0),
+        "assortativity": analysis.degree_assortativity(edges),
+        "rich_club": analysis.rich_club_coefficient(edges, RICH_CLUB_K)}
+    if n0:
+        rec["self_similarity"] = analysis.self_similarity_score(edges, n0)
+    return rec
+
+
+def analytics_mismatches(got: dict, want: dict) -> list:
+    """The keys of ``want`` whose value ``got`` does not equal (the
+    assortativity: not within its tolerance)."""
+    bad = []
+    for key, w in want.items():
+        g = got.get(key)
+        if key == "assortativity":
+            ok = g is not None and abs(g - w) <= \
+                ASSORTATIVITY_ATOL + ASSORTATIVITY_RTOL * abs(w)
+        else:
+            ok = g == w
+        if not ok:
+            bad.append(key)
+    return bad
+
+
+def check_reference_analytics(torch, np, name: str, edges, case: dict) -> None:
+    """Phase 3: every analytics function on the card's edges of a digest
+    case against the JAX package's results (reference_analytics.json),
+    and degree_counts_device on the histogram kernel against
+    degree_counts."""
+    from repro_torch.core import analysis
+    t0 = time.perf_counter()
+    got = analytics_record(np, analysis, edges, analysis.valid_edges,
+                           lambda t: t.cpu().numpy(), case["n0"])
+    bad = analytics_mismatches(got, case["record"])
+    kernel = analysis.degree_counts_device(edges, use_kernel=True)
+    if not torch.equal(kernel, analysis.degree_counts(edges)):
+        bad.append("degree_counts_device")
+    torch.cuda.synchronize()
+    emit({"phase": "reference_analytics", "case": name,
+          "num_vertices": edges.num_vertices, "mismatches": bad,
+          "assortativity": got["assortativity"],
+          "assortativity_reference": case["record"]["assortativity"],
+          "wall_s": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError(f"{name}: the card's analytics differ from the "
+                             f"JAX package's: {bad}")
+
+
+GAMMA_BAND = (1.5, 3.5)      # tests/test_graph_properties.py's band
+MAIN_PATH_FIT_KMIN = 5
+
+
+def timed_step(torch, dev, rows: dict, label: str, fn):
+    """fn()'s result; ``rows[label]`` gets its wall to the card's finish
+    and the peak device memory while it ran."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rows[label] = {"wall_s": time.perf_counter() - t0,
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated(
+                       dev)}
+    return out
+
+
+def main_path_analytics(torch, np, ops, dev, edges, emitted: int) -> dict:
+    """Phase 4's analytics step on the host path's 64-rank graph, with the
+    launch counts set to 0 just before it and read just after:
+    degree_counts_device on the histogram kernel (exactly 1 launch, equal
+    to degree_counts), then the paper's metrics, each with its value, wall
+    and peak device memory; gamma_mle must lie in GAMMA_BAND and the
+    degrees must sum to twice the edges. Then, outside the counted step, a
+    profile of to_csr and of one BFS (from vertex 0, with its frontier
+    sizes), and community_contrast's histogram held to its plain version
+    and torch.bincount on the same cells. Returns the degree counts'
+    sha256 and max, the step's launch counts and that kernel case."""
+    from repro_torch.core import analysis
+    from repro_torch.core.graph import to_csr
+
+    n = edges.num_vertices
+    rows = {}
+    ops.reset_launch_counts()
+    counts = timed_step(torch, dev, rows, "degree_counts_device",
+                        lambda: analysis.degree_counts_device(
+                            edges, use_kernel=True))
+    kernel_launches = ops.launch_counts()["histogram"]
+    plain = timed_step(torch, dev, rows, "degree_counts",
+                       lambda: analysis.degree_counts(edges))
+    same = torch.equal(counts, plain)
+    del plain
+    values = {
+        "degree_counts": {"sha256": array_sha256(np, "<i4",
+                                                 counts.cpu().numpy()),
+                          "max": int(counts.max()),
+                          "sum": int(counts.sum(dtype=torch.int64))},
+        "fit_power_law": dataclasses.asdict(timed_step(
+            torch, dev, rows, "fit_power_law", lambda: analysis.fit_power_law(
+                counts, kmin=MAIN_PATH_FIT_KMIN))),
+        "sampled_path_stats": dataclasses.asdict(timed_step(
+            torch, dev, rows, "sampled_path_stats",
+            lambda: analysis.sampled_path_stats(edges, ANALYTICS_SOURCES))),
+        "community_contrast": timed_step(
+            torch, dev, rows, "community_contrast",
+            lambda: analysis.community_contrast(edges, ANALYTICS_BLOCKS)),
+        "sampled_clustering_coefficient": timed_step(
+            torch, dev, rows, "sampled_clustering_coefficient",
+            lambda: analysis.sampled_clustering_coefficient(
+                edges, ANALYTICS_SAMPLES)),
+        "degree_assortativity": timed_step(
+            torch, dev, rows, "degree_assortativity",
+            lambda: analysis.degree_assortativity(edges)),
+        "rich_club_coefficient": timed_step(
+            torch, dev, rows, "rich_club_coefficient",
+            lambda: analysis.rich_club_coefficient(edges, RICH_CLUB_K))}
+    launches = ops.launch_counts()
+    for label, value in values.items():
+        rows.setdefault(label, {})["value"] = value
+    gamma = values["fit_power_law"]["gamma_mle"]
+    row = {"phase": "main_path_analytics", "num_vertices": n,
+           "emitted_edges": emitted, "launches": launches,
+           "degree_counts_device_histogram_launches": kernel_launches,
+           "kernel_equals_degree_counts": same,
+           "gamma_mle_band": list(GAMMA_BAND),
+           "walls_total_s": sum(r["wall_s"] for r in rows.values()),
+           "functions": rows}
+    emit(row)
+    if kernel_launches != 1 or not same or \
+            not GAMMA_BAND[0] < gamma < GAMMA_BAND[1] or \
+            values["degree_counts"]["sum"] != 2 * emitted:
+        raise AssertionError("main path analytics: degree_counts_device took "
+                             f"{kernel_launches} histogram launches, equal "
+                             f"to degree_counts: {same}; gamma_mle {gamma}")
+    cells = block_cell_cases(torch, analysis, edges, "64-rank",
+                             (ANALYTICS_BLOCKS,))
+
+    # What CSR and BFS spend (outside the counted step).
+    src, dst = analysis.valid_edges(edges)
+    breakdown = {"phase": "main_path_analytics_breakdown"}
+    keep = ("wall_s", "profiled_runs", "complete", "kernels_busy_s",
+            "device_idle_share_of_wall", "top_device_ops")
+    prof = profile_fn(torch, lambda: to_csr(src, dst, n))
+    breakdown["to_csr"] = {k: prof[k] for k in keep}
+    csr = timed_step(torch, dev, breakdown, "to_csr_run",
+                     lambda: to_csr(src, dst, n))
+    del src, dst
+    dist = analysis.bfs_distances(*csr, 0, n)
+    sizes = torch.bincount(dist[dist >= 0]).tolist()
+    del dist
+    prof = profile_fn(torch, lambda: analysis.bfs_distances(*csr, 0, n))
+    breakdown["bfs_from_0"] = {"levels": len(sizes) - 1,
+                               "frontier_sizes": sizes,
+                               **{k: prof[k] for k in keep}}
+    del csr
+    torch.cuda.empty_cache()
+    emit(breakdown)
+    return {"sha256": values["degree_counts"]["sha256"],
+            "max": values["degree_counts"]["max"], "launches": launches,
+            "cases": cells}
+
+
+def pk_self_similarity(torch, api, ops, dev) -> tuple[dict, list]:
+    """self_similarity_score on PK at L = PK_NOISE_LEVELS (host execution;
+    pk_3b's L=10 would hold 28 GB of edges and as much again of int64
+    block ids, and its edge count passes int32), with the launch counts
+    set to 0 just before it and read just after: two block_density
+    counts, one histogram launch each. Then the histogram at both counts'
+    cells (B = n0 and n0 * n0) against its plain version and
+    torch.bincount. Returns the launch counts and those kernel cases."""
+    from repro_torch.core import analysis
+    res = api.generate(api.preset("pk_3b", levels=PK_NOISE_LEVELS,
+                                  execution="host"), device=dev)
+    n0 = res.plan.seed_graph.num_vertices
+    rows = {}
+    ops.reset_launch_counts()
+    score = timed_step(torch, dev, rows, "self_similarity_score",
+                       lambda: analysis.self_similarity_score(res.edges, n0))
+    launches = ops.launch_counts()
+    emit({"phase": "pk_L9_analytics", "levels": PK_NOISE_LEVELS, "n0": n0,
+          "edges": res.stats.emitted_edges, "self_similarity": score,
+          "launches": launches, **rows["self_similarity_score"]})
+    if launches["histogram"] != 2 or not math.isfinite(score):
+        raise AssertionError(f"pk self-similarity {score} with "
+                             f"{launches['histogram']} histogram launches")
+    cases = block_cell_cases(torch, analysis, res.edges,
+                             f"pk L={PK_NOISE_LEVELS}", (n0, n0 * n0))
+    del res
+    torch.cuda.empty_cache()
+    return launches, cases
+
+
 # --- phase 7: the torch.distributed path -------------------------------------------
 
 A2A_OP = "c10d::alltoall_base_"     # all_to_all_single's dispatcher op
@@ -1534,12 +1849,15 @@ DIST_PK_LEVELS = 9                  # L=10's 3.49B edges pass int32 only
                                     # split over several ranks
 
 
-def distributed_phases(torch, api, ops, edge_digest, dev, host_digest: str,
-                       stream_digest: str, host_peak: int) -> dict:
+def distributed_phases(torch, np, api, ops, edge_digest, dev,
+                       host_digest: str, stream_digest: str, host_peak: int,
+                       degrees: dict) -> dict:
     """The port's torch.distributed code path at world size 1: a NCCL
     group over the card (file:// rendezvous in a temp dir, ``device_id``
     the card) carries the collectives of each run, which must give the
-    one-device paths' digests. Returns each run's launch counts."""
+    one-device paths' digests; the sharded analytics of the flat(1) run
+    must give phase 4's degree counts (``degrees``: their sha256 and
+    max). Returns each run's launch counts."""
     import torch.distributed as dist
 
     rdzv = tempfile.mkdtemp(prefix="chip_smoke_rdzv_")
@@ -1575,12 +1893,17 @@ def distributed_phases(torch, api, ops, edge_digest, dev, host_digest: str,
             ("e_rmat_scale26_sharded", rmat.replace(execution="sharded"),
              hosts["rmat"], "generate_cfree", 0))
         for label, spec, want, executor, hops in cases:
-            row, launches[label] = distributed_run(
+            row, launches[label], res = distributed_run(
                 torch, api, ops, edge_digest, dev, label, spec, want,
-                executor, hops)
+                executor, hops, keep=label == "a_sharded_flat1")
             row["peak_over_host_path_bytes"] = \
                 row["peak_allocated_bytes"] - host_peak
             emit(row)
+            if res is not None:
+                launches["g_analytics_flat1"] = distributed_analytics(
+                    torch, np, ops, dev, res, degrees)
+            del res
+            torch.cuda.empty_cache()
         launches["f_shard_sink_hub_stress"] = distributed_shards(
             torch, api, ops, edge_digest, dev)
     finally:
@@ -1590,12 +1913,13 @@ def distributed_phases(torch, api, ops, edge_digest, dev, host_digest: str,
 
 
 def distributed_run(torch, api, ops, edge_digest, dev, label: str, spec,
-                    want: str, executor: str, hops: int):
+                    want: str, executor: str, hops: int, keep: bool = False):
     """One run through the group: launch counts set to 0 just before and
     read just after, the digest against ``want``, then a profiled run
     whose all-to-all count must be ``hops`` x (exchange 1 + one per
     exchange round) (0: no all-to-all at all), counted in one more run
-    whose host ops are traced."""
+    whose host ops are traced. Returns the row, the launch counts and,
+    with ``keep``, the first run's result (else None)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
@@ -1618,6 +1942,7 @@ def distributed_run(torch, api, ops, edge_digest, dev, label: str, spec,
            "wall_s": wall, "edges_per_s": st.requested_edges / wall,
            "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
            "sha256": got, "matches_one_device_path": got == want}
+    kept = res if keep else None
     del res
     torch.cuda.empty_cache()
     rounds = st.exchange_rounds
@@ -1640,7 +1965,43 @@ def distributed_run(torch, api, ops, edge_digest, dev, label: str, spec,
         emit(row)
         raise AssertionError(f"{label}: the distributed path differs from "
                              "the one-device path, or took another route")
-    return row, launches
+    return row, launches, kept
+
+
+def distributed_analytics(torch, np, ops, dev, res, degrees: dict) -> dict:
+    """degree_counts_sharded, edge_count_sharded and max_degree_sharded on
+    the rank's share of the sharded run ``res``, through the group, with
+    the launch counts set to 0 just before them and read just after: equal
+    to phase 4's degree counts, the run's emitted edges and their max."""
+    from repro_torch.core import distributed_analysis as da
+    edges, topo = res.edges, res.plan.topology
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deg = da.degree_counts_sharded(edges, topology=topo)
+    count = da.edge_count_sharded(edges, topology=topo)
+    top = da.max_degree_sharded(edges, topology=topo)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    got = array_sha256(np, "<i4", deg.cpu().numpy())
+    row = {"phase": "distributed", "case": "g_analytics_flat1",
+           "topology": topo.label, "launches": launches, "wall_s": wall,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "degree_counts_sha256": got,
+           "matches_host_path_degree_counts": got == degrees["sha256"],
+           "edge_count": count, "emitted_edges": res.stats.emitted_edges,
+           "max_degree": top, "host_path_max_degree": degrees["max"]}
+    emit(row)
+    del edges, deg
+    torch.cuda.empty_cache()
+    if got != degrees["sha256"] or count != row["emitted_edges"] or \
+            top != degrees["max"] or launches["histogram"] != 2:
+        raise AssertionError("sharded analytics differ from the host path's "
+                             "or took another route")
+    return launches
 
 
 def distributed_shards(torch, api, ops, edge_digest, dev) -> dict:
@@ -1697,6 +2058,11 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = _nvidia_smi()
     print(smi, flush=True)
+    t_start = time.perf_counter()
+    phase_ends = {}         # seconds from the start to each phase's end
+
+    def phase_done(name: str) -> None:
+        phase_ends[name] = time.perf_counter() - t_start
 
     # 1. toolchain and build
     t0 = time.perf_counter()
@@ -1707,6 +2073,7 @@ def main() -> int:
           "nvcc": _nvcc_version(_build.nvcc()), "torch": torch.__version__,
           "torch_cuda": torch.version.cuda, "nvcc_flags": _build.NVCC_FLAGS,
           "build_s": build_s, "build_wall_s": build_wall})
+    phase_done("1_toolchain")
 
     # 2. kernels against their plain versions at the main paths' shapes
     spec = api.preset("paper_1b_5b", procs=PROCS,
@@ -1728,11 +2095,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     cases += resolve_cases(torch, pl)
     cases += pk_cfree_kernel_cases(torch, dev)
+    phase_done("2_kernels")
 
     # 3. the JAX package's reference digests
     with open(os.path.join(src, "repro_torch",
                            "reference_digests.json")) as f:
         ref_cases = json.load(f)["cases"]
+    with open(os.path.join(src, "repro_torch",
+                           "reference_analytics.json")) as f:
+        ref_analytics = json.load(f)
     for name, case in sorted(ref_cases.items()):
         overrides = dict(case["overrides"])
         if "topology" in overrides:
@@ -1751,7 +2122,21 @@ def main() -> int:
                 case["exchange_rounds"]:
             raise AssertionError(f"{name}: the card's graph differs from "
                                  "the JAX package's")
+        if name in ref_analytics["cases"]:
+            check_reference_analytics(torch, np, name, res.edges,
+                                      ref_analytics["cases"][name])
         del res
+    from repro_torch.core.pba import serial_ba_reference
+    ba = serial_ba_reference(*ref_analytics["serial_ba"], device=dev)
+    got = edge_digest(ba.src, ba.dst)
+    emit({"phase": "reference_analytics", "case": "serial_ba_reference",
+          "args": ref_analytics["serial_ba"], "sha256": got,
+          "match": got == ref_analytics["serial_ba_sha256"]})
+    if got != ref_analytics["serial_ba_sha256"] or ba.src.device != dev:
+        raise AssertionError("serial_ba_reference differs from the JAX "
+                             "package's")
+    del ba
+    phase_done("3_reference")
 
     # 4. the host main path, through the front door
     torch.cuda.empty_cache()
@@ -1820,8 +2205,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     cases += degree_count_cases(torch, kernel_src, kernel_dst,
                                 st.num_vertices)
+    from repro_torch.core.graph import EdgeList
+    degrees = main_path_analytics(
+        torch, np, ops, dev, EdgeList(kernel_src, kernel_dst,
+                                      st.num_vertices), st.emitted_edges)
     del kernel_src, kernel_dst
     torch.cuda.empty_cache()
+    cases += degrees["cases"]
+    pk_analytics_launches, pk_cells = pk_self_similarity(torch, api, ops, dev)
+    cases += pk_cells
 
     # Kernel path vs plain path end to end, in turns, on the same card.
     order = ["kernel", "plain", "plain", "kernel"] * 2
@@ -1847,6 +2239,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "main_path_profile", **profile_run(torch, api, spec, dev)})
     torch.cuda.empty_cache()
+    phase_done("4_host_main_path")
 
     # 5. the streamed main path
     stream_launches, stream_digest = streamed_phases(
@@ -1859,14 +2252,20 @@ def main() -> int:
                              f"histogram {stream_launches['histogram']} "
                              "times")
 
+    phase_done("5_streamed_main_path")
+
     # 6. PK and the communication-free family
     pk_cfree_launches = pk_cfree_phases(torch, api, dispatch, ops,
                                         edge_digest, dev)
+    phase_done("6_pk_cfree")
 
     # 7. the torch.distributed path through a world-size-1 NCCL group
     dist_launches = distributed_phases(
-        torch, api, ops, edge_digest, dev, host_digest=digest,
-        stream_digest=stream_digest, host_peak=main["peak_allocated_bytes"])
+        torch, np, api, ops, edge_digest, dev, host_digest=digest,
+        stream_digest=stream_digest, host_peak=main["peak_allocated_bytes"],
+        degrees=degrees)
+    phase_done("7_distributed")
+    emit({"phase": "phase_ends", "seconds_from_start": phase_ends})
 
     # 8. the kernels line and the last line
     table = {
@@ -1940,6 +2339,12 @@ def main() -> int:
             kernels[-1]["per_run"] = head["per_run"]
         kernels[-1]["launches_distributed"] = {
             k: v[name] for k, v in dist_launches.items() if v.get(name)}
+    hist = next(k for k in kernels if k["name"] == "histogram")
+    hist["launches_analytics"] = {
+        "main_path_analytics": degrees["launches"]["histogram"],
+        "pk_L9_self_similarity": pk_analytics_launches["histogram"],
+        "distributed_g_analytics_flat1":
+            dist_launches["g_analytics_flat1"]["histogram"]}
     kernels[-2]["launches_other_paths"] = {
         k: v["pk_expand"] for k, v in pk_cfree_launches.items()
         if k.startswith("pk_")}

@@ -23,6 +23,11 @@ with --cpu) and runs, through the front door with no device given:
   shard_sink          preset hub_stress streamed into shards on flat(N),
       read back by rank 0
 
+The sharded PBA cases then run the sharded analytics on every rank's
+share (degree_counts_sharded, edge_count_sharded, max_degree_sharded),
+which must give every rank the one-device host path's degree counts,
+valid-edge count and max degree.
+
 Each case prints one JSON line from rank 0: the ranks' digests against
 the references (the last of --repeats runs), the global stats (equal on
 every rank), the walls of every run (rank 0's and the slowest rank's:
@@ -61,13 +66,22 @@ def shares(torch, edge_digest, src, dst, bounds) -> list:
     return out
 
 
-def references(torch, api, edge_digest, specs: dict, world: int,
+def references(torch, np, api, edge_digest, specs: dict, world: int,
                device) -> dict:
     """Rank 0, before the group exists: each case's expected digest per
-    rank, from the one-device paths."""
+    rank, from the one-device paths, and the host path's degree counts
+    (sha256, valid edges, max)."""
+    import chip_smoke
+    from repro_torch.core.graph import degree_counts
     ref = {}
     pba = specs["pba"]
     res = api.generate(pba.replace(execution="host"), device=device)
+    deg = degree_counts(res.edges)
+    ref["analytics"] = {
+        "degree_counts_sha256": chip_smoke.array_sha256(
+            np, "<i4", deg.cpu().numpy()),
+        "edge_count": int(res.edges.num_valid()), "max_degree": int(deg.max())}
+    del deg
     p, e_local = res.edges.src.shape
     per = (p // world) * e_local
     rows = [(d * per, (d + 1) * per, 0) for d in range(world)]
@@ -110,11 +124,13 @@ def main() -> int:
                     help="timed runs of each case (the first includes "
                     "NCCL's setup of the case's communicators)")
     args = ap.parse_args()
+    import numpy as np
     import torch
     import torch.distributed as dist
     sys.path[:0] = [HERE, os.path.join(HERE, "src")]
     import chip_smoke
     from repro_torch import api
+    from repro_torch.core import distributed_analysis
     from repro_torch.core import storage
     from repro_torch.core.graph import edge_digest
 
@@ -151,7 +167,7 @@ def main() -> int:
     gpu = device.type == "cuda"
 
     t0 = time.perf_counter()
-    ref = references(torch, api, edge_digest, specs, world, device) \
+    ref = references(torch, np, api, edge_digest, specs, world, device) \
         if rank == 0 else None
     ref_s = time.perf_counter() - t0
     if gpu:
@@ -214,9 +230,27 @@ def main() -> int:
                "executor": res.plan.executor,
                "topology": res.plan.topology.label, "lp": res.plan.lp,
                "world_size": world}
+        analytics = None
+        if name.startswith("pba_sharded"):
+            topo = res.plan.topology
+            sync()
+            t0 = time.perf_counter()
+            deg = distributed_analysis.degree_counts_sharded(
+                res.edges, topology=topo)
+            analytics = {
+                "degree_counts_sha256": chip_smoke.array_sha256(
+                    np, "<i4", deg.cpu().numpy()),
+                "edge_count": distributed_analysis.edge_count_sharded(
+                    res.edges, topology=topo),
+                "max_degree": distributed_analysis.max_degree_sharded(
+                    res.edges, topology=topo)}
+            sync()
+            analytics["wall_s"] = time.perf_counter() - t0
+            del deg
         del res
         everyone = gathered({"digest": got, "stats": stats, "walls": walls,
-                             "peak_allocated_bytes": peak})
+                             "peak_allocated_bytes": peak,
+                             "analytics": analytics})
         calls = None
         if name.startswith("pba_sharded"):
             if rank == 0:
@@ -245,11 +279,18 @@ def main() -> int:
                     *(g["walls"] for g in everyone))],
                 "peak_allocated_bytes": [g["peak_allocated_bytes"]
                                          for g in everyone]})
+            if analytics is not None:
+                row["analytics_match"] = [
+                    {k: g["analytics"][k] for k in ref["analytics"]}
+                    == ref["analytics"] for g in everyone]
+                row["analytics_walls_s"] = [g["analytics"]["wall_s"]
+                                            for g in everyone]
             if calls is not None:
                 row["all_to_all_calls"] = calls
                 row["expected_all_to_all_calls"] = hops * (
                     1 + st["exchange_rounds"])
             good = all(row["matches"]) and \
+                all(row.get("analytics_match", [True])) and \
                 row["stats_equal_on_every_rank"] and \
                 st["fallback_counts"] == {} and \
                 (name.startswith("pk") or st["dropped_edges"] == 0) and \

@@ -36,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import rng as rng_lib
@@ -586,3 +587,34 @@ def generate_pba_host(cfg: PBAConfig, table: FactionTable,
         ranks, procs, s, cfg, num_procs, pair_capacity, topo)
     return (EdgeList(src=u, dst=v, num_vertices=n),
             _stats(cfg, num_procs, dropped, rounds, pair_capacity))
+
+
+def serial_ba_reference(num_vertices: int, k: int, seed: int = 0, *,
+                        device=None) -> EdgeList:
+    """Classic serial BA via the uniform-edge-endpoint urn (oracle for tests).
+
+    Pure numpy, sequential, and bit-equal to the JAX package's: the ground
+    truth the parallel algorithm approximates in the P=1 limit. Returns
+    int32 tensors on ``device`` (the current CUDA device unless
+    ``device="cpu"``).
+    """
+    device = spmd.resolve_device(device)
+    rng = np.random.default_rng(seed)
+    e = num_vertices * k
+    src = np.empty(e, np.int64)
+    dst = np.empty(e, np.int64)
+    # endpoint slot pool: 2 slots per edge
+    pool = np.empty(2 * e, np.int64)
+    n_slots = 0
+    for v_new in range(num_vertices):
+        for j in range(k):
+            i = v_new * k + j
+            src[i] = v_new
+            tgt = 0 if n_slots == 0 else pool[rng.integers(0, n_slots)]
+            dst[i] = tgt
+            pool[n_slots] = v_new
+            pool[n_slots + 1] = tgt
+            n_slots += 2
+    return EdgeList(src=torch.from_numpy(src.astype(np.int32)).to(device),
+                    dst=torch.from_numpy(dst.astype(np.int32)).to(device),
+                    num_vertices=num_vertices)

@@ -787,3 +787,34 @@ def test_pk_and_cfree_on_the_card_equal_the_cpu(dev, name, overrides,
     assert torch.equal(on_card.edges.src.cpu(), on_cpu.edges.src)
     assert torch.equal(on_card.edges.dst.cpu(), on_cpu.edges.dst)
     assert on_card.stats == on_cpu.stats
+
+
+def test_analytics_on_the_card_equal_the_cpu(dev, monkeypatch):
+    """Every analytics function on a small PBA graph: the card's results
+    equal the CPU's (the assortativity to rel 1e-9, abs 1e-12), BFS levels
+    and clustering rows split into chunks of a few CSR entries included;
+    the degree count on the histogram kernel takes one launch."""
+    from repro_torch.core import analysis
+    from repro_torch.core.graph import EdgeList
+    cpu = api.generate(api.preset("paper_smoke"), device="cpu").edges
+    card = EdgeList(cpu.src.to(dev), cpu.dst.to(dev), cpu.num_vertices)
+    before = ops.launch_counts()["histogram"]
+    counts = analysis.degree_counts_device(card, use_kernel=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["histogram"] == before + 1
+    assert torch.equal(counts.cpu(), analysis.degree_counts(cpu))
+    assert torch.equal(analysis.degree_counts(card).cpu(),
+                       analysis.degree_counts(cpu))
+    for chunk in (analysis.EXPAND_CHUNK, 7):
+        monkeypatch.setattr(analysis, "EXPAND_CHUNK", chunk)
+        for fn, args in ((analysis.sampled_path_stats, (16,)),
+                         (analysis.sampled_clustering_coefficient, (200,))):
+            assert fn(card, *args) == fn(cpu, *args)
+    for fn, args in ((analysis.community_contrast, (16,)),
+                     (analysis.self_similarity_score, (4,)),
+                     (analysis.rich_club_coefficient, (10,))):
+        assert fn(card, *args) == fn(cpu, *args)
+    assert np.array_equal(analysis.block_density(card, 16),
+                          analysis.block_density(cpu, 16))
+    assert analysis.degree_assortativity(card) == pytest.approx(
+        analysis.degree_assortativity(cpu), rel=1e-9, abs=1e-12)

@@ -17,7 +17,9 @@ result on the host path and compare bit for bit:
     shards (the one-device shard set; resumed on the group, and by the
     JAX package);
   * generate_pk on flat(3), generate_cfree with P = 2 D, CFreeStream on
-    flat(2) with an odd slab, and the refusals.
+    flat(2) with an odd slab, and the refusals;
+  * the sharded analytics (degree counts, edge count, max degree) of each
+    PBA run's shares, every rank against the host path's degree counts.
 """
 import dataclasses
 import datetime
@@ -31,6 +33,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch import api as tapi
+from repro_torch.core import distributed_analysis as tdist
 from repro_torch.core import factions as tfactions
 from repro_torch.core import pba as tpba
 from repro_torch.core import pk as tpk
@@ -118,6 +121,12 @@ def _pba(topo, gen, rounds, res):
     res[key + "_src"] = edges.src.numpy()
     res[key + "_dst"] = edges.dst.numpy()
     res[key + "_stats"] = _stats(st)
+    res[key + "_degrees"] = tdist.degree_counts_sharded(
+        edges, topology=topo).numpy()
+    res[key + "_edge_count"] = np.array(
+        tdist.edge_count_sharded(edges, topology=topo))
+    res[key + "_max_degree"] = np.array(
+        tdist.max_degree_sharded(edges, topology=topo))
 
 
 def _job_world8(rank, world, out):
@@ -357,6 +366,26 @@ def test_pba_over_ranks_matches_the_host_path(case, rounds, world8, world2):
         assert st["exchange_rounds"] == int(want.exchange_rounds)
     if rounds:
         assert int(want.exchange_rounds) > 1
+
+
+@pytest.mark.parametrize("rounds", [None, 4], ids=["single", "rounds4"])
+@pytest.mark.parametrize("case", [
+    ("generate_pba", "flat_1x8"), ("generate_pba_sharded", "pods_2x4"),
+    ("generate_pba_sharded", "pods_4x2"),
+    ("generate_pba_sharded", "flat_1x2")], ids=lambda c: "-".join(c))
+def test_sharded_analytics_equal_the_host_path(case, rounds, world8, world2):
+    """Each rank counts its own rows; every rank gets the JAX package's
+    degree_counts of the host path's edges, their valid count and max."""
+    from repro.core import graph as jgraph
+    gen, label = case
+    ranks = world2 if label == "flat_1x2" else world8
+    edges, _ = _jax_pba_host(rounds)
+    want = np.asarray(jgraph.degree_counts(edges))
+    for r in ranks:
+        key = f"{gen}_{label}_{rounds}"
+        np.testing.assert_array_equal(r[key + "_degrees"], want)
+        assert int(r[key + "_edge_count"]) == int(edges.num_valid())
+        assert int(r[key + "_max_degree"]) == want.max()
 
 
 def test_sharded_plans_read_the_world_size(world8):
