@@ -107,7 +107,27 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     (degree_counts_sharded, edge_count_sharded, max_degree_sharded) of a
     flat(1) run must equal phase 4's degree counts, the run's emitted
     edges and their max. The group is destroyed at the end of the phase.
- 8. the seconds from the start to each phase's end; the kernels line
+ 8. lm_serve: the LM serving path (repro_torch.configs / models / serve),
+    which launches none of the port's kernels (their counts must stay 0).
+    Every case of src/repro_torch/reference_lm.json (made by the JAX
+    package on the CPU in float32: the four GQA archs' reduced() configs
+    and qwen1.5-0.5b at full width with its depth cut to 2 layers, params
+    from convert.numpy_params(model, seed=0)) runs on the card in float32:
+    the Engine's completions token for token, and the last-position
+    logits of a prefill and three decode steps within rtol 1e-3, atol
+    1e-3 (at the file's top-8 ids, their sum, the top-1 id where its
+    margin is clear). qwen1.5-0.5b at full config (24 layers, float32,
+    launch/serve.py's workload) on the card against the port on the
+    host's CPU, same tolerance. Then the proposed serving cells at full
+    width in bf16, weights from the port's seeded init on the card:
+    qwen1.5-0.5b (count_params 463,987,712) and phi3-medium-14b, each a
+    prefill of 8 x 512 tokens, 128 teacher-forced decode steps at batch 8
+    (each step's logits within relative L2 2^-2 of the teacher-forced
+    pass at the same position), and (qwen) the Engine on 16 requests over
+    8 slots; each with its wall, peak device memory and a profiled run's
+    device idle share; then the same contract in float32 at full width
+    (batch 2, 64-token prompt, 16 steps, rtol = atol = 2e-3 per logit).
+ 9. the seconds from the start to each phase's end; the kernels line
     (with each kernel's launches in the distributed runs; histogram's
     also in the analytics runs), then
     {"ok": true, "device": {...}} as the last line.
@@ -140,6 +160,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # float pipes) runs faster. The operation bound of the PK and
 # communication-free kernels is their integer work over this rate.
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores (data sheet)
+F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 PROCS = 64                  # the paper's 1000 ranks, cut to fit one card
 VERTICES_PER_PROC = 1_000_000   # the paper's per-rank scale, not cut
 PAIR_CAPACITY = 262144      # pinned: C_r = 32768 per pair at R=8
@@ -2038,6 +2060,507 @@ def distributed_shards(torch, api, ops, edge_digest, dev) -> dict:
     return launches
 
 
+# --- phase 8: the LM serving path --------------------------------------------------
+
+LM_ARCHS = ("qwen1.5-0.5b", "stablelm-1.6b", "phi3-medium-14b",
+            "phi-3-vision-4.2b")
+LM_SEED = 0                 # convert.numpy_params' seed and the workloads'
+LM_TOP = 8                  # a logits row is kept as its top 8 ids and values
+LM_DECODE_STEPS = 3         # decode steps after the logit record's prefill
+LM_LOGIT_BATCH = (2, 20)    # the logit record's batch and prompt length
+# The reduced entries' Engine workload: 6 requests of prompts 16-24 tokens
+# long on 2 slots, 8 new tokens each; the full-width entry's is
+# launch/serve.py's default (6 requests, 2 slots, 24-token prompts, 16 new).
+LM_REDUCED_WORKLOAD = {"requests": 6, "slots": 2, "prompt_lens": [16, 24],
+                       "new_tokens": 8}
+LM_FULL_WORKLOAD = {"requests": 6, "slots": 2, "prompt_lens": [24, 24],
+                    "new_tokens": 16}
+# qwen1.5-0.5b at full width (d_model 1024, 16 heads, d_ff 2816, vocab
+# 151,936) with its 24 layers cut to 2 for the JAX package's reference,
+# which is made on a CPU; phase 8 runs all 24 against the port on the host.
+LM_FULL_LAYERS = 2
+LM_CARD_RTOL = 1e-3         # float32 logits on the card against a reference
+LM_CARD_ATOL = 1e-3
+LM_MARGIN = 1e-3            # a token chosen by a smaller top-2 margin, and the
+                            # rest of its completion, is not compared
+# The proposed serving cell: batch 8, 512-token prompts, 128 new tokens;
+# the Engine serves 16 such requests over 8 slots.
+LM_CELL = {"batch": 8, "prompt": 512, "new_tokens": 128, "requests": 16}
+LM_CELL_ARCHS = ("qwen1.5-0.5b", "phi3-medium-14b")
+LM_ENGINE_ARCHS = ("qwen1.5-0.5b",)     # phi3's Engine run would add ~40 s
+QWEN_PARAMS = 463_987_712   # count_params() of qwen1.5-0.5b (JAX package)
+# Teacher forcing at full width: each decode step's logits (and the
+# prefill's last) against the teacher-forced pass's at the same position.
+# bf16: relative L2 error at most 2^-2. The two paths' products run
+# through other GEMM kernels (M = 8 against M = 8 x 640), so their bf16
+# roundings differ, and the reference's init (a stacked leaf at
+# 1/sqrt(depth)) makes scores O(1e2) and softmaxes near one-hot, which
+# carries one rounding through the stack; logits of unrelated positions
+# differ by a relative L2 of ~1.4 (reported), which a cache written at the
+# wrong position would give. float32 (a short run, weights drawn in
+# float32): tests/test_serve.py's rtol = atol = 2e-3 per element.
+LM_BF16_REL_L2 = 2.0 ** -2
+LM_F32_TOL = 2e-3
+LM_F32_TEACHER = {"batch": 2, "prompt": 64, "new_tokens": 16}
+
+
+def lm_config(get_config, arch: str, width: str):
+    """The config of a reference case: ``reduced()``, or ``full_width``
+    (the full config with its depth cut to LM_FULL_LAYERS)."""
+    cfg = get_config(arch)
+    if width == "reduced":
+        return cfg.reduced()
+    return dataclasses.replace(cfg, num_layers=LM_FULL_LAYERS)
+
+
+def lm_requests(np, vocab: int, workload: dict, seed: int) -> list:
+    """(rid, prompt, max_new_tokens) of a workload, drawn from
+    ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = workload["prompt_lens"]
+    lens = rng.integers(lo, hi + 1, workload["requests"])
+    return [(i, rng.integers(0, vocab, int(n)).astype(np.int32),
+             workload["new_tokens"]) for i, n in enumerate(lens)]
+
+
+def lm_max_len(workload: dict) -> int:
+    return workload["prompt_lens"][1] + workload["new_tokens"]
+
+
+def lm_logit_inputs(np, cfg, seed: int):
+    """The logit record's tokens, (b, s + LM_DECODE_STEPS): a prompt and the
+    tokens each decode step feeds; and image embeddings (b, num_patches,
+    d_model) float32 for a vision config, else None."""
+    rng = np.random.default_rng(seed + 1)
+    b, s = LM_LOGIT_BATCH
+    tokens = rng.integers(0, cfg.vocab_size, (b, s + LM_DECODE_STEPS))
+    image = rng.standard_normal((b, cfg.num_patches, cfg.d_model),
+                                dtype=np.float32) if cfg.num_patches else None
+    return tokens, image
+
+
+def lm_waves(requests: list, slots: int, max_len: int) -> list:
+    """The Engine's waves: for each, its (rid, slot) pairs (idle slots,
+    which replay slot 0, left out) and the tokens it decodes."""
+    plen = max(len(p) for _, p, _ in requests)
+    waves = []
+    for w in range(0, len(requests), slots):
+        wave = requests[w:w + slots]
+        steps = min(max(n for _, _, n in wave), max_len - plen)
+        waves.append(([(rid, i) for i, (rid, _, _) in enumerate(wave)],
+                      steps))
+    return waves
+
+
+def lm_token_margins(np, requests, slots, max_len, call_margins) -> dict:
+    """rid -> the top-2 margin of the logits that chose each of its tokens,
+    from the Engine's step calls' margins in call order (a wave: its
+    prefill, then one decode per token; the last decode's is unused)."""
+    out, call = {}, 0
+    for pairs, steps in lm_waves(requests, slots, max_len):
+        for rid, slot in pairs:
+            out[rid] = [float(call_margins[call + t][slot])
+                        for t in range(steps)]
+        call += steps + 1
+    return out
+
+
+def lm_step_record(np, logits) -> dict:
+    """One step's last-position logits (b, V) float: each row's top
+    LM_TOP ids and values, the float64 sum, the least top-2 margin."""
+    logits = np.asarray(logits, np.float32)
+    ids = np.argsort(-logits, axis=-1, kind="stable")[:, :LM_TOP]
+    vals = np.take_along_axis(logits, ids, axis=-1)
+    return {"top_ids": ids.tolist(), "top_values": vals.tolist(),
+            "sum": float(logits.astype(np.float64).sum()),
+            "top2_margin": float((vals[:, 0] - vals[:, 1]).min())}
+
+
+def lm_record(np, completions, margins: dict, step_logits) -> dict:
+    """A reference case: the Engine's completions ([rid, tokens] in finish
+    order), each token's top-2 margin, and the logit record's steps."""
+    return {"completions": [[int(rid), [int(t) for t in toks]]
+                            for rid, toks in completions],
+            "token_margins": {str(rid): m for rid, m in margins.items()},
+            "logits": [lm_step_record(np, lg) for lg in step_logits]}
+
+
+def lm_compared_tokens(margins: list) -> int:
+    """How many leading tokens of a completion are compared: those before
+    the first token chosen by a top-2 margin under LM_MARGIN."""
+    for t, m in enumerate(margins):
+        if m < LM_MARGIN:
+            return t
+    return len(margins)
+
+
+def lm_mismatches(np, completions, step_logits, want: dict, rtol: float,
+                  atol: float) -> list:
+    """Where a port run (completions, full last-position logits per step)
+    differs from a record: the finish order; each completion's tokens
+    before its first small margin (the record's); per step, the logits at
+    the record's top ids within ``rtol``/``atol``, their sum within
+    sqrt(n) times that, and the top-1 id where the record's margin exceeds
+    twice the tolerance."""
+    bad = []
+    got = {int(rid): [int(t) for t in toks] for rid, toks in completions}
+    if [int(rid) for rid, _ in completions] != \
+            [rid for rid, _ in want["completions"]]:
+        bad.append("finish order")
+    for rid, toks in want["completions"]:
+        n = lm_compared_tokens(want["token_margins"][str(rid)])
+        if got.get(rid, [])[:n] != toks[:n] or \
+                len(got.get(rid, [])) != len(toks):
+            bad.append(f"completion {rid}")
+    for i, (lg, w) in enumerate(zip(step_logits, want["logits"])):
+        lg = np.asarray(lg, np.float32)
+        ids = np.asarray(w["top_ids"])
+        vals = np.take_along_axis(lg, ids, axis=-1)
+        want_vals = np.asarray(w["top_values"], np.float32)
+        if not np.allclose(vals, want_vals, rtol=rtol, atol=atol):
+            bad.append(f"step {i} top values")
+        clear = want_vals[:, 0] - want_vals[:, 1] > \
+            2 * (atol + rtol * np.abs(want_vals[:, 0]))
+        if (lg.argmax(axis=-1) != ids[:, 0])[clear].any():
+            bad.append(f"step {i} top id")
+        # the sum of n values each off by up to atol + rtol |x| in
+        # independent directions: sqrt(n) (atol + rtol rms(x))
+        total = float(lg.astype(np.float64).sum())
+        rms = float(np.sqrt(np.mean(np.square(lg, dtype=np.float64))))
+        if abs(total - w["sum"]) > math.sqrt(lg.size) * (atol + rtol * rms):
+            bad.append(f"step {i} sum")
+    if len(step_logits) != len(want["logits"]):
+        bad.append("steps")
+    return bad
+
+
+def lm_port_outputs(torch, np, model, workload: dict, seed: int):
+    """The port's side of a reference case on ``model``'s device: the
+    Engine's completions on the workload with each token's top-2 margin,
+    and the logit record's last-position logits (prefill, then
+    LM_DECODE_STEPS decode steps), as float32 numpy."""
+    from repro_torch.serve import Engine, Request
+    cfg, dev = model.cfg, model.device
+    reqs = lm_requests(np, cfg.vocab_size, workload, seed)
+    max_len = lm_max_len(workload)
+    engine = Engine(model, batch_size=workload["slots"], max_len=max_len,
+                    device=dev)
+    calls = []
+    prefill, decode = engine._prefill, engine._decode
+
+    def margin(logits):
+        top = logits[:, -1].float().topk(2, dim=-1).values
+        calls.append(top[:, 0] - top[:, 1])
+        return logits
+
+    engine._prefill = lambda batch: (lambda lg, c: (margin(lg), c))(
+        *prefill(batch))
+    engine._decode = lambda tok, caches, pos: (lambda lg, c: (
+        margin(lg), c))(*decode(tok, caches, pos))
+    done = engine.run([Request(rid, p, n) for rid, p, n in reqs])
+    completions = [(c.rid, c.tokens) for c in done]
+    margins = lm_token_margins(np, reqs, workload["slots"], max_len,
+                               [m.cpu().numpy() for m in calls])
+
+    tokens, image = lm_logit_inputs(np, cfg, seed)
+    s = LM_LOGIT_BATCH[1]
+    toks = torch.from_numpy(tokens).to(dev)
+    batch = {"tokens": toks[:, :s]}
+    if image is not None:
+        batch["image_embeds"] = torch.from_numpy(image).to(dev)
+    logits, caches = model.prefill(batch, max_len=s + LM_DECODE_STEPS)
+    steps = [logits[:, -1]]
+    for i in range(LM_DECODE_STEPS):
+        logits, caches = model.decode_step(toks[:, s + i:s + i + 1], caches,
+                                           s + i)
+        steps.append(logits[:, -1])
+    return completions, margins, [x.float().cpu().numpy() for x in steps]
+
+
+def lm_reference_checks(torch, np, dev) -> None:
+    """Every case of reference_lm.json (the JAX package's, float32) on the
+    card in float32, and qwen1.5-0.5b's full 24 layers on the card against
+    the port on the host's CPU (launch/serve.py's workload)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the float32 checks "
+                             "need them off (PyTorch's default)")
+    with open(os.path.join(HERE, "src", "repro_torch",
+                           "reference_lm.json")) as f:
+        ref = json.load(f)
+    for name, case in sorted(ref["cases"].items()):
+        t0 = time.perf_counter()
+        cfg = lm_config(get_config, case["arch"], case["width"])
+        model = build_model(cfg, compute_dtype=torch.float32, device=dev)
+        convert.params_from_numpy(model, convert.numpy_params(model,
+                                                              LM_SEED))
+        comps, _, logits = lm_port_outputs(torch, np, model,
+                                           case["workload"], LM_SEED)
+        bad = lm_mismatches(np, comps, logits, case, LM_CARD_RTOL,
+                            LM_CARD_ATOL)
+        emit({"phase": "lm_reference", "case": name, "arch": case["arch"],
+              "width": case["width"], "num_layers": cfg.num_layers,
+              "params": model.count_params(), "rtol": LM_CARD_RTOL,
+              "atol": LM_CARD_ATOL, "mismatches": bad,
+              "compared_tokens": {
+                  rid: lm_compared_tokens(m)
+                  for rid, m in case["token_margins"].items()},
+              "least_token_margin": min(min(m) for m in
+                                        case["token_margins"].values()),
+              "wall_s": time.perf_counter() - t0})
+        if bad:
+            raise AssertionError(f"{name}: the card's serving path differs "
+                                 f"from the JAX package's: {bad}")
+        del model
+    # All 24 layers at full width: the card against the port on the CPU.
+    t0 = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    host = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+    tree = convert.numpy_params(host, LM_SEED)
+    convert.params_from_numpy(host, tree)
+    card = convert.params_from_numpy(
+        build_model(cfg, compute_dtype=torch.float32, device=dev), tree)
+    del tree
+    t_host = time.perf_counter()
+    want = lm_record(np, *lm_port_outputs(torch, np, host, LM_FULL_WORKLOAD,
+                                          LM_SEED))
+    t_card = time.perf_counter()
+    comps, _, logits = lm_port_outputs(torch, np, card, LM_FULL_WORKLOAD,
+                                       LM_SEED)
+    bad = lm_mismatches(np, comps, logits, want, LM_CARD_RTOL, LM_CARD_ATOL)
+    emit({"phase": "lm_reference", "case": "qwen1.5-0.5b full config",
+          "reference": "the port on the host CPU, float32",
+          "num_layers": cfg.num_layers, "params": card.count_params(),
+          "rtol": LM_CARD_RTOL, "atol": LM_CARD_ATOL, "mismatches": bad,
+          "least_token_margin": min(min(m) for m in
+                                    want["token_margins"].values()),
+          "completions": want["completions"][:2],
+          "setup_s": t_host - t0, "host_s": t_card - t_host,
+          "card_s": time.perf_counter() - t_card})
+    if bad:
+        raise AssertionError(f"qwen1.5-0.5b at full config: the card "
+                             f"differs from the CPU: {bad}")
+
+
+def lm_cell(torch, np, dev, arch: str) -> dict:
+    """One proposed serving cell at full width in bf16, weights from the
+    port's own init (a torch.Generator on the card seeded LM_SEED):
+    prefill of LM_CELL's batch, its decode steps teacher-forced (each
+    step's logits against the teacher-forced pass at the same position,
+    LM_BF16_REL_L2), then (LM_ENGINE_ARCHS) the Engine on LM_CELL's
+    requests; each with its
+    wall, peak device memory and a profiled run's idle share. Then the
+    teacher forcing again in float32 (teacher_forcing_f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, Request
+
+    b, s, n = LM_CELL["batch"], LM_CELL["prompt"], LM_CELL["new_tokens"]
+    row = {"phase": "lm_serve", "arch": arch, "dtype": "bfloat16", **LM_CELL}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(get_config(arch), device=dev).init(
+        torch.Generator(dev).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    row["init_s"] = time.perf_counter() - t0
+    row["params"] = model.count_params()
+    row["params_held"] = model.count_params(model.tree)
+    row["weight_bytes"] = sum(t.numel() * t.element_size()
+                              for t in model.parameters())
+    if row["params_held"] != row["params"] or (
+            arch == "qwen1.5-0.5b" and row["params"] != QWEN_PARAMS):
+        raise AssertionError(f"{arch}: {row['params_held']} parameters held,"
+                             f" {row['params']} specified")
+    rng = np.random.default_rng(LM_SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (b, s + n))).to(dev)
+    prompt = {"tokens": tokens[:, :s]}
+
+    def measured(label, fn, profile_fn_=None):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        row[label] = {"wall_s": time.perf_counter() - t,
+                      "peak_allocated_bytes":
+                      torch.cuda.max_memory_allocated(dev)}
+        if profile_fn_ is not None:
+            prof = profile_fn(torch, profile_fn_)
+            row[label]["idle_share"] = prof["device_idle_share_of_wall"]
+            row[label]["profiled_wall_s"] = prof["wall_s"]
+            row[label]["device_busy_s"] = prof["kernels_busy_s"]
+            row[label]["top_device_ops"] = prof["top_device_ops"][:6]
+        return out
+
+    # prefill: CUDA-event median, then one measured and profiled run
+    row["prefill_ms"] = time_ms(torch, lambda: model.prefill(
+        prompt, max_len=s + n), reps=5, warmup=1)
+    logits0, caches = measured("prefill", lambda: model.prefill(
+        prompt, max_len=s + n), lambda: model.prefill(prompt, max_len=s + n))
+
+    def decode_all():
+        out = []
+        c = caches
+        for i in range(n):
+            lg, c = model.decode_step(tokens[:, s + i:s + i + 1], c, s + i)
+            out.append(lg[:, 0])
+        return out
+
+    def decode_8():
+        c = caches
+        for i in range(8):
+            _, c = model.decode_step(tokens[:, s + i:s + i + 1], c, s + i)
+
+    decoded = measured("decode", decode_all, decode_8)
+    row["decode"]["profiled_steps"] = 8
+    row["bounds"] = lm_bounds(model, b, s, s + n)
+    row["decode_ms_per_step"] = row["decode"]["wall_s"] / n * 1e3
+    row["decode_tokens_per_s"] = b * n / row["decode"]["wall_s"]
+    # the serving contract: decode = the teacher-forced pass
+    full = measured("teacher_forced", lambda: model({"tokens": tokens}))
+    row["teacher_forcing"] = {
+        **teacher_gap(torch, full, s, logits0, decoded),
+        "tolerance_rel_l2": LM_BF16_REL_L2}
+    del full, decoded, logits0, caches
+    # the Engine (profiled on one wave of 16 new tokens)
+    if arch in LM_ENGINE_ARCHS:
+        reqs = [Request(i, rng.integers(0, model.cfg.vocab_size, s).astype(
+            np.int32), n) for i in range(LM_CELL["requests"])]
+        engine = Engine(model, batch_size=b, max_len=s + n, device=dev)
+        short = [Request(r.rid, r.prompt, 16) for r in reqs[:b]]
+        done = measured("engine", lambda: engine.run(reqs),
+                        lambda: engine.run(short))
+        emitted = sum(len(c.tokens) for c in done)
+        row["engine"]["tokens"] = emitted
+        row["engine"]["tokens_per_s"] = emitted / row["engine"]["wall_s"]
+        row["engine"]["profiled"] = \
+            f"{b} requests of 16 new tokens (one wave)"
+        del engine
+        if sorted(c.rid for c in done) != list(range(LM_CELL["requests"])) \
+                or emitted != LM_CELL["requests"] * n:
+            raise AssertionError(f"{arch}: the Engine served {emitted} "
+                                 f"tokens to {len(done)} requests")
+    del model
+    torch.cuda.empty_cache()
+    row["teacher_forcing_float32"] = teacher_forcing_f32(torch, np, dev,
+                                                         arch)
+    emit(row)
+    if row["teacher_forcing"]["rel_l2_max"] > LM_BF16_REL_L2 or \
+            not row["teacher_forcing_float32"]["within_tolerance"]:
+        raise AssertionError(f"{arch}: decode differs from the teacher-"
+                             f"forced pass: {row['teacher_forcing']}, "
+                             f"{row['teacher_forcing_float32']}")
+    return row
+
+
+def lm_bounds(model, b: int, s: int, max_len: int) -> dict:
+    """The least times of a serving cell's steps on an H100, from its
+    shapes. A decode step reads every weight and the whole KV cache once
+    (bytes over the memory rate). A prefill of (b, s) tokens multiplies
+    each weight outside the embedding table by each token (2 flops, bf16
+    tensor cores), and takes every score and PV product of its (s, s)
+    attention in float32 (the plain path computes the masked half too),
+    plus the last position's logits."""
+    cfg = model.cfg
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in model.parameters())
+    kv_bytes = sum(math.prod(x.shape) * x.dtype.itemsize for x in
+                   _tree_leaves(model.cache_structs(b, max_len)))
+    table = cfg.vocab_size * cfg.d_model
+    matmul = 2 * (model.count_params() - table *
+                  (1 if cfg.tie_embeddings else 2)) * b * s + 2 * table * b
+    scores = cfg.num_layers * b * model.heads * s * s * cfg.head_dim * 4
+    return {"decode_step_bytes": weight_bytes + kv_bytes,
+            "decode_step_ms": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S
+            * 1e3,
+            "prefill_bf16_flops": matmul, "prefill_f32_flops": scores,
+            "prefill_ms": (matmul / BF16_FLOP_PER_S +
+                           scores / F32_FLOP_PER_S) * 1e3}
+
+
+def _tree_leaves(tree) -> list:
+    from repro_torch.models.layers import tree_leaves
+    return tree_leaves(tree)
+
+
+def teacher_gap(torch, full, s: int, first, decoded) -> dict:
+    """The relative L2 gap of the prefill's last logits (``first``) and
+    each decode step's (``decoded[i]``, fed token s + i) to the teacher-
+    forced logits ``full`` (B, S, V) at the same position; beside it the
+    gap between two unrelated positions' logits."""
+    def rel(got, want):
+        return float((got.float() - want.float()).norm() /
+                     want.float().norm())
+    pairs = [(first[:, 0], full[:, s - 1])] + [
+        (d, full[:, s + i]) for i, d in enumerate(decoded)]
+    gaps = [rel(g, w) for g, w in pairs]
+    if not all(math.isfinite(x) for x in gaps):
+        raise AssertionError("non-finite logits")
+    return {"rel_l2_max": max(gaps), "rel_l2_mean": statistics.mean(gaps),
+            "max_abs_diff": max(float((g.float() - w.float()).abs().max())
+                                for g, w in pairs),
+            "max_abs_logit": float(full[:, s - 1:].float().abs().max()),
+            "unrelated_positions_rel_l2": rel(full[:, s], full[:, s + 1])}
+
+
+def teacher_forcing_f32(torch, np, dev, arch: str) -> dict:
+    """The serving contract in float32 at full width: LM_F32_TEACHER's
+    prompt prefilled, its decode steps teacher-forced, each step's logits
+    within LM_F32_TOL (rtol and atol) of the teacher-forced pass."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    b, s, n = (LM_F32_TEACHER[k] for k in ("batch", "prompt", "new_tokens"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(get_config(arch), compute_dtype=torch.float32,
+                        device=dev).init(
+        torch.Generator(dev).manual_seed(LM_SEED))
+    rng = np.random.default_rng(LM_SEED + 1)
+    tokens = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (b, s + n))).to(dev)
+    first, caches = model.prefill({"tokens": tokens[:, :s]}, max_len=s + n)
+    decoded = []
+    for i in range(n):
+        lg, caches = model.decode_step(tokens[:, s + i:s + i + 1], caches,
+                                       s + i)
+        decoded.append(lg[:, 0])
+    full = model({"tokens": tokens})
+    close = all(bool(torch.allclose(g, full[:, s + i], rtol=LM_F32_TOL,
+                                    atol=LM_F32_TOL))
+                for i, g in enumerate(decoded)) and bool(torch.allclose(
+                    first[:, 0], full[:, s - 1], rtol=LM_F32_TOL,
+                    atol=LM_F32_TOL))
+    out = {**LM_F32_TEACHER, **teacher_gap(torch, full, s, first, decoded),
+           "tolerance": LM_F32_TOL, "within_tolerance": close,
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in model.parameters()),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "wall_s": time.perf_counter() - t0}
+    del model, caches, full, decoded
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_phase(torch, np, dev) -> dict:
+    """Phase 8: the reference checks, then each serving cell; no kernel of
+    the port is on this path (the counts are read to show it)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    lm_reference_checks(torch, np, dev)
+    cells = {arch: lm_cell(torch, np, dev, arch) for arch in LM_CELL_ARCHS}
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the LM path launched a graph kernel: "
+                             f"{launches}")
+    return cells
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2265,9 +2788,13 @@ def main() -> int:
         stream_digest=stream_digest, host_peak=main["peak_allocated_bytes"],
         degrees=degrees)
     phase_done("7_distributed")
+
+    # 8. the LM serving path: no kernel of the port lies on it
+    lm_serve_phase(torch, np, dev)
+    phase_done("8_lm_serve")
     emit({"phase": "phase_ends", "seconds_from_start": phase_ends})
 
-    # 8. the kernels line and the last line
+    # 9. the kernels line and the last line
     table = {
         "resolve_roots": ("src/repro/kernels/edge_resolve.py:87",
                           "src/repro_torch/kernels/csrc/resolve.cu",

@@ -1,21 +1,26 @@
-"""Carry generation state across from the JAX package's objects.
+"""Carry state across from the JAX package's objects.
 
-This system has no weights: its state is the faction table, the PK seed
-graph and the configs. These helpers rebuild the port's objects from the reference's
-numpy arrays and dataclass fields (plain Python values), without importing
-the reference, so a test can feed both packages the same state.
+The generators have no weights: their state is the faction table, the PK
+seed graph and the configs. These helpers rebuild the port's objects from
+the reference's numpy arrays and dataclass fields (plain Python values),
+without importing the reference, so a test can feed both packages the same
+state. The LM side's weights are random, drawn from a seed:
+:func:`numpy_params` draws them with numpy in the JAX package's tree
+layout, so both packages can load the same tree.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.cfree import CFreeConfig
 from repro_torch.core.factions import FactionSpec, FactionTable
 from repro_torch.core.pba import PBAConfig
 from repro_torch.core.pk import PKConfig
 from repro_torch.core.spec import GraphSpec, SeedGraph
+from repro_torch.models.layers import init_scale, tree_map
 from repro_torch.runtime.topology import Topology
 
 # Dataclasses a spec (or spec_digest) may nest, by class name (the names
@@ -73,3 +78,31 @@ def spec_from_fields(fields: dict) -> GraphSpec:
     """A GraphSpec from the reference GraphSpec's field values (nested
     FactionSpec / FactionTable / SeedGraph / Topology values included)."""
     return GraphSpec(**{k: _port_value(v) for k, v in fields.items()})
+
+
+def numpy_params(model, seed: int) -> dict:
+    """The parameters of ``model`` (a ``repro_torch.models.Model``) drawn
+    with ``np.random.default_rng(seed)``: each leaf of the spec tree in
+    ``jax.tree_util.tree_flatten``'s order (dict keys sorted, lists in
+    order) by its init kind (``models.layers.init_scale``), as float32
+    numpy arrays in the JAX package's nested layout."""
+    rng = np.random.default_rng(seed)
+
+    def draw(_, spec):
+        if spec.init == "zeros":
+            return np.zeros(spec.shape, np.float32)
+        if spec.init == "ones":
+            return np.ones(spec.shape, np.float32)
+        out = rng.standard_normal(spec.shape, dtype=np.float32)
+        out *= np.float32(init_scale(spec))
+        return out
+
+    return tree_map(draw, model.param_specs())
+
+
+def params_from_numpy(model, tree: dict):
+    """Load a numpy tree in the JAX layout (:func:`numpy_params`) into
+    ``model``, cast per ``Model.param_dtype`` on its device; returns the
+    model."""
+    return model.set_params(tree_map(
+        lambda _, a: torch.from_numpy(np.asarray(a)), tree))

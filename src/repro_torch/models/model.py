@@ -1,0 +1,255 @@
+"""Top-level model API: build -> specs/init -> prefill / decode_step.
+
+The port of the JAX package's ``models/model.py`` for the dense and vision
+GQA families. ``build_model(cfg, tp)`` resolves the same TP-divisibility
+padding: query heads pad up to a multiple of the model-axis size; KV heads
+smaller than the axis stay unsharded (replicated); Mamba-2's inner dim
+pads so SSD heads split evenly; the vocab pads to a multiple of ``tp``.
+Only ``tp == 1`` holds parameters here: sharding is ROADMAP item 15d.
+
+Parameters live in the module (``Model.params``, the JAX package's nested
+layout) on the model's device. The reference keeps float32 parameters and
+casts each to the compute dtype at use; casting gives the same values
+every time, so the port stores every weight in the compute dtype once,
+when it is loaded (phi3-medium-14b: 29.3 GB in bf16, 58.6 GB in float32).
+The norms' scales and biases stay float32: the reference computes the
+norms in float32 with them uncast.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import (TensorStruct, apply_norm, embed_specs,
+                                       embed_tokens, init_tree, logits_out,
+                                       norm_specs, tree_leaves, tree_map)
+from repro_torch.runtime import spmd
+
+#: Dicts of the tree whose leaves stay float32 (see the module docstring).
+NORM_KEYS = ("norm1", "norm2", "final_norm")
+
+
+def _pad_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+class ParamTree(nn.Module):
+    """A nested dict / list of tensors as a module tree, so ``Model``'s
+    parameters show in ``named_parameters`` and ``state_dict`` (names like
+    ``params.stack.groups.0.mixer.wq``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            elif isinstance(value, list):
+                self.add_module(key, nn.ModuleList(
+                    ParamTree(v) for v in value))
+            else:
+                self.register_parameter(key, value)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ArchConfig, raw_cfg: ArchConfig, heads: int,
+                 kv_heads: int, kv_sharded: bool, tp: int,
+                 compute_dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.cfg = cfg                  # possibly padded for TP
+        self.raw_cfg = raw_cfg          # the assigned config
+        self.heads = heads
+        self.kv_heads = kv_heads
+        self.kv_sharded = kv_sharded
+        self.tp = tp
+        self.compute_dtype = compute_dtype
+        self.device = device
+        self.tree: Optional[dict] = None    # nested dict of the Parameters
+        self.params: Optional[ParamTree] = None
+
+    # ---------------------------------------------------------- specs/init
+
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        specs: dict[str, Any] = {"embed": embed_specs(cfg)}
+        specs["stack"] = tf.stack_specs(cfg, self.heads, self.kv_heads)
+        specs["final_norm"] = norm_specs(cfg)
+        return specs
+
+    def count_params(self, params=None) -> int:
+        tree = params if params is not None else self.param_specs()
+        return sum(math.prod(x.shape) for x in tree_leaves(tree))
+
+    def param_dtype(self, path: tuple) -> torch.dtype:
+        """The stored dtype of the leaf at ``path``: float32 for the norms,
+        else the compute dtype."""
+        return torch.float32 if any(k in NORM_KEYS for k in path) \
+            else self.compute_dtype
+
+    def _require_single_device(self) -> None:
+        if self.tp != 1:
+            raise NotImplementedError(
+                f"tp={self.tp}: tensor-parallel sharding is not ported yet "
+                "(ROADMAP item 15d); build with tp=1")
+
+    def set_params(self, tree: dict) -> "Model":
+        """Hold ``tree`` (the JAX layout; tensors of any dtype and device)
+        as this model's parameters, each moved to the model's device and
+        stored in :meth:`param_dtype`. Shapes must match the specs."""
+        self._require_single_device()
+        specs = self.param_specs()
+        paths = tree_leaves(tree_map(lambda path, _: path, specs))
+        got = tree_leaves(tree_map(lambda path, _: path, tree))
+        if got != paths:
+            raise ValueError(f"parameter tree paths differ from the specs': "
+                             f"{sorted(set(got) ^ set(paths))[:4]}")
+
+        def place(path, t):
+            spec = _at(specs, path)
+            if tuple(t.shape) != spec.shape:
+                raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                                 f"{tuple(t.shape)}, spec {spec.shape}")
+            return nn.Parameter(t.to(self.device, self.param_dtype(path)),
+                                requires_grad=False)
+
+        self.tree = tree_map(place, tree)
+        self.params = ParamTree(self.tree)
+        return self
+
+    def init(self, generator: Optional[torch.Generator] = None) -> "Model":
+        """Draw every parameter by its spec's init kind from ``generator``
+        (a ``torch.Generator`` on the model's device; default: seeded 0),
+        leaf by leaf in the JAX tree's order, each cast to its stored dtype
+        as it is drawn."""
+        self._require_single_device()
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        self.set_params(init_tree(generator, self.param_specs(), self.device,
+                                  lambda path, _: self.param_dtype(path)))
+        return self
+
+    def _params(self) -> dict:
+        if self.tree is None:
+            raise RuntimeError("the model has no parameters: call init() "
+                               "or convert.params_from_numpy() first")
+        return self.tree
+
+    # ---------------------------------------------------------- forward
+
+    def _embed(self, batch):
+        cfg = self.cfg
+        x = embed_tokens(self._params()["embed"], batch["tokens"],
+                         self.compute_dtype)
+        if cfg.num_patches and "image_embeds" in batch:
+            img = batch["image_embeds"].to(self.compute_dtype)
+            npatch = img.shape[1]
+            x = torch.cat([img, x[:, npatch:]], dim=1)
+        return x
+
+    def _positions(self, n: int):
+        return torch.arange(n, dtype=torch.int32, device=self.device)
+
+    @torch.inference_mode()
+    def forward(self, batch) -> torch.Tensor:
+        """Teacher-forced logits at every position, (B, S, V), with no
+        cache (the pass the training loss takes)."""
+        params = self._params()
+        x = self._embed(batch)
+        x, _ = tf.apply_stack(self.cfg, params["stack"], x,
+                              self._positions(x.shape[1]), None, self.heads,
+                              self.kv_heads)
+        x = apply_norm(self.cfg, params["final_norm"], x)
+        return logits_out(self.cfg, params["embed"], x)
+
+    # ---------------------------------------------------------- serving
+
+    def cache_structs(self, batch: int, max_len: int) -> dict:
+        return tf.cache_structs(self.cfg, batch, max_len, self.compute_dtype,
+                                self.kv_heads)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return tree_map(
+            lambda _, s: torch.zeros(s.shape, dtype=s.dtype,
+                                     device=self.device),
+            self.cache_structs(batch, max_len))
+
+    @torch.inference_mode()
+    def prefill(self, batch, max_len: int = 0):
+        """Process the prompt; returns (last-position logits (B, 1, V),
+        caches of ``max_len`` positions filled with the prompt's K/V)."""
+        params = self._params()
+        b, s = batch["tokens"].shape
+        max_len = max_len or s
+        x = self._embed(batch)
+        caches = self.init_cache(b, max_len)
+        x, caches = tf.apply_stack(self.cfg, params["stack"], x,
+                                   self._positions(s), caches, self.heads,
+                                   self.kv_heads)
+        x = apply_norm(self.cfg, params["final_norm"], x[:, -1:])
+        return logits_out(self.cfg, params["embed"], x), caches
+
+    @torch.inference_mode()
+    def decode_step(self, tokens, caches, pos: int):
+        """One token step. tokens: (B, 1); pos: the current length. The
+        caches are written in place and returned."""
+        params = self._params()
+        x = embed_tokens(params["embed"], tokens, self.compute_dtype)
+        positions = torch.full((1,), pos, dtype=torch.int32,
+                               device=self.device)
+        x, caches = tf.apply_stack(self.cfg, params["stack"], x, positions,
+                                   caches, self.heads, self.kv_heads)
+        x = apply_norm(self.cfg, params["final_norm"], x)
+        return logits_out(self.cfg, params["embed"], x), caches
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def build_model(cfg: ArchConfig, tp: int = 1,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                device=None) -> Model:
+    """The model of ``cfg`` padded for ``tp``, without parameters (call
+    ``init`` or ``convert.params_from_numpy``). Runs on the card unless
+    ``device="cpu"``; raises ``NotImplementedError`` naming the ROADMAP
+    item for the families this slice does not port."""
+    missing = tf.unported_feature(cfg)
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {missing} {tf.UNPORTED}")
+    device = spmd.resolve_device(device)
+    raw = cfg
+    heads = cfg.num_heads
+    kv = cfg.num_kv_heads
+    changes: dict[str, Any] = {}
+    if heads and heads % tp:
+        heads = _pad_up(heads, tp)
+        changes["num_heads"] = heads
+    if kv > tp and kv % tp:
+        kv = _pad_up(kv, tp)
+    if kv and heads % kv:
+        # padded Q heads must stay an integer multiple of KV heads: pad kv
+        # up to the nearest divisor of the padded head count.
+        kv = next(k for k in range(kv, heads + 1) if heads % k == 0)
+    if kv != cfg.num_kv_heads:
+        changes["num_kv_heads"] = kv
+    kv_sharded = kv > 0 and kv % tp == 0
+    if cfg.ssm_state:
+        di = cfg.ssm_d_inner or cfg.ssm_expand * cfg.d_model
+        nh = di // cfg.ssm_headdim
+        if nh % tp:
+            di = _pad_up(nh, tp) * cfg.ssm_headdim
+            changes["ssm_d_inner"] = di
+    if cfg.vocab_size % tp:
+        changes["vocab_size"] = _pad_up(cfg.vocab_size, tp)
+    if changes:
+        cfg = dataclasses.replace(cfg, **changes)
+    return Model(cfg=cfg, raw_cfg=raw, heads=heads, kv_heads=max(kv, 1),
+                 kv_sharded=kv_sharded, tp=tp, compute_dtype=compute_dtype,
+                 device=device)

@@ -1,0 +1,163 @@
+"""Decoder stack assembly: layer pattern -> stacked parameter groups.
+
+The port of the JAX package's ``models/transformer.py``. Layers are grouped
+by the arch's ``layer_pattern`` period p: ``groups[pos]`` holds the
+``L // p`` layers of pattern position ``pos`` stacked on a leading axis,
+``rem`` the ``L % p`` remainder, unstacked; caches have the same layout.
+The reference scans the groups with ``lax.scan``; here a Python loop walks
+the stack, each layer reading views of its slice of the stacked params and
+caches (so cache writes land in the stacked buffers, in place).
+
+Every layer = pre-norm mixer (attention) + pre-norm MLP, residual around
+each. The recurrent (RG-LRU), SSD and MoE blocks and MLA are ported in a
+later slice (ROADMAP item 15b); remat belongs to training (item 15c).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (ParamSpec, TensorStruct, apply_mlp,
+                                       apply_norm, mlp_specs, norm_specs,
+                                       tree_map)
+
+ATTN_KINDS = ("global", "local", "chunked", "bidir")
+UNPORTED = "is not ported yet (ROADMAP item 15b)"
+
+
+def unported_feature(cfg) -> str:
+    """What of ``cfg`` this slice cannot build ("" if nothing): MLA, MoE,
+    the encoder-decoder, or a recurrent / SSD layer kind."""
+    if cfg.family == "audio" or cfg.encoder_layers:
+        return "the encoder-decoder stack"
+    if cfg.attention == "mla":
+        return "MLA attention"
+    if cfg.moe:
+        return "the MoE MLP"
+    other = sorted(set(cfg.layer_pattern) - set(ATTN_KINDS))
+    if other:
+        return f"layer kind(s) {', '.join(other)}"
+    return ""
+
+
+def mixer_specs(cfg, kind: str, heads: int, kv_heads: int) -> dict:
+    if kind in ATTN_KINDS:
+        if cfg.attention == "mla":
+            raise NotImplementedError(f"MLA attention {UNPORTED}")
+        return attn.gqa_specs(cfg, heads, kv_heads)
+    if kind in ("rec", "ssm"):
+        raise NotImplementedError(f"layer kind {kind!r} {UNPORTED}")
+    raise ValueError(f"unknown layer kind {kind}")
+
+
+def layer_specs(cfg, kind: str, heads: int, kv_heads: int) -> dict:
+    specs = {
+        "norm1": norm_specs(cfg),
+        "mixer": mixer_specs(cfg, kind, heads, kv_heads),
+    }
+    if cfg.moe:
+        raise NotImplementedError(f"the MoE MLP {UNPORTED}")
+    if cfg.d_ff:
+        specs["norm2"] = norm_specs(cfg)
+        specs["mlp"] = mlp_specs(cfg)
+    return specs
+
+
+def apply_layer(cfg, p, kind: str, x, positions, cache, heads: int,
+                kv_heads: int):
+    h = apply_norm(cfg, p["norm1"], x)
+    h, new_cache = attn.gqa_attention(cfg, p["mixer"], h, kind, positions,
+                                      cache, heads, kv_heads)
+    x = x + h
+    if "mlp" in p:
+        h = apply_norm(cfg, p["norm2"], x)
+        x = x + apply_mlp(cfg, p["mlp"], h)
+    return x, new_cache
+
+
+def _stack(specs, n: int):
+    return tree_map(lambda _, s: ParamSpec((n,) + s.shape,
+                                           ("layers",) + s.axes, s.init,
+                                           s.dtype), specs)
+
+
+def stack_specs(cfg, heads: int, kv_heads: int) -> dict:
+    kinds = cfg.layer_kinds()
+    p = len(cfg.layer_pattern)
+    n_full, rem = divmod(cfg.num_layers, p)
+    out: dict[str, Any] = {"groups": [], "rem": []}
+    if n_full:
+        for pos in range(p):
+            out["groups"].append(
+                _stack(layer_specs(cfg, cfg.layer_pattern[pos], heads,
+                                   kv_heads), n_full))
+    for i in range(rem):
+        out["rem"].append(layer_specs(cfg, kinds[n_full * p + i], heads,
+                                      kv_heads))
+    return out
+
+
+def mixer_cache_struct(cfg, kind: str, batch: int, max_len: int, dtype,
+                       kv_heads: int):
+    if kind in ATTN_KINDS and cfg.attention != "mla":
+        # Local-attention layers keep an O(window) ring buffer. Chunked
+        # layers stay full-length (their sibling global layers need the
+        # full cache anyway).
+        if kind == "local" and cfg.local_window and max_len > cfg.local_window:
+            return attn.gqa_cache_struct(cfg, batch, cfg.local_window,
+                                         kv_heads, dtype)
+        return attn.gqa_cache_struct(cfg, batch, max_len, kv_heads, dtype)
+    raise NotImplementedError(f"the cache of layer kind {kind!r} with "
+                              f"{cfg.attention} attention {UNPORTED}")
+
+
+def cache_structs(cfg, batch: int, max_len: int, dtype, kv_heads: int) -> dict:
+    """TensorStruct tree mirroring stack_specs' group/rem layout."""
+    p = len(cfg.layer_pattern)
+    n_full, rem = divmod(cfg.num_layers, p)
+    kinds = cfg.layer_kinds()
+    out: dict[str, Any] = {"groups": [], "rem": []}
+    if n_full:
+        for pos in range(p):
+            one = mixer_cache_struct(cfg, cfg.layer_pattern[pos], batch,
+                                     max_len, dtype, kv_heads)
+            out["groups"].append(tree_map(
+                lambda _, s: TensorStruct((n_full,) + s.shape, s.dtype),
+                one))
+    for i in range(rem):
+        out["rem"].append(mixer_cache_struct(cfg, kinds[n_full * p + i],
+                                             batch, max_len, dtype, kv_heads))
+    return out
+
+
+def _slice(tree, j: int):
+    return tree_map(lambda _, t: t[j], tree)
+
+
+def layer_views(cfg, params, caches):
+    """(kind, params, cache) of every layer in stack order: views of the
+    stacked groups' slices (cache None where ``caches`` is None)."""
+    p = len(cfg.layer_pattern)
+    n_full = cfg.num_layers // p
+    kinds = cfg.layer_kinds()
+    out = []
+    for j in range(n_full):
+        for pos in range(p):
+            out.append((cfg.layer_pattern[pos],
+                        _slice(params["groups"][pos], j),
+                        None if caches is None
+                        else _slice(caches["groups"][pos], j)))
+    for i, lp in enumerate(params["rem"]):
+        out.append((kinds[n_full * p + i], lp,
+                    None if caches is None else caches["rem"][i]))
+    return out
+
+
+def apply_stack(cfg, params, x, positions, caches, heads: int,
+                kv_heads: int):
+    """Run the full layer stack. caches: None or cache_structs-shaped
+    tensors, updated in place and returned."""
+    for kind, lp, cache in layer_views(cfg, params, caches):
+        x, _ = apply_layer(cfg, lp, kind, x, positions, cache, heads,
+                           kv_heads)
+    return x, caches

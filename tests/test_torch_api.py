@@ -201,6 +201,23 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     pl = tapi.plan(spec.replace(vertices_per_proc=20), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         tapi.generate(pl, device="cuda")
+    # the LM serving path: build_model, the Engine and the launcher
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as tlaunch
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg, device="cuda")
+    model = build_model(cfg, device="cpu")
+    assert model.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(model, batch_size=2, max_len=8)
+    assert Engine(model, batch_size=2, max_len=8, device="cpu").run([]) == []
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlaunch.main(["--requests", "1"])
 
 
 @pytest.mark.parametrize("spec,want", [

@@ -818,3 +818,33 @@ def test_analytics_on_the_card_equal_the_cpu(dev, monkeypatch):
                           analysis.block_density(cpu, 16))
     assert analysis.degree_assortativity(card) == pytest.approx(
         analysis.degree_assortativity(cpu), rel=1e-9, abs=1e-12)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "stablelm-1.6b",
+                                  "phi3-medium-14b", "phi-3-vision-4.2b"])
+def test_lm_serving_on_the_card_equals_the_cpu(dev, arch):
+    """The LM serving path of each reduced GQA arch in float32 (TF32 off):
+    the card's Engine completions and prefill / decode logits against the
+    port on the CPU, with chip_smoke's check (rtol/atol 1e-4; a token
+    chosen by a top-2 margin under 1e-3 ends its completion's check)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    cpu = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+    tree = convert.numpy_params(cpu, seed=0)
+    convert.params_from_numpy(cpu, tree)
+    card = convert.params_from_numpy(
+        build_model(cfg, compute_dtype=torch.float32, device=dev), tree)
+    assert card.tree["embed"]["tok"].device == dev
+    args = (chip_smoke.LM_REDUCED_WORKLOAD, chip_smoke.LM_SEED)
+    want = chip_smoke.lm_record(
+        np, *chip_smoke.lm_port_outputs(torch, np, cpu, *args))
+    comps, _, logits = chip_smoke.lm_port_outputs(torch, np, card, *args)
+    assert chip_smoke.lm_mismatches(np, comps, logits, want, 1e-4,
+                                    1e-4) == []
