@@ -73,10 +73,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     (every kernel launched, band_compact once per block); under
     forced_mode("ref") (identical edges); parity mode (auto_capacity=False:
     the host path's edge multiset); the host-driven stream (the device
-    stream's digest); a profiled run; and the shard sink at full width
-    with overlap on, read back, then resumed after two blocks are dropped
-    from the manifest (only those two shards rewritten); then overlap on
-    against off at reduced depth (procs 64 -> 8: zlib's rate).
+    stream's digest); a profiled run; and the shard sink at reduced depth
+    (procs 64 -> 8: zlib's rate) with overlap on, read back, then resumed
+    after two blocks are dropped from the manifest (only those two shards
+    rewritten; both reads equal to the 8-proc spec's in-memory digest),
+    then with overlap off.
  6. PK and the communication-free family, each path with its launch
     counts set to 0 just before it and read just after, then rerun under
     forced_mode("ref") and compared on the card, then profiled: R-MAT
@@ -107,26 +108,45 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     (degree_counts_sharded, edge_count_sharded, max_degree_sharded) of a
     flat(1) run must equal phase 4's degree counts, the run's emitted
     edges and their max. The group is destroyed at the end of the phase.
- 8. lm_serve: the LM serving path (repro_torch.configs / models / serve),
-    which launches none of the port's kernels (their counts must stay 0).
-    Every case of src/repro_torch/reference_lm.json (made by the JAX
-    package on the CPU in float32: the four GQA archs' reduced() configs
-    and qwen1.5-0.5b at full width with its depth cut to 2 layers, params
-    from convert.numpy_params(model, seed=0)) runs on the card in float32:
-    the Engine's completions token for token, and the last-position
-    logits of a prefill and three decode steps within rtol 1e-3, atol
-    1e-3 (at the file's top-8 ids, their sum, the top-1 id where its
-    margin is clear). qwen1.5-0.5b at full config (24 layers, float32,
-    launch/serve.py's workload) on the card against the port on the
-    host's CPU, same tolerance. Then the proposed serving cells at full
-    width in bf16, weights from the port's seeded init on the card:
-    qwen1.5-0.5b (count_params 463,987,712) and phi3-medium-14b, each a
-    prefill of 8 x 512 tokens, 128 teacher-forced decode steps at batch 8
-    (each step's logits within relative L2 2^-2 of the teacher-forced
-    pass at the same position), and (qwen) the Engine on 16 requests over
-    8 slots; each with its wall, peak device memory and a profiled run's
-    device idle share; then the same contract in float32 at full width
-    (batch 2, 64-token prompt, 16 steps, rtol = atol = 2e-3 per logit).
+ 8. lm_serve: the LM serving path (repro_torch.configs / models / serve)
+    of all ten configs, which launches none of the port's kernels (their
+    counts must stay 0). Every case of src/repro_torch/reference_lm.json
+    (made by the JAX package on the CPU in float32: each config's
+    reduced(), and each at its published widths with its depth cut
+    (LM_FULL_LAYERS), params from lm_reference_params: numpy_params at
+    seed 0, each stacked matrix rescaled to one layer's fan-in) runs on
+    the card in float32: the Engine's
+    completions token for token (not the encoder-decoder: its Engine
+    passes tokens only), and the last-position logits of a prefill (with
+    frames for the encoder-decoder) and three decode steps within rtol
+    1e-3, atol 1e-3 (at the file's top-8 ids, their sum, the top-1 id
+    where its margin is clear); the MoE cases print the card's least
+    router margin beside the file's. qwen1.5-0.5b at full config (24
+    layers, float32, launch/serve.py's workload) on the card against the
+    port on the host's CPU, same tolerance. Then the serving runs at full
+    width in bf16, weights from the port's seeded init on the card (the
+    six other configs' stacked leaves at one layer's fan-in), each
+    a prefill of 8 x 512 tokens and its decode steps teacher-forced (each
+    step's logits within relative L2 2^-2 of the teacher-forced pass at
+    the same position, and at most 0.85 of their distance to it one
+    position on; for MoE only where neither the prefill nor the
+    teacher-forced pass dropped an assignment, the counts printed; not for
+    mamba2-130m, whose bf16 SSD is not faithful to its float32 one by the
+    reference's design), with its wall, peak device memory and a profiled
+    run's device idle share:
+    qwen1.5-0.5b (count_params 463,987,712) and phi3-medium-14b at 128 new
+    tokens, each then the same contract in float32 at full width (batch
+    2, 64-token prompt, 16 steps, rtol = atol = 2e-3 per logit);
+    llama4-scout and qwen3-moe (8 layers), minicpm3-4b, mamba2-130m,
+    recurrentgemma-2b and whisper-medium (1500 frames, its encoder also
+    timed apart) at 32; and the Engine on 16 requests over 8 slots for
+    qwen and the new configs but whisper. minicpm3, recurrentgemma and
+    whisper also run the same weights in float32: the bf16 prefill and
+    decode steps, and the bf16 teacher-forced pass, within relative L2
+    2^-2 of the float32 ones and nearer them than the float32 logits one
+    position on (at most 0.85 of that reading, as the bf16 teacher gap
+    also is), then the float32 contract above (mamba2 too, its bf16
+    readings printed).
  9. the seconds from the start to each phase's end; the kernels line
     (with each kernel's launches in the distributed runs; histogram's
     also in the analytics runs), then
@@ -137,6 +157,7 @@ available or the repository's src/ is not beside this file.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -166,9 +187,9 @@ PROCS = 64                  # the paper's 1000 ranks, cut to fit one card
 VERTICES_PER_PROC = 1_000_000   # the paper's per-rank scale, not cut
 PAIR_CAPACITY = 262144      # pinned: C_r = 32768 per pair at R=8
 BLOCK_CAP = 2_097_152       # min(E, P * C_r): a streamed round's block
-# The procs of the PBA shard sink's overlap on/off pair: np.savez_compressed
-# writes 4-10 MB/s, so each write of the 64-rank cut's 1.39 GB takes
-# 130-180 s of the script's 1200 s; one such write stays, with its resume.
+# The procs of the PBA shard sink's writes (overlap on, its resume, overlap
+# off): np.savez_compressed writes 4-10 MB/s, so a write of the 64-rank
+# cut's 1.39 GB takes 130-180 s of the script's 1200 s.
 SHARD_SINK_PROCS = 8
 SEED = 0                    # numpy seed of the kernel-case inputs
 M32 = 0xFFFFFFFF
@@ -1194,7 +1215,17 @@ def streamed_phases(torch, api, dispatch, ops, edge_digest, dev,
           **profile_run(torch, api, spec, dev)})
     torch.cuda.empty_cache()
 
-    # Shard sink at full width: overlap on, read back, resume two blocks.
+    # Shard sink at reduced depth (procs cut to SHARD_SINK_PROCS: zlib
+    # writes ~10 MB/s, so the full width's 1.39 GB took ~150 s): overlap
+    # on, read back and resume two blocks against the same spec's
+    # in-memory digest, then overlap off; the two writes of one size in
+    # one run.
+    shard_spec = spec.replace(procs=SHARD_SINK_PROCS)
+    reduced = f"procs {PROCS} -> {SHARD_SINK_PROCS}"
+    small = api.generate(shard_spec, device=dev)
+    shard_digest = edge_digest(small.edges.src, small.edges.dst)
+    del small
+    torch.cuda.empty_cache()
     out_root = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_root, exist_ok=True)
 
@@ -1217,16 +1248,13 @@ def streamed_phases(torch, api, dispatch, ops, edge_digest, dev,
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_shards_", dir=out_root)
     try:
-        full_wall = write_shards(spec, True)
-        emit({"phase": "stream_shards_resume",
-              **resume_check(torch, api, edge_digest, spec, dev, out_dir,
-                             digest), "overlap_on_s": full_wall})
-        # Overlap on against off at reduced depth (procs cut to
-        # SHARD_SINK_PROCS), the two writes of one size in one run.
-        shard_spec = spec.replace(procs=SHARD_SINK_PROCS)
-        reduced = f"procs {PROCS} -> {SHARD_SINK_PROCS}"
-        walls = {overlap: write_shards(shard_spec, overlap, reduced)
-                 for overlap in (True, False)}
+        walls = {True: write_shards(shard_spec, True, reduced)}
+        emit({"phase": "stream_shards_resume", "reduced": reduced,
+              **resume_check(torch, api, edge_digest, shard_spec, dev,
+                             out_dir, shard_digest),
+              "in_memory_sha256": shard_digest,
+              "overlap_on_s": walls[True]})
+        walls[False] = write_shards(shard_spec, False, reduced)
         emit({"phase": "stream_shards_overlap", "reduced": reduced,
               "overlap_on_s": walls[True], "overlap_off_s": walls[False]})
     finally:
@@ -2063,31 +2091,64 @@ def distributed_shards(torch, api, ops, edge_digest, dev) -> dict:
 # --- phase 8: the LM serving path --------------------------------------------------
 
 LM_ARCHS = ("qwen1.5-0.5b", "stablelm-1.6b", "phi3-medium-14b",
-            "phi-3-vision-4.2b")
+            "phi-3-vision-4.2b", "llama4-scout-17b-a16e",
+            "qwen3-moe-235b-a22b", "minicpm3-4b", "mamba2-130m",
+            "recurrentgemma-2b", "whisper-medium")
 LM_SEED = 0                 # convert.numpy_params' seed and the workloads'
 LM_TOP = 8                  # a logits row is kept as its top 8 ids and values
 LM_DECODE_STEPS = 3         # decode steps after the logit record's prefill
 LM_LOGIT_BATCH = (2, 20)    # the logit record's batch and prompt length
 # The reduced entries' Engine workload: 6 requests of prompts 16-24 tokens
-# long on 2 slots, 8 new tokens each; the full-width entry's is
+# long on 2 slots, 8 new tokens each; the full-width entries' is
 # launch/serve.py's default (6 requests, 2 slots, 24-token prompts, 16 new).
+# The encoder-decoder's entries have no Engine completions: its Engine, as
+# the JAX package's, passes tokens only.
 LM_REDUCED_WORKLOAD = {"requests": 6, "slots": 2, "prompt_lens": [16, 24],
                        "new_tokens": 8}
 LM_FULL_WORKLOAD = {"requests": 6, "slots": 2, "prompt_lens": [24, 24],
                     "new_tokens": 16}
-# qwen1.5-0.5b at full width (d_model 1024, 16 heads, d_ff 2816, vocab
-# 151,936) with its 24 layers cut to 2 for the JAX package's reference,
-# which is made on a CPU; phase 8 runs all 24 against the port on the host.
-LM_FULL_LAYERS = 2
+# The full-width entries: each config at its published widths, its depth
+# cut for the JAX package's reference, which is made on a CPU in float32:
+# qwen1.5-0.5b 24 -> 2 layers (phase 8 runs all 24 against the port on the
+# host); llama4-scout 48 -> 1 (one chunked layer: 16 experts and the shared
+# one, 4.3B parameters, 17 GB); qwen3-moe 94 -> 1 (128 experts, top 8,
+# 3.7B, 15 GB); minicpm3 62 -> 2; mamba2-130m whole; recurrentgemma 26 -> 3
+# (one rec, rec, local period, 1.6B); whisper 24 + 24 -> 2 decoder and 2
+# encoder layers (encoder_len 1500 kept).
+LM_FULL_LAYERS = {"qwen1.5-0.5b": 2, "llama4-scout-17b-a16e": 1,
+                  "qwen3-moe-235b-a22b": 1, "minicpm3-4b": 2,
+                  "mamba2-130m": 24, "recurrentgemma-2b": 3,
+                  "whisper-medium": 2}
+LM_FULL_ENCODER_LAYERS = 2
 LM_CARD_RTOL = 1e-3         # float32 logits on the card against a reference
 LM_CARD_ATOL = 1e-3
 LM_MARGIN = 1e-3            # a token chosen by a smaller top-2 margin, and the
                             # rest of its completion, is not compared
-# The proposed serving cell: batch 8, 512-token prompts, 128 new tokens;
-# the Engine serves 16 such requests over 8 slots.
+# The proposed serving cells: batch 8, 512-token prompts, 128 new tokens;
+# the Engine serves 16 such requests over 8 slots. The other families' runs
+# decode 32 new tokens, and llama4-scout and qwen3-moe (215 and 470 GB in
+# bf16) run 8 of their layers (~39 and ~42 GB; llama4's two chunked x 3 +
+# global periods). Their weights come from the port's init with stacked
+# matrices rescaled to one layer's fan-in (lm_layer_fan_in): under the
+# reference init a 26-layer recurrentgemma at width 2560 is chaotic even
+# in float32 (its decode and teacher-forced pass differ by a relative L2
+# of 0.74), so no serving contract could be held. The port is not at
+# fault there: at width 512 with 26 layers both packages run wholly in
+# float64 agree within 1e-8, while each package's float32 run is 0.067
+# from its own float64 one (tests/test_torch_lm_models.py's float64
+# witness).
 LM_CELL = {"batch": 8, "prompt": 512, "new_tokens": 128, "requests": 16}
 LM_CELL_ARCHS = ("qwen1.5-0.5b", "phi3-medium-14b")
-LM_ENGINE_ARCHS = ("qwen1.5-0.5b",)     # phi3's Engine run would add ~40 s
+LM_MIXER_ARCHS = ("llama4-scout-17b-a16e", "qwen3-moe-235b-a22b",
+                  "minicpm3-4b", "mamba2-130m", "recurrentgemma-2b",
+                  "whisper-medium")
+LM_MIXER_NEW_TOKENS = 32
+LM_CELL_LAYERS = {"llama4-scout-17b-a16e": 8, "qwen3-moe-235b-a22b": 8}
+# phi3's Engine run would add ~40 s; whisper has no Engine path.
+LM_ENGINE_ARCHS = ("qwen1.5-0.5b",) + LM_MIXER_ARCHS[:-1]
+LM_PRECISION_ARCHS = ("minicpm3-4b", "mamba2-130m", "recurrentgemma-2b",
+                      "whisper-medium")
+LM_BF16_UNFAITHFUL = ("mamba2-130m",)
 QWEN_PARAMS = 463_987_712   # count_params() of qwen1.5-0.5b (JAX package)
 # Teacher forcing at full width: each decode step's logits (and the
 # prefill's last) against the teacher-forced pass's at the same position.
@@ -2097,20 +2158,50 @@ QWEN_PARAMS = 463_987_712   # count_params() of qwen1.5-0.5b (JAX package)
 # 1/sqrt(depth)) makes scores O(1e2) and softmaxes near one-hot, which
 # carries one rounding through the stack; logits of unrelated positions
 # differ by a relative L2 of ~1.4 (reported), which a cache written at the
-# wrong position would give. float32 (a short run, weights drawn in
-# float32): tests/test_serve.py's rtol = atol = 2e-3 per element.
+# wrong position would give. An MoE prefill that drops assignments for
+# want of capacity (its per-row capacity is cf * s * k / E, so a 512-token
+# prompt at cf 1.25 overflows its busiest experts) is not the sum of its
+# decode steps, which drop none: the bound applies to an MoE run only if
+# its prefill and teacher-forced pass dropped no assignment (both counts
+# printed). Nor does it apply to LM_BF16_UNFAITHFUL, whose bf16 path is
+# not faithful to its float32 one by the reference's design: mamba2's SSD
+# takes dt * a in bf16 before its 256-token chunk sums (ssm.py:151), and
+# its bf16 teacher-forced pass reads 1.1-1.2 from float32 on an H100
+# (PERF.md).
+# At the port's init a deep stack's logits move little from one position
+# to the next (minicpm3, recurrentgemma, whisper: 0.02-0.05 on an H100),
+# below 2^-2, so each step must also be nearer the logits it is held to than
+# those one position on: its gap at most LM_NEAR_SHARE of that reading
+# (lm_step_gap; sound runs read 0.04-0.40 of it for the teacher gap,
+# 0.28-0.74 for bf16 against float32). LM_PRECISION_ARCHS (whose float32
+# copy fits beside the bf16 one) also run the same weights in float32:
+# the bf16 prefill and decode steps are held to the float32 ones on the
+# same tokens, and the bf16 teacher-forced pass to the float32 one, each
+# by both bounds (all but LM_BF16_UNFAITHFUL). float32 (a short run,
+# weights drawn in float32): tests/test_serve.py's rtol = atol = 2e-3
+# per element; LM_CELL_ARCHS and LM_PRECISION_ARCHS run it.
 LM_BF16_REL_L2 = 2.0 ** -2
+LM_NEAR_SHARE = 0.85
 LM_F32_TOL = 2e-3
 LM_F32_TEACHER = {"batch": 2, "prompt": 64, "new_tokens": 16}
 
 
 def lm_config(get_config, arch: str, width: str):
     """The config of a reference case: ``reduced()``, or ``full_width``
-    (the full config with its depth cut to LM_FULL_LAYERS)."""
+    (the full config with its depth cut to LM_FULL_LAYERS[arch], and an
+    encoder's to LM_FULL_ENCODER_LAYERS)."""
     cfg = get_config(arch)
     if width == "reduced":
         return cfg.reduced()
-    return dataclasses.replace(cfg, num_layers=LM_FULL_LAYERS)
+    changes = {"num_layers": LM_FULL_LAYERS[arch]}
+    if cfg.encoder_layers:
+        changes["encoder_layers"] = LM_FULL_ENCODER_LAYERS
+    return dataclasses.replace(cfg, **changes)
+
+
+def lm_serves_engine(cfg) -> bool:
+    """Whether the Engine (tokens only) can serve ``cfg``."""
+    return cfg.family != "audio"
 
 
 def lm_requests(np, vocab: int, workload: dict, seed: int) -> list:
@@ -2129,14 +2220,20 @@ def lm_max_len(workload: dict) -> int:
 
 def lm_logit_inputs(np, cfg, seed: int):
     """The logit record's tokens, (b, s + LM_DECODE_STEPS): a prompt and the
-    tokens each decode step feeds; and image embeddings (b, num_patches,
-    d_model) float32 for a vision config, else None."""
+    tokens each decode step feeds; and the prompt's other inputs, float32:
+    image embeddings (b, num_patches, d_model) for a vision config, frames
+    (b, encoder_len, d_model) for the encoder-decoder."""
     rng = np.random.default_rng(seed + 1)
     b, s = LM_LOGIT_BATCH
     tokens = rng.integers(0, cfg.vocab_size, (b, s + LM_DECODE_STEPS))
-    image = rng.standard_normal((b, cfg.num_patches, cfg.d_model),
-                                dtype=np.float32) if cfg.num_patches else None
-    return tokens, image
+    extras = {}
+    if cfg.num_patches:
+        extras["image_embeds"] = rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model), dtype=np.float32)
+    if cfg.family == "audio":
+        extras["frames"] = rng.standard_normal(
+            (b, cfg.encoder_len, cfg.d_model), dtype=np.float32)
+    return tokens, extras
 
 
 def lm_waves(requests: list, slots: int, max_len: int) -> list:
@@ -2176,13 +2273,18 @@ def lm_step_record(np, logits) -> dict:
             "top2_margin": float((vals[:, 0] - vals[:, 1]).min())}
 
 
-def lm_record(np, completions, margins: dict, step_logits) -> dict:
+def lm_record(np, completions, margins: dict, step_logits,
+              router_margin=None) -> dict:
     """A reference case: the Engine's completions ([rid, tokens] in finish
-    order), each token's top-2 margin, and the logit record's steps."""
-    return {"completions": [[int(rid), [int(t) for t in toks]]
-                            for rid, toks in completions],
-            "token_margins": {str(rid): m for rid, m in margins.items()},
-            "logits": [lm_step_record(np, lg) for lg in step_logits]}
+    order), each token's top-2 margin, the logit record's steps, and for
+    MoE the least router margin of the case."""
+    out = {"completions": [[int(rid), [int(t) for t in toks]]
+                           for rid, toks in completions],
+           "token_margins": {str(rid): m for rid, m in margins.items()},
+           "logits": [lm_step_record(np, lg) for lg in step_logits]}
+    if router_margin is not None:
+        out["least_router_margin"] = float(router_margin)
+    return out
 
 
 def lm_compared_tokens(margins: list) -> int:
@@ -2234,47 +2336,104 @@ def lm_mismatches(np, completions, step_logits, want: dict, rtol: float,
     return bad
 
 
+@contextlib.contextmanager
+def lm_moe_calls(measure):
+    """In the block, ``measure(cfg, p, x)`` of each MoE layer call is
+    appended to the yielded list."""
+    from repro_torch.models import moe
+    seen, apply = [], moe.apply_moe
+
+    def measured(cfg, p, x):
+        seen.append(measure(cfg, p, x))
+        return apply(cfg, p, x)
+
+    moe.apply_moe = measured
+    try:
+        yield seen
+    finally:
+        moe.apply_moe = apply
+
+
+def lm_router_margin(cfg, p, x) -> float:
+    """The least router margin of an MoE call over its tokens: the k-th
+    routing probability minus the (k+1)-th (a near-tie can pick other
+    experts on another device)."""
+    from repro_torch.models import moe
+    top = moe.route(cfg, p, x)[0].topk(cfg.top_k + 1, dim=-1).values
+    return float((top[..., -2] - top[..., -1]).min())
+
+
 def lm_port_outputs(torch, np, model, workload: dict, seed: int):
     """The port's side of a reference case on ``model``'s device: the
-    Engine's completions on the workload with each token's top-2 margin,
-    and the logit record's last-position logits (prefill, then
-    LM_DECODE_STEPS decode steps), as float32 numpy."""
+    Engine's completions on the workload with each token's top-2 margin
+    (none for a config the Engine cannot serve), the logit record's
+    last-position logits (prefill, then LM_DECODE_STEPS decode steps) as
+    float32 numpy, and the least router margin of it all (None without
+    MoE)."""
     from repro_torch.serve import Engine, Request
     cfg, dev = model.cfg, model.device
-    reqs = lm_requests(np, cfg.vocab_size, workload, seed)
-    max_len = lm_max_len(workload)
-    engine = Engine(model, batch_size=workload["slots"], max_len=max_len,
-                    device=dev)
-    calls = []
-    prefill, decode = engine._prefill, engine._decode
+    completions, margins = [], {}
+    with lm_moe_calls(lm_router_margin) as routed:
+        if lm_serves_engine(cfg):
+            reqs = lm_requests(np, cfg.vocab_size, workload, seed)
+            max_len = lm_max_len(workload)
+            engine = Engine(model, batch_size=workload["slots"],
+                            max_len=max_len, device=dev)
+            calls = []
+            prefill, decode = engine._prefill, engine._decode
 
-    def margin(logits):
-        top = logits[:, -1].float().topk(2, dim=-1).values
-        calls.append(top[:, 0] - top[:, 1])
-        return logits
+            def margin(logits):
+                top = logits[:, -1].float().topk(2, dim=-1).values
+                calls.append(top[:, 0] - top[:, 1])
+                return logits
 
-    engine._prefill = lambda batch: (lambda lg, c: (margin(lg), c))(
-        *prefill(batch))
-    engine._decode = lambda tok, caches, pos: (lambda lg, c: (
-        margin(lg), c))(*decode(tok, caches, pos))
-    done = engine.run([Request(rid, p, n) for rid, p, n in reqs])
-    completions = [(c.rid, c.tokens) for c in done]
-    margins = lm_token_margins(np, reqs, workload["slots"], max_len,
-                               [m.cpu().numpy() for m in calls])
+            engine._prefill = lambda batch: (lambda lg, c: (margin(lg), c))(
+                *prefill(batch))
+            engine._decode = lambda tok, caches, pos: (lambda lg, c: (
+                margin(lg), c))(*decode(tok, caches, pos))
+            done = engine.run([Request(rid, p, n) for rid, p, n in reqs])
+            completions = [(c.rid, c.tokens) for c in done]
+            margins = lm_token_margins(np, reqs, workload["slots"], max_len,
+                                       [m.cpu().numpy() for m in calls])
 
-    tokens, image = lm_logit_inputs(np, cfg, seed)
-    s = LM_LOGIT_BATCH[1]
-    toks = torch.from_numpy(tokens).to(dev)
-    batch = {"tokens": toks[:, :s]}
-    if image is not None:
-        batch["image_embeds"] = torch.from_numpy(image).to(dev)
-    logits, caches = model.prefill(batch, max_len=s + LM_DECODE_STEPS)
-    steps = [logits[:, -1]]
-    for i in range(LM_DECODE_STEPS):
-        logits, caches = model.decode_step(toks[:, s + i:s + i + 1], caches,
-                                           s + i)
-        steps.append(logits[:, -1])
-    return completions, margins, [x.float().cpu().numpy() for x in steps]
+        tokens, extras = lm_logit_inputs(np, cfg, seed)
+        s = LM_LOGIT_BATCH[1]
+        toks = torch.from_numpy(tokens).to(dev)
+        batch = {"tokens": toks[:, :s],
+                 **{k: torch.from_numpy(v).to(dev) for k, v in extras.items()}}
+        logits, caches = model.prefill(batch, max_len=s + LM_DECODE_STEPS)
+        steps = [logits[:, -1]]
+        for i in range(LM_DECODE_STEPS):
+            logits, caches = model.decode_step(toks[:, s + i:s + i + 1],
+                                               caches, s + i)
+            steps.append(logits[:, -1])
+    return (completions, margins, [x.float().cpu().numpy() for x in steps],
+            min(routed) if routed else None)
+
+
+def lm_layer_fan_in(model, tree=None):
+    """``tree`` (``model``'s numpy tree from convert.numpy_params, or by
+    default ``model.tree`` after Model.init) with each stacked matrix,
+    drawn by the reference init at 1/sqrt(depth), rescaled in place to
+    one layer's fan-in (1/sqrt of its second dimension). Returns it."""
+    from repro_torch.models.layers import tree_leaves
+    tree = model.tree if tree is None else tree
+    for spec, leaf in zip(tree_leaves(model.param_specs()),
+                          tree_leaves(tree)):
+        if spec.init == "fan_in" and spec.axes[0] == "layers" \
+                and len(spec.shape) >= 3:
+            leaf *= math.sqrt(spec.shape[0] / spec.shape[1])
+    return tree
+
+
+def lm_reference_params(convert, model, seed: int = LM_SEED) -> dict:
+    """The numpy tree every reference case is drawn with: stacked
+    matrices at one layer's fan-in (lm_layer_fan_in). At the reference
+    init's 1/sqrt(depth) the residual stream of a shallow stack grows to
+    ~1e3, and two correct float32 implementations differ by up to 4e-5
+    in the logits (the order of a matrix product's sums, amplified), past
+    the CPU tests' 1e-5; at one layer's fan-in they agree within 1.2e-6."""
+    return lm_layer_fan_in(model, convert.numpy_params(model, seed))
 
 
 def lm_reference_checks(torch, np, dev) -> None:
@@ -2295,26 +2454,39 @@ def lm_reference_checks(torch, np, dev) -> None:
         t0 = time.perf_counter()
         cfg = lm_config(get_config, case["arch"], case["width"])
         model = build_model(cfg, compute_dtype=torch.float32, device=dev)
-        convert.params_from_numpy(model, convert.numpy_params(model,
-                                                              LM_SEED))
-        comps, _, logits = lm_port_outputs(torch, np, model,
-                                           case["workload"], LM_SEED)
+        tree = lm_reference_params(convert, model)
+        t_draw = time.perf_counter()
+        convert.params_from_numpy(model, tree)
+        del tree
+        torch.cuda.synchronize()
+        t_load = time.perf_counter()
+        comps, _, logits, routed = lm_port_outputs(torch, np, model,
+                                                   case["workload"], LM_SEED)
         bad = lm_mismatches(np, comps, logits, case, LM_CARD_RTOL,
                             LM_CARD_ATOL)
-        emit({"phase": "lm_reference", "case": name, "arch": case["arch"],
-              "width": case["width"], "num_layers": cfg.num_layers,
-              "params": model.count_params(), "rtol": LM_CARD_RTOL,
-              "atol": LM_CARD_ATOL, "mismatches": bad,
-              "compared_tokens": {
-                  rid: lm_compared_tokens(m)
-                  for rid, m in case["token_margins"].items()},
-              "least_token_margin": min(min(m) for m in
-                                        case["token_margins"].values()),
-              "wall_s": time.perf_counter() - t0})
+        row = {"phase": "lm_reference", "case": name, "arch": case["arch"],
+               "width": case["width"], "num_layers": cfg.num_layers,
+               "params": model.count_params(), "rtol": LM_CARD_RTOL,
+               "atol": LM_CARD_ATOL, "mismatches": bad,
+               "compared_tokens": {
+                   rid: lm_compared_tokens(m)
+                   for rid, m in case["token_margins"].items()},
+               "least_token_margin": min(
+                   (min(m) for m in case["token_margins"].values() if m),
+                   default=None),
+               "draw_s": t_draw - t0, "load_s": t_load - t_draw,
+               "wall_s": time.perf_counter() - t0}
+        if cfg.encoder_layers:
+            row["encoder_layers"] = cfg.encoder_layers
+        if routed is not None:
+            row["least_router_margin"] = {
+                "card": routed, "reference": case["least_router_margin"]}
+        emit(row)
         if bad:
             raise AssertionError(f"{name}: the card's serving path differs "
                                  f"from the JAX package's: {bad}")
         del model
+        torch.cuda.empty_cache()
     # All 24 layers at full width: the card against the port on the CPU.
     t0 = time.perf_counter()
     cfg = get_config("qwen1.5-0.5b")
@@ -2328,8 +2500,8 @@ def lm_reference_checks(torch, np, dev) -> None:
     want = lm_record(np, *lm_port_outputs(torch, np, host, LM_FULL_WORKLOAD,
                                           LM_SEED))
     t_card = time.perf_counter()
-    comps, _, logits = lm_port_outputs(torch, np, card, LM_FULL_WORKLOAD,
-                                       LM_SEED)
+    comps, _, logits, _ = lm_port_outputs(torch, np, card, LM_FULL_WORKLOAD,
+                                          LM_SEED)
     bad = lm_mismatches(np, comps, logits, want, LM_CARD_RTOL, LM_CARD_ATOL)
     emit({"phase": "lm_reference", "case": "qwen1.5-0.5b full config",
           "reference": "the port on the host CPU, float32",
@@ -2343,30 +2515,51 @@ def lm_reference_checks(torch, np, dev) -> None:
     if bad:
         raise AssertionError(f"qwen1.5-0.5b at full config: the card "
                              f"differs from the CPU: {bad}")
+    del host, card
+    torch.cuda.empty_cache()
 
 
 def lm_cell(torch, np, dev, arch: str) -> dict:
-    """One proposed serving cell at full width in bf16, weights from the
-    port's own init (a torch.Generator on the card seeded LM_SEED):
-    prefill of LM_CELL's batch, its decode steps teacher-forced (each
-    step's logits against the teacher-forced pass at the same position,
-    LM_BF16_REL_L2), then (LM_ENGINE_ARCHS) the Engine on LM_CELL's
-    requests; each with its
-    wall, peak device memory and a profiled run's idle share. Then the
-    teacher forcing again in float32 (teacher_forcing_f32)."""
+    """One serving run at full width in bf16 (LM_CELL_LAYERS cuts an MoE
+    config's depth), weights from the port's own init (a torch.Generator
+    on the card seeded LM_SEED): prefill of LM_CELL's batch (with its
+    frames for the encoder-decoder, whose encoder is also timed apart),
+    its decode steps teacher-forced (each step's logits against the
+    teacher-forced pass at the same position, LM_BF16_REL_L2, for MoE only
+    where no assignment was dropped, not for LM_BF16_UNFAITHFUL), then
+    (LM_ENGINE_ARCHS) the Engine on LM_CELL's requests; each with its
+    wall, peak device memory and a profiled run's idle share. Then
+    (LM_PRECISION_ARCHS) the bf16 prefill and decode steps, and the bf16
+    teacher-forced pass, against the same weights' in float32 (lm_step_gap,
+    lm_near, not for LM_BF16_UNFAITHFUL), and (LM_CELL_ARCHS,
+    LM_PRECISION_ARCHS) the teacher forcing again in float32
+    (teacher_forcing_f32)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
     from repro_torch.serve import Engine, Request
 
-    b, s, n = LM_CELL["batch"], LM_CELL["prompt"], LM_CELL["new_tokens"]
-    row = {"phase": "lm_serve", "arch": arch, "dtype": "bfloat16", **LM_CELL}
+    t_cell = time.perf_counter()
+    cfg = get_config(arch)
+    b, s = LM_CELL["batch"], LM_CELL["prompt"]
+    n = LM_CELL["new_tokens"] if arch in LM_CELL_ARCHS \
+        else LM_MIXER_NEW_TOKENS
+    layer_fan_in = arch in LM_MIXER_ARCHS
+    row = {"phase": "lm_serve", "arch": arch, "dtype": "bfloat16", **LM_CELL,
+           "new_tokens": n}
+    if arch in LM_CELL_LAYERS:
+        row["reduced"] = f"num_layers {cfg.num_layers} -> " \
+                         f"{LM_CELL_LAYERS[arch]}"
+        cfg = dataclasses.replace(cfg, num_layers=LM_CELL_LAYERS[arch])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = build_model(get_config(arch), device=dev).init(
+    model = build_model(cfg, device=dev).init(
         torch.Generator(dev).manual_seed(LM_SEED))
+    if layer_fan_in:
+        lm_layer_fan_in(model)
     torch.cuda.synchronize()
     row["init_s"] = time.perf_counter() - t0
+    row["layer_fan_in"] = layer_fan_in
     row["params"] = model.count_params()
     row["params_held"] = model.count_params(model.tree)
     row["weight_bytes"] = sum(t.numel() * t.element_size()
@@ -2378,7 +2571,11 @@ def lm_cell(torch, np, dev, arch: str) -> dict:
     rng = np.random.default_rng(LM_SEED)
     tokens = torch.from_numpy(rng.integers(
         0, model.cfg.vocab_size, (b, s + n))).to(dev)
-    prompt = {"tokens": tokens[:, :s]}
+    extras = {}
+    if cfg.family == "audio":
+        extras["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_len, cfg.d_model), dtype=np.float32)).to(dev)
+    prompt = {"tokens": tokens[:, :s], **extras}
 
     def measured(label, fn, profile_fn_=None):
         torch.cuda.empty_cache()
@@ -2401,6 +2598,9 @@ def lm_cell(torch, np, dev, arch: str) -> dict:
     # prefill: CUDA-event median, then one measured and profiled run
     row["prefill_ms"] = time_ms(torch, lambda: model.prefill(
         prompt, max_len=s + n), reps=5, warmup=1)
+    if extras:
+        row["encoder_ms"] = time_ms(torch, lambda: model.encode(prompt),
+                                    reps=5, warmup=1)
     logits0, caches = measured("prefill", lambda: model.prefill(
         prompt, max_len=s + n), lambda: model.prefill(prompt, max_len=s + n))
 
@@ -2414,19 +2614,61 @@ def lm_cell(torch, np, dev, arch: str) -> dict:
 
     def decode_8():
         c = caches
-        for i in range(8):
+        for i in range(min(8, n)):
             _, c = model.decode_step(tokens[:, s + i:s + i + 1], c, s + i)
 
     decoded = measured("decode", decode_all, decode_8)
-    row["decode"]["profiled_steps"] = 8
+    row["decode"]["profiled_steps"] = min(8, n)
     row["bounds"] = lm_bounds(model, b, s, s + n)
     row["decode_ms_per_step"] = row["decode"]["wall_s"] / n * 1e3
     row["decode_tokens_per_s"] = b * n / row["decode"]["wall_s"]
     # the serving contract: decode = the teacher-forced pass
-    full = measured("teacher_forced", lambda: model({"tokens": tokens}))
-    row["teacher_forcing"] = {
-        **teacher_gap(torch, full, s, logits0, decoded),
-        "tolerance_rel_l2": LM_BF16_REL_L2}
+    full_batch = {"tokens": tokens, **extras}
+    full = measured("teacher_forced", lambda: model(full_batch))
+    gap = teacher_gap(torch, full, s, logits0, decoded)
+    gap["steps"] = lm_step_gap(torch, torch.stack(
+        [logits0[:, 0]] + decoded, 1), full[:, s - 1:])
+    applies = arch not in LM_BF16_UNFAITHFUL
+    if arch in LM_PRECISION_ARCHS:
+        # the same draws in float32 (the init rounds a float32 draw): its
+        # prefill and decode steps on the same tokens, and its teacher-
+        # forced pass
+        model32 = build_model(cfg, compute_dtype=torch.float32,
+                              device=dev).init(
+            torch.Generator(dev).manual_seed(LM_SEED))
+        lm_layer_fan_in(model32)
+        first32, c32 = model32.prefill(prompt, max_len=s + n)
+        steps32 = [first32[:, 0]]
+        for i in range(n):
+            lg, c32 = model32.decode_step(tokens[:, s + i:s + i + 1], c32,
+                                          s + i)
+            steps32.append(lg[:, 0])
+        del c32
+        row["bf16_vs_float32"] = {
+            "decode": lm_step_gap(torch, torch.stack(
+                [logits0[:, 0]] + decoded, 1), torch.stack(steps32, 1)),
+            "teacher_forced": lm_step_gap(
+                torch, full[:, s - 1:], model32(full_batch)[:, s - 1:]),
+            "tolerance_rel_l2": LM_BF16_REL_L2,
+            "tolerance_share": LM_NEAR_SHARE, "bound_applies": applies}
+        del first32, steps32
+        model32_row = teacher_forcing_f32(torch, np, dev, arch, model32)
+        del model32
+        torch.cuda.empty_cache()
+    if cfg.moe:
+        # each pass again with its dropped assignments counted
+        dropped = {}
+        for label, fn in (("prefill", lambda: model.prefill(
+                prompt, max_len=s + n)), ("decode_8_steps", decode_8),
+                ("teacher_forced", lambda: model(full_batch))):
+            with lm_moe_calls(moe.dropped_assignments) as drops:
+                fn()
+            dropped[label] = sum(drops)
+        gap["dropped_assignments"] = dropped
+        applies = dropped["prefill"] == 0 and dropped["teacher_forced"] == 0
+    row["teacher_forcing"] = {**gap, "tolerance_rel_l2": LM_BF16_REL_L2,
+                              "tolerance_share": LM_NEAR_SHARE,
+                              "bound_applies": applies}
     del full, decoded, logits0, caches
     # the Engine (profiled on one wave of 16 new tokens)
     if arch in LM_ENGINE_ARCHS:
@@ -2448,38 +2690,82 @@ def lm_cell(torch, np, dev, arch: str) -> dict:
                                  f"tokens to {len(done)} requests")
     del model
     torch.cuda.empty_cache()
-    row["teacher_forcing_float32"] = teacher_forcing_f32(torch, np, dev,
-                                                         arch)
+    if arch in LM_PRECISION_ARCHS:
+        row["teacher_forcing_float32"] = model32_row
+    if arch in LM_CELL_ARCHS:
+        row["teacher_forcing_float32"] = teacher_forcing_f32(torch, np, dev,
+                                                             arch)
+    row["wall_s"] = time.perf_counter() - t_cell
     emit(row)
-    if row["teacher_forcing"]["rel_l2_max"] > LM_BF16_REL_L2 or \
-            not row["teacher_forcing_float32"]["within_tolerance"]:
+    if (applies and not lm_near(row["teacher_forcing"]["steps"])) \
+            or not row.get("teacher_forcing_float32",
+                           {"within_tolerance": True})["within_tolerance"]:
         raise AssertionError(f"{arch}: decode differs from the teacher-"
                              f"forced pass: {row['teacher_forcing']}, "
-                             f"{row['teacher_forcing_float32']}")
+                             f"{row.get('teacher_forcing_float32')}")
+    precision = row.get("bf16_vs_float32")
+    if precision and applies and not (lm_near(precision["decode"]) and
+                                      lm_near(precision["teacher_forced"])):
+        raise AssertionError(f"{arch}: the bf16 serving path differs from "
+                             f"the same weights in float32: {precision}")
     return row
+
+
+def lm_near(gap: dict) -> bool:
+    """An lm_step_gap within LM_BF16_REL_L2 and LM_NEAR_SHARE."""
+    return gap["rel_l2_max"] <= LM_BF16_REL_L2 and \
+        gap["share"] <= LM_NEAR_SHARE
+
+
+def lm_step_gap(torch, got, want) -> dict:
+    """Logits ``got`` against ``want`` (B, T, V) at T positions: the
+    largest relative L2 (over batch and vocab) of a position; the least of
+    got at one position against want at the next, what a cache one slot
+    off would read (a deep stack at the port's init moves its logits by
+    only 0.02-0.05 from one position to the next); and the share the
+    first is of the second."""
+    got, want = got.float(), want.float()
+
+    def rel(g, w):
+        return (g - w).norm(dim=(0, 2)) / w.norm(dim=(0, 2))
+
+    near = rel(got, want)
+    if not bool(near.isfinite().all()):
+        raise AssertionError("non-finite logits")
+    out = {"rel_l2_max": float(near.max()),
+           "unrelated_rel_l2_min": float(rel(got[:, :-1], want[:, 1:]).min())}
+    out["share"] = out["rel_l2_max"] / out["unrelated_rel_l2_min"] \
+        if out["unrelated_rel_l2_min"] else math.inf
+    return out
 
 
 def lm_bounds(model, b: int, s: int, max_len: int) -> dict:
     """The least times of a serving cell's steps on an H100, from its
-    shapes. A decode step reads every weight and the whole KV cache once
-    (bytes over the memory rate). A prefill of (b, s) tokens multiplies
-    each weight outside the embedding table by each token (2 flops, bf16
-    tensor cores), and takes every score and PV product of its (s, s)
-    attention in float32 (the plain path computes the masked half too),
-    plus the last position's logits."""
+    shapes. A decode step reads every weight it uses (all but an encoder's:
+    an MoE decode step multiplies every expert) and the whole cache once
+    (bytes over the memory rate). For the dense GQA families, a prefill of
+    (b, s) tokens multiplies each weight outside the embedding table by
+    each token (2 flops, bf16 tensor cores), and takes every score and PV
+    product of its (s, s) attention in float32 (the plain path computes
+    the masked half too), plus the last position's logits; the other
+    families' prefill bound is not computed."""
     cfg = model.cfg
     weight_bytes = sum(t.numel() * t.element_size()
-                       for t in model.parameters())
+                       for name, t in model.named_parameters()
+                       if ".encoder." not in name)
     kv_bytes = sum(math.prod(x.shape) * x.dtype.itemsize for x in
                    _tree_leaves(model.cache_structs(b, max_len)))
+    out = {"decode_step_bytes": weight_bytes + kv_bytes,
+           "decode_step_ms": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S
+           * 1e3}
+    if cfg.moe or cfg.attention != "gqa" or set(cfg.layer_pattern) - {
+            "global", "local", "chunked"} or cfg.encoder_layers:
+        return out
     table = cfg.vocab_size * cfg.d_model
     matmul = 2 * (model.count_params() - table *
                   (1 if cfg.tie_embeddings else 2)) * b * s + 2 * table * b
     scores = cfg.num_layers * b * model.heads * s * s * cfg.head_dim * 4
-    return {"decode_step_bytes": weight_bytes + kv_bytes,
-            "decode_step_ms": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S
-            * 1e3,
-            "prefill_bf16_flops": matmul, "prefill_f32_flops": scores,
+    return {**out, "prefill_bf16_flops": matmul, "prefill_f32_flops": scores,
             "prefill_ms": (matmul / BF16_FLOP_PER_S +
                            scores / F32_FLOP_PER_S) * 1e3}
 
@@ -2509,28 +2795,36 @@ def teacher_gap(torch, full, s: int, first, decoded) -> dict:
             "unrelated_positions_rel_l2": rel(full[:, s], full[:, s + 1])}
 
 
-def teacher_forcing_f32(torch, np, dev, arch: str) -> dict:
+def teacher_forcing_f32(torch, np, dev, arch: str, model=None) -> dict:
     """The serving contract in float32 at full width: LM_F32_TEACHER's
     prompt prefilled, its decode steps teacher-forced, each step's logits
-    within LM_F32_TOL (rtol and atol) of the teacher-forced pass."""
+    within LM_F32_TOL (rtol and atol) of the teacher-forced pass. On
+    ``model`` if given (float32), else on one drawn by the port's init."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     b, s, n = (LM_F32_TEACHER[k] for k in ("batch", "prompt", "new_tokens"))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = build_model(get_config(arch), compute_dtype=torch.float32,
-                        device=dev).init(
-        torch.Generator(dev).manual_seed(LM_SEED))
+    if model is None:
+        model = build_model(get_config(arch), compute_dtype=torch.float32,
+                            device=dev).init(
+            torch.Generator(dev).manual_seed(LM_SEED))
+    cfg = model.cfg
     rng = np.random.default_rng(LM_SEED + 1)
     tokens = torch.from_numpy(rng.integers(
-        0, model.cfg.vocab_size, (b, s + n))).to(dev)
-    first, caches = model.prefill({"tokens": tokens[:, :s]}, max_len=s + n)
+        0, cfg.vocab_size, (b, s + n))).to(dev)
+    extras = {}
+    if cfg.family == "audio":
+        extras["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_len, cfg.d_model), dtype=np.float32)).to(dev)
+    first, caches = model.prefill({"tokens": tokens[:, :s], **extras},
+                                  max_len=s + n)
     decoded = []
     for i in range(n):
         lg, caches = model.decode_step(tokens[:, s + i:s + i + 1], caches,
                                        s + i)
         decoded.append(lg[:, 0])
-    full = model({"tokens": tokens})
+    full = model({"tokens": tokens, **extras})
     close = all(bool(torch.allclose(g, full[:, s + i], rtol=LM_F32_TOL,
                                     atol=LM_F32_TOL))
                 for i, g in enumerate(decoded)) and bool(torch.allclose(
@@ -2548,12 +2842,13 @@ def teacher_forcing_f32(torch, np, dev, arch: str) -> dict:
 
 
 def lm_serve_phase(torch, np, dev) -> dict:
-    """Phase 8: the reference checks, then each serving cell; no kernel of
+    """Phase 8: the reference checks, then each serving run; no kernel of
     the port is on this path (the counts are read to show it)."""
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     lm_reference_checks(torch, np, dev)
-    cells = {arch: lm_cell(torch, np, dev, arch) for arch in LM_CELL_ARCHS}
+    cells = {arch: lm_cell(torch, np, dev, arch)
+             for arch in LM_CELL_ARCHS + LM_MIXER_ARCHS}
     launches = ops.launch_counts()
     if any(launches.values()):
         raise AssertionError(f"the LM path launched a graph kernel: "

@@ -11,6 +11,8 @@ layout, so both packages can load the same tree.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -20,7 +22,7 @@ from repro_torch.core.factions import FactionSpec, FactionTable
 from repro_torch.core.pba import PBAConfig
 from repro_torch.core.pk import PKConfig
 from repro_torch.core.spec import GraphSpec, SeedGraph
-from repro_torch.models.layers import init_scale, tree_map
+from repro_torch.models.layers import init_scale, tree_leaves, tree_map
 from repro_torch.runtime.topology import Topology
 
 # Dataclasses a spec (or spec_digest) may nest, by class name (the names
@@ -80,24 +82,43 @@ def spec_from_fields(fields: dict) -> GraphSpec:
     return GraphSpec(**{k: _port_value(v) for k, v in fields.items()})
 
 
+#: Elements per independently seeded piece of a numpy_params leaf.
+DRAW_CHUNK = 1 << 24
+
+
 def numpy_params(model, seed: int) -> dict:
-    """The parameters of ``model`` (a ``repro_torch.models.Model``) drawn
-    with ``np.random.default_rng(seed)``: each leaf of the spec tree in
-    ``jax.tree_util.tree_flatten``'s order (dict keys sorted, lists in
-    order) by its init kind (``models.layers.init_scale``), as float32
-    numpy arrays in the JAX package's nested layout."""
-    rng = np.random.default_rng(seed)
+    """The parameters of ``model`` (a ``repro_torch.models.Model``) as
+    float32 numpy arrays in the JAX package's nested layout, drawn with
+    numpy by each spec's init kind (``models.layers.init_scale``). Leaf
+    ``i`` of the spec tree, in ``jax.tree_util.tree_flatten``'s order
+    (dict keys sorted, lists in order), is filled flat in pieces of DRAW_CHUNK elements, piece ``j``
+    by ``np.random.default_rng((seed, i, j)).standard_normal``, the
+    pieces in parallel threads (numpy draws outside the GIL): the same
+    tree on any machine, ~5x faster than one stream on 8 cores."""
+    specs = tree_leaves(model.param_specs())
+    arrays = []
+    jobs = []
+    for i, spec in enumerate(specs):
+        if spec.init in ("zeros", "ones"):
+            arrays.append(np.full(spec.shape, spec.init == "ones",
+                                  np.float32))
+            continue
+        arrays.append(np.empty(spec.shape, np.float32))
+        scale = np.float32(init_scale(spec))
+        flat = arrays[-1].reshape(-1)
+        jobs += [(i, j, flat[j * DRAW_CHUNK:(j + 1) * DRAW_CHUNK], scale)
+                 for j in range(-(-flat.size // DRAW_CHUNK))]
 
-    def draw(_, spec):
-        if spec.init == "zeros":
-            return np.zeros(spec.shape, np.float32)
-        if spec.init == "ones":
-            return np.ones(spec.shape, np.float32)
-        out = rng.standard_normal(spec.shape, dtype=np.float32)
-        out *= np.float32(init_scale(spec))
-        return out
+    def fill(job):
+        i, j, out, scale = job
+        np.random.default_rng((seed, i, j)).standard_normal(
+            out=out, dtype=np.float32)
+        out *= scale
 
-    return tree_map(draw, model.param_specs())
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(fill, jobs))
+    leaves = iter(arrays)
+    return tree_map(lambda _, __: next(leaves), model.param_specs())
 
 
 def params_from_numpy(model, tree: dict):

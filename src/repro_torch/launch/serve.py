@@ -8,7 +8,10 @@ The port of the JAX package's ``launch/serve.py``, with its flags, its
 float32 model and its workload (random prompts from
 ``np.random.default_rng(0)``), plus ``--device``. The weights are drawn by
 ``convert.numpy_params(model, seed=0)``, the tree the CPU tests feed both
-packages. Runs on the card unless ``--device cpu``.
+packages. Runs on the card unless ``--device cpu``. The Engine passes
+tokens only, as the JAX package's does, so whisper-medium (which needs
+``frames``) fails here in both packages; serve it through
+``Model.prefill`` and ``Model.decode_step``.
 """
 from __future__ import annotations
 

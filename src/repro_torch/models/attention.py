@@ -1,7 +1,13 @@
-"""Attention: GQA with sliding-window and chunked masks, with KV caches.
+"""Attention: GQA and MLA, with sliding-window and chunked masks and KV
+caches.
 
-The port of the JAX package's ``models/attention.py`` for its GQA half
-(MLA waits for its slice, ROADMAP item 15b). Layer kinds:
+The port of the JAX package's ``models/attention.py``. Variants:
+  * gqa      grouped-query attention, optional QKV bias, RoPE.
+  * mla      multi-head latent attention (MiniCPM3): the cache holds the
+             compressed ``ckv`` and the head-shared ``k_rope``; a decode
+             step is absorbed (q projected into the latent space, scores
+             taken against the compressed cache, which never re-expands).
+Layer kinds:
   * global   full causal attention.
   * local    sliding-window mask; a decode cache longer than the window is
              an O(window) ring buffer.
@@ -26,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.layers import (ParamSpec, TensorStruct, apply_rope,
-                                       rope_freqs)
+                                       rmsnorm, rope_freqs)
 
 BLOCK_Q = 1024
 BLOCK_KV = 1024
@@ -49,6 +55,23 @@ def gqa_specs(cfg, heads: int, kv_heads: int) -> dict:
         specs["bk"] = ParamSpec((kv_heads, hd), ("kv", None), "zeros")
         specs["bv"] = ParamSpec((kv_heads, hd), ("kv", None), "zeros")
     return specs
+
+
+def mla_specs(cfg, heads: int) -> dict:
+    d = cfg.d_model
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wdq": ParamSpec((d, qr), ("embed", None)),
+        "q_norm": ParamSpec((qr,), (None,), "zeros"),
+        "wuq": ParamSpec((qr, heads, nope + rope_d), (None, "heads", None)),
+        "wdkv": ParamSpec((d, kvr), ("embed", None)),
+        "kv_norm": ParamSpec((kvr,), (None,), "zeros"),
+        "wkr": ParamSpec((d, rope_d), ("embed", None)),
+        "wuk": ParamSpec((kvr, heads, nope), (None, "heads", None)),
+        "wuv": ParamSpec((kvr, heads, vd), (None, "heads", None)),
+        "wo": ParamSpec((heads, vd, d), ("heads", None, "embed")),
+    }
 
 
 # ---------------------------------------------------------------- masks
@@ -229,6 +252,83 @@ def gqa_attention(cfg, p, x, kind: str, positions, cache=None,
     return y, cache
 
 
+# ---------------------------------------------------------------- mla module
+
+def mla_attention(cfg, p, x, kind: str, positions, cache=None,
+                  heads: int = 0):
+    """MiniCPM3-style MLA. x: (B, S, D); cache: None or dict(ckv, k_rope)
+    of (B, T, kv_lora_rank) / (B, T, qk_rope_dim), which a prefill writes
+    from slot 0 and a decode step at ``positions[0]``, in place. A prefill
+    expands K and V from the latent and attends through :func:`sdpa`; a
+    decode step attends in the latent space over every slot at or before
+    its position (no window, no chunk). Scores are float32 in both."""
+    b, s, d = x.shape
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+    cq = rmsnorm(x @ p["wdq"].to(x.dtype), p["q_norm"])
+    q = _project(cq, p["wuq"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    cos, sin = rope_freqs(rope_d, cfg.rope_theta, positions)
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    ckv = rmsnorm(x @ p["wdkv"].to(x.dtype), p["kv_norm"])
+    k_rope = apply_rope((x @ p["wkr"].to(x.dtype))[:, :, None, :],
+                        cos, sin)[:, :, 0]  # (B, S, rope_d), head-shared
+
+    decode = cache is not None and s == 1
+    if decode:
+        t = cache["ckv"].shape[1]
+        # dynamic_update_slice clamps the start so the write fits
+        at = positions[:1].clamp(0, t - 1).long()
+        cache["ckv"].index_copy_(1, at, ckv)
+        cache["k_rope"].index_copy_(1, at, k_rope)
+        ckv_all, kr_all = cache["ckv"], cache["k_rope"]
+        k_positions = torch.arange(t, dtype=torch.int32, device=x.device)
+    else:
+        if cache is not None:
+            cache["ckv"][:, :s] = ckv
+            cache["k_rope"][:, :s] = k_rope
+        ckv_all, kr_all = ckv, k_rope
+        k_positions = positions
+
+    scale = (nope + rope_d) ** -0.5
+    wuk, wuv = p["wuk"].to(x.dtype), p["wuv"].to(x.dtype)
+    if decode:
+        # Absorbed decode: project q into latent space; never expand the
+        # cache.
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, wuk)
+        sc = (torch.einsum("bshr,btr->bhst", q_abs.float(), ckv_all.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             kr_all.float())) * scale
+        ok = k_positions[None, :] <= positions[:, None]
+        sc = torch.where(ok, sc, NEG_INF)
+        w = torch.softmax(sc, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhst,btr->bshr", w, ckv_all)
+        out = torch.einsum("bshr,rhk->bshk", ctx, wuv)
+    else:
+        kvr = ckv_all.shape[-1]
+        k_nope = (ckv_all @ wuk.reshape(kvr, heads * nope)).unflatten(
+            -1, (heads, nope))
+        vfull = (ckv_all @ wuv.reshape(kvr, heads * vd)).unflatten(
+            -1, (heads, vd))
+        k_full = torch.cat(
+            [k_nope, kr_all[:, :, None, :].expand(-1, -1, heads, rope_d)],
+            dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        qg = q_full.reshape(b, s, heads, 1, nope + rope_d)
+        out = sdpa(qg, k_full, vfull, kind, cfg.local_window, cfg.chunk_size,
+                   positions, k_positions)
+        out = out.reshape(b, s, heads, vd)
+    y = out.reshape(b, s, heads * vd) @ p["wo"].to(x.dtype).reshape(
+        heads * vd, d)
+    return y, cache
+
+
 def gqa_cache_struct(cfg, batch: int, max_len: int, kv_heads: int, dtype):
     shape = (batch, max_len, kv_heads, cfg.head_dim)
     return dict(k=TensorStruct(shape, dtype), v=TensorStruct(shape, dtype))
+
+
+def mla_cache_struct(cfg, batch: int, max_len: int, dtype):
+    return dict(ckv=TensorStruct((batch, max_len, cfg.kv_lora_rank), dtype),
+                k_rope=TensorStruct((batch, max_len, cfg.qk_rope_dim), dtype))

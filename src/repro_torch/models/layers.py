@@ -44,13 +44,15 @@ class TensorStruct(NamedTuple):
 
 
 def tree_map(fn: Callable, tree, path: tuple = ()):
-    """``fn(path, leaf)`` over a nested dict / list tree (a tuple is a
-    leaf: ``TensorStruct`` is one), leaves visited in
+    """``fn(path, leaf)`` over a nested dict / list / tuple tree (a named
+    tuple is a leaf: ``TensorStruct`` is one), leaves visited in
     ``jax.tree_util.tree_flatten``'s order; returns the same structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], path + (k,)) for k in sorted(tree)}
-    if isinstance(tree, list):
-        return [tree_map(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    if isinstance(tree, list) or (isinstance(tree, tuple)
+                                  and not hasattr(tree, "_fields")):
+        return type(tree)(tree_map(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
     return fn(path, tree)
 
 
@@ -58,6 +60,14 @@ def tree_leaves(tree) -> list:
     """The leaves of ``tree`` in ``tree_flatten``'s order."""
     out: list = []
     tree_map(lambda _, leaf: out.append(leaf), tree)
+    return out
+
+
+def tree_paths(tree) -> list:
+    """The path (a tuple of keys and indices) of each leaf of ``tree``, in
+    ``tree_flatten``'s order."""
+    out: list = []
+    tree_map(lambda path, _: out.append(path), tree)
     return out
 
 
@@ -193,3 +203,25 @@ def embed_tokens(p, tokens, dtype):
 def logits_out(cfg, p, x):
     w = p["head"] if "head" in p else p["tok"]
     return x @ w.to(x.dtype).T
+
+
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv. x: (B, S, C), w: (K, C).
+
+    state: (B, K-1, C) trailing context from the previous segment (decode).
+    Returns (y, new_state): y the sum of the K shifted products in x's
+    dtype, in the reference's order; new_state the last K-1 rows of
+    ``[pad, x]``."""
+    k = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], k - 1) + tuple(x.shape[2:]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
+    s = x.shape[1]
+    w = w.to(x.dtype)
+    y = xp[:, :s] * w[0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * w[i]
+    new_state = xp[:, -(k - 1):] if k > 1 else torch.zeros_like(pad)
+    return y, new_state

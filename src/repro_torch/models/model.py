@@ -1,7 +1,8 @@
 """Top-level model API: build -> specs/init -> prefill / decode_step.
 
-The port of the JAX package's ``models/model.py`` for the dense and vision
-GQA families. ``build_model(cfg, tp)`` resolves the same TP-divisibility
+The port of the JAX package's ``models/model.py``, for every family it
+serves: dense and vision GQA, MoE, MLA, Mamba-2 SSD, RG-LRU hybrids and the
+encoder-decoder. ``build_model(cfg, tp)`` resolves the same TP-divisibility
 padding: query heads pad up to a multiple of the model-axis size; KV heads
 smaller than the axis stay unsharded (replicated); Mamba-2's inner dim
 pads so SSD heads split evenly; the vocab pads to a multiple of ``tp``.
@@ -12,8 +13,16 @@ layout) on the model's device. The reference keeps float32 parameters and
 casts each to the compute dtype at use; casting gives the same values
 every time, so the port stores every weight in the compute dtype once,
 when it is loaded (phi3-medium-14b: 29.3 GB in bf16, 58.6 GB in float32).
-The norms' scales and biases stay float32: the reference computes the
-norms in float32 with them uncast.
+The leaves the reference reads uncast in float32 stay float32
+(``FLOAT32_KEYS``): the norms' scales and biases (``rmsnorm`` casts its
+scale to float32), the MoE router (its logits are float32), the SSD
+decay ``a_log`` and ``dt_bias``, and the RG-LRU's ``lam``; stored in bf16
+they would round before use, and routing would pick other experts.
+
+The encoder-decoder (``family == "audio"``) prefills from ``tokens`` and
+``frames`` (B, encoder_len, d_model): the encoder runs once, each decoder
+layer's cross K/V is projected from its output, and the decode steps
+carry them in the cache (``{"self": ..., "cross": (ck, cv)}``).
 """
 from __future__ import annotations
 
@@ -25,14 +34,20 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (TensorStruct, apply_norm, embed_specs,
                                        embed_tokens, init_tree, logits_out,
-                                       norm_specs, tree_leaves, tree_map)
+                                       norm_specs, tree_leaves, tree_map,
+                                       tree_paths)
 from repro_torch.runtime import spmd
 
-#: Dicts of the tree whose leaves stay float32 (see the module docstring).
-NORM_KEYS = ("norm1", "norm2", "final_norm")
+#: Keys of the tree whose leaves stay float32 (see the module docstring):
+#: the norms (layers', MLA's q/kv, the SSD's gated norm, the encoder-
+#: decoder's), the router, and the SSD's and RG-LRU's decay parameters.
+FLOAT32_KEYS = ("norm1", "norm2", "final_norm", "norm_x", "enc_norm",
+                "q_norm", "kv_norm", "norm", "router", "a_log", "dt_bias",
+                "lam")
 
 
 def _pad_up(x: int, mult: int) -> int:
@@ -77,7 +92,11 @@ class Model(nn.Module):
     def param_specs(self) -> dict:
         cfg = self.cfg
         specs: dict[str, Any] = {"embed": embed_specs(cfg)}
-        specs["stack"] = tf.stack_specs(cfg, self.heads, self.kv_heads)
+        if cfg.family == "audio":
+            specs["encdec"] = encdec_lib.encdec_specs(cfg, self.heads,
+                                                      self.kv_heads)
+        else:
+            specs["stack"] = tf.stack_specs(cfg, self.heads, self.kv_heads)
         specs["final_norm"] = norm_specs(cfg)
         return specs
 
@@ -86,9 +105,9 @@ class Model(nn.Module):
         return sum(math.prod(x.shape) for x in tree_leaves(tree))
 
     def param_dtype(self, path: tuple) -> torch.dtype:
-        """The stored dtype of the leaf at ``path``: float32 for the norms,
-        else the compute dtype."""
-        return torch.float32 if any(k in NORM_KEYS for k in path) \
+        """The stored dtype of the leaf at ``path``: float32 under a key of
+        ``FLOAT32_KEYS``, else the compute dtype."""
+        return torch.float32 if any(k in FLOAT32_KEYS for k in path) \
             else self.compute_dtype
 
     def _require_single_device(self) -> None:
@@ -103,8 +122,7 @@ class Model(nn.Module):
         stored in :meth:`param_dtype`. Shapes must match the specs."""
         self._require_single_device()
         specs = self.param_specs()
-        paths = tree_leaves(tree_map(lambda path, _: path, specs))
-        got = tree_leaves(tree_map(lambda path, _: path, tree))
+        paths, got = tree_paths(specs), tree_paths(tree)
         if got != paths:
             raise ValueError(f"parameter tree paths differ from the specs': "
                              f"{sorted(set(got) ^ set(paths))[:4]}")
@@ -155,41 +173,77 @@ class Model(nn.Module):
         return torch.arange(n, dtype=torch.int32, device=self.device)
 
     @torch.inference_mode()
+    def encode(self, batch):
+        """The encoder-decoder's encoder over ``batch["frames"]``, then each
+        decoder layer's cross K/V: (ck, cv), each (L, B, encoder_len, KV,
+        head_dim)."""
+        cfg = self.cfg
+        if "frames" not in batch:
+            raise ValueError(f"{cfg.name}: the encoder-decoder needs "
+                             "batch['frames'] (B, encoder_len, d_model)")
+        params = self._params()["encdec"]
+        enc = encdec_lib.run_encoder(
+            cfg, params, batch["frames"].to(self.device, self.compute_dtype),
+            self.heads, self.kv_heads)
+        return encdec_lib.project_cross_kv(cfg, params, enc, self.heads,
+                                           self.kv_heads)
+
+    def _stack(self, x, positions, caches, cross_kv=None):
+        """The decoder stack (the encoder-decoder's with ``cross_kv``);
+        returns (x, caches)."""
+        params = self._params()
+        if self.cfg.family == "audio":
+            return encdec_lib.run_decoder(self.cfg, params["encdec"], x,
+                                          positions, caches, cross_kv,
+                                          self.heads, self.kv_heads)
+        return tf.apply_stack(self.cfg, params["stack"], x, positions,
+                              caches, self.heads, self.kv_heads)
+
+    @torch.inference_mode()
     def forward(self, batch) -> torch.Tensor:
         """Teacher-forced logits at every position, (B, S, V), with no
         cache (the pass the training loss takes)."""
         params = self._params()
         x = self._embed(batch)
-        x, _ = tf.apply_stack(self.cfg, params["stack"], x,
-                              self._positions(x.shape[1]), None, self.heads,
-                              self.kv_heads)
+        cross = self.encode(batch) if self.cfg.family == "audio" else None
+        x, _ = self._stack(x, self._positions(x.shape[1]), None, cross)
         x = apply_norm(self.cfg, params["final_norm"], x)
         return logits_out(self.cfg, params["embed"], x)
 
     # ---------------------------------------------------------- serving
 
     def cache_structs(self, batch: int, max_len: int) -> dict:
+        if self.cfg.family == "audio":
+            return encdec_lib.encdec_cache_structs(
+                self.cfg, batch, max_len, self.compute_dtype, self.kv_heads)
         return tf.cache_structs(self.cfg, batch, max_len, self.compute_dtype,
                                 self.kv_heads)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
+        return self._zeros(self.cache_structs(batch, max_len))
+
+    def _zeros(self, structs):
         return tree_map(
             lambda _, s: torch.zeros(s.shape, dtype=s.dtype,
-                                     device=self.device),
-            self.cache_structs(batch, max_len))
+                                     device=self.device), structs)
 
     @torch.inference_mode()
     def prefill(self, batch, max_len: int = 0):
         """Process the prompt; returns (last-position logits (B, 1, V),
-        caches of ``max_len`` positions filled with the prompt's K/V)."""
+        caches of ``max_len`` positions filled with the prompt's K/V or
+        the recurrent states; the encoder-decoder's carry its cross K/V)."""
         params = self._params()
         b, s = batch["tokens"].shape
         max_len = max_len or s
         x = self._embed(batch)
-        caches = self.init_cache(b, max_len)
-        x, caches = tf.apply_stack(self.cfg, params["stack"], x,
-                                   self._positions(s), caches, self.heads,
-                                   self.kv_heads)
+        if self.cfg.family == "audio":
+            cross = self.encode(batch)
+            selfc = self._zeros(self.cache_structs(b, max_len)["self"])
+            x, _ = self._stack(x, self._positions(s), selfc, cross)
+            caches = {"self": selfc, "cross": cross}
+        else:
+            x, caches = self._stack(x, self._positions(s),
+                                    self.init_cache(b, max_len))
         x = apply_norm(self.cfg, params["final_norm"], x[:, -1:])
         return logits_out(self.cfg, params["embed"], x), caches
 
@@ -201,8 +255,10 @@ class Model(nn.Module):
         x = embed_tokens(params["embed"], tokens, self.compute_dtype)
         positions = torch.full((1,), pos, dtype=torch.int32,
                                device=self.device)
-        x, caches = tf.apply_stack(self.cfg, params["stack"], x, positions,
-                                   caches, self.heads, self.kv_heads)
+        if self.cfg.family == "audio":
+            x, _ = self._stack(x, positions, caches["self"], caches["cross"])
+        else:
+            x, caches = self._stack(x, positions, caches)
         x = apply_norm(self.cfg, params["final_norm"], x)
         return logits_out(self.cfg, params["embed"], x), caches
 
@@ -218,11 +274,7 @@ def build_model(cfg: ArchConfig, tp: int = 1,
                 device=None) -> Model:
     """The model of ``cfg`` padded for ``tp``, without parameters (call
     ``init`` or ``convert.params_from_numpy``). Runs on the card unless
-    ``device="cpu"``; raises ``NotImplementedError`` naming the ROADMAP
-    item for the families this slice does not port."""
-    missing = tf.unported_feature(cfg)
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {missing} {tf.UNPORTED}")
+    ``device="cpu"``."""
     device = spmd.resolve_device(device)
     raw = cfg
     heads = cfg.num_heads

@@ -8,45 +8,35 @@ The reference scans the groups with ``lax.scan``; here a Python loop walks
 the stack, each layer reading views of its slice of the stacked params and
 caches (so cache writes land in the stacked buffers, in place).
 
-Every layer = pre-norm mixer (attention) + pre-norm MLP, residual around
-each. The recurrent (RG-LRU), SSD and MoE blocks and MLA are ported in a
-later slice (ROADMAP item 15b); remat belongs to training (item 15c).
+Every layer = pre-norm mixer (GQA or MLA attention, RG-LRU or SSD) +
+pre-norm MLP (dense or MoE), residual around each; remat belongs to
+training (ROADMAP item 15c). The MoE layers' load-balancing loss is
+dropped here: serving does not use it.
 """
 from __future__ import annotations
 
 from typing import Any
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamSpec, TensorStruct, apply_mlp,
                                        apply_norm, mlp_specs, norm_specs,
                                        tree_map)
 
 ATTN_KINDS = ("global", "local", "chunked", "bidir")
-UNPORTED = "is not ported yet (ROADMAP item 15b)"
-
-
-def unported_feature(cfg) -> str:
-    """What of ``cfg`` this slice cannot build ("" if nothing): MLA, MoE,
-    the encoder-decoder, or a recurrent / SSD layer kind."""
-    if cfg.family == "audio" or cfg.encoder_layers:
-        return "the encoder-decoder stack"
-    if cfg.attention == "mla":
-        return "MLA attention"
-    if cfg.moe:
-        return "the MoE MLP"
-    other = sorted(set(cfg.layer_pattern) - set(ATTN_KINDS))
-    if other:
-        return f"layer kind(s) {', '.join(other)}"
-    return ""
 
 
 def mixer_specs(cfg, kind: str, heads: int, kv_heads: int) -> dict:
     if kind in ATTN_KINDS:
         if cfg.attention == "mla":
-            raise NotImplementedError(f"MLA attention {UNPORTED}")
+            return attn.mla_specs(cfg, heads)
         return attn.gqa_specs(cfg, heads, kv_heads)
-    if kind in ("rec", "ssm"):
-        raise NotImplementedError(f"layer kind {kind!r} {UNPORTED}")
+    if kind == "rec":
+        return rglru_lib.rglru_specs(cfg)
+    if kind == "ssm":
+        return ssm_lib.ssm_specs(cfg)
     raise ValueError(f"unknown layer kind {kind}")
 
 
@@ -56,22 +46,38 @@ def layer_specs(cfg, kind: str, heads: int, kv_heads: int) -> dict:
         "mixer": mixer_specs(cfg, kind, heads, kv_heads),
     }
     if cfg.moe:
-        raise NotImplementedError(f"the MoE MLP {UNPORTED}")
-    if cfg.d_ff:
+        specs["norm2"] = norm_specs(cfg)
+        specs["mlp"] = moe_lib.moe_specs(cfg)
+    elif cfg.d_ff:
         specs["norm2"] = norm_specs(cfg)
         specs["mlp"] = mlp_specs(cfg)
+    # d_ff == 0 (mamba2): mixer-only block, no MLP sublayer
     return specs
 
 
 def apply_layer(cfg, p, kind: str, x, positions, cache, heads: int,
                 kv_heads: int):
     h = apply_norm(cfg, p["norm1"], x)
-    h, new_cache = attn.gqa_attention(cfg, p["mixer"], h, kind, positions,
-                                      cache, heads, kv_heads)
+    if kind in ATTN_KINDS:
+        if cfg.attention == "mla":
+            h, new_cache = attn.mla_attention(cfg, p["mixer"], h, kind,
+                                              positions, cache, heads)
+        else:
+            h, new_cache = attn.gqa_attention(cfg, p["mixer"], h, kind,
+                                              positions, cache, heads,
+                                              kv_heads)
+    elif kind == "rec":
+        h, new_cache = rglru_lib.apply_rglru(cfg, p["mixer"], h, cache)
+    else:
+        h, new_cache = ssm_lib.apply_ssm(cfg, p["mixer"], h, cache)
     x = x + h
     if "mlp" in p:
         h = apply_norm(cfg, p["norm2"], x)
-        x = x + apply_mlp(cfg, p["mlp"], h)
+        if cfg.moe:
+            h, _ = moe_lib.apply_moe(cfg, p["mlp"], h)
+        else:
+            h = apply_mlp(cfg, p["mlp"], h)
+        x = x + h
     return x, new_cache
 
 
@@ -99,7 +105,9 @@ def stack_specs(cfg, heads: int, kv_heads: int) -> dict:
 
 def mixer_cache_struct(cfg, kind: str, batch: int, max_len: int, dtype,
                        kv_heads: int):
-    if kind in ATTN_KINDS and cfg.attention != "mla":
+    if kind in ATTN_KINDS:
+        if cfg.attention == "mla":
+            return attn.mla_cache_struct(cfg, batch, max_len, dtype)
         # Local-attention layers keep an O(window) ring buffer. Chunked
         # layers stay full-length (their sibling global layers need the
         # full cache anyway).
@@ -107,8 +115,9 @@ def mixer_cache_struct(cfg, kind: str, batch: int, max_len: int, dtype,
             return attn.gqa_cache_struct(cfg, batch, cfg.local_window,
                                          kv_heads, dtype)
         return attn.gqa_cache_struct(cfg, batch, max_len, kv_heads, dtype)
-    raise NotImplementedError(f"the cache of layer kind {kind!r} with "
-                              f"{cfg.attention} attention {UNPORTED}")
+    if kind == "rec":
+        return rglru_lib.rglru_cache_struct(cfg, batch, dtype)
+    return ssm_lib.ssm_cache_struct(cfg, batch, dtype)
 
 
 def cache_structs(cfg, batch: int, max_len: int, dtype, kv_heads: int) -> dict:

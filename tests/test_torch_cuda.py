@@ -821,12 +821,17 @@ def test_analytics_on_the_card_equal_the_cpu(dev, monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "stablelm-1.6b",
-                                  "phi3-medium-14b", "phi-3-vision-4.2b"])
+                                  "phi3-medium-14b", "phi-3-vision-4.2b",
+                                  "llama4-scout-17b-a16e",
+                                  "qwen3-moe-235b-a22b", "minicpm3-4b",
+                                  "mamba2-130m", "recurrentgemma-2b",
+                                  "whisper-medium"])
 def test_lm_serving_on_the_card_equals_the_cpu(dev, arch):
-    """The LM serving path of each reduced GQA arch in float32 (TF32 off):
-    the card's Engine completions and prefill / decode logits against the
-    port on the CPU, with chip_smoke's check (rtol/atol 1e-4; a token
-    chosen by a top-2 margin under 1e-3 ends its completion's check)."""
+    """The LM serving path of each reduced arch in float32 (TF32 off):
+    the card's Engine completions (none for the encoder-decoder) and
+    prefill / decode logits against the port on the CPU, with
+    chip_smoke's check (rtol/atol 1e-4; a token chosen by a top-2 margin
+    under 1e-3 ends its completion's check)."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -845,6 +850,7 @@ def test_lm_serving_on_the_card_equals_the_cpu(dev, arch):
     args = (chip_smoke.LM_REDUCED_WORKLOAD, chip_smoke.LM_SEED)
     want = chip_smoke.lm_record(
         np, *chip_smoke.lm_port_outputs(torch, np, cpu, *args))
-    comps, _, logits = chip_smoke.lm_port_outputs(torch, np, card, *args)
+    comps, _, logits, _ = chip_smoke.lm_port_outputs(torch, np, card,
+                                                     *args)
     assert chip_smoke.lm_mismatches(np, comps, logits, want, 1e-4,
                                     1e-4) == []

@@ -13,6 +13,9 @@ needs them non-zero; module weights are drawn at 1/sqrt(fan_in), so
 outputs are O(1) and 1e-5 is a tolerance on rounding, not on scale.
 """
 import dataclasses
+import importlib
+import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,9 +38,10 @@ from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
 
-LM_ARCHS = ["qwen1.5-0.5b", "stablelm-1.6b", "phi3-medium-14b",
-            "phi-3-vision-4.2b"]
-UNPORTED = sorted(set(ARCH_IDS) - set(LM_ARCHS))
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (lm_layer_fan_in, lm_reference_params)
+
+LM_ARCHS = list(ARCH_IDS)
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2.0 ** -6, atol=2.0 ** -6, scaled=True)
 
@@ -156,14 +160,6 @@ def test_qwen_count_params():
                        device="cpu").count_params() == 463_987_712
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 15b"):
-        build_model(get_config(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 15b"):
-        build_model(get_config(arch).reduced(), device="cpu")
-
-
 def test_tensor_parallel_models_hold_no_parameters():
     model = build_model(get_config("qwen1.5-0.5b").reduced(), tp=2,
                         device="cpu")
@@ -195,33 +191,64 @@ def test_init_draws_each_kind_in_its_dtype():
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
                                                  again.parameters()))
     assert sum(p.numel() for p in model.parameters()) == model.count_params()
+    wide = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(3))
+    chip_smoke.lm_layer_fan_in(wide)
+    np.testing.assert_allclose(
+        wide.tree["stack"]["groups"][0]["mixer"]["wq"].float().numpy(),
+        (layer["mixer"]["wq"].float() * np.sqrt(n / cfg.d_model)).numpy(),
+        rtol=2 ** -7)
+    assert torch.equal(wide.tree["embed"]["tok"], tree["embed"]["tok"])
     assert any(k.endswith("groups.0.mixer.wq")
                for k in model.state_dict())
 
 
-def test_numpy_params_draw_in_jax_tree_order():
+@pytest.mark.parametrize("chunk", [convert.DRAW_CHUNK, 1000])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama4-scout-17b-a16e",
+                                  "recurrentgemma-2b", "whisper-medium"])
+def test_numpy_params_draw_in_jax_tree_order(arch, chunk, monkeypatch):
     """numpy_params walks the spec tree in tree_flatten's order: drawing
-    the JAX package's own spec leaves in that order gives the same
-    arrays."""
-    cfg = get_config("qwen1.5-0.5b").reduced()
+    the JAX package's own spec leaves in that order, leaf i's piece j of
+    ``chunk`` elements from default_rng((seed, i, j)), gives the same
+    arrays (every init kind: zeros, ones, small, normal, fan_in; MoE's
+    router, experts and shared expert, the encoder-decoder's stacks).
+    chip_smoke.lm_reference_params: the same draws, a stacked matrix
+    rescaled to one layer's fan-in."""
+    monkeypatch.setattr(convert, "DRAW_CHUNK", chunk)
+    cfg = get_config(arch).reduced()
     model = build_model(cfg, device="cpu")
     tree = convert.numpy_params(model, seed=5)
-    rng = np.random.default_rng(5)
+    per_layer = chip_smoke.lm_reference_params(convert, model, seed=5)
     specs, _ = jax.tree_util.tree_flatten(
-        jbuild(jget_config("qwen1.5-0.5b").reduced()).param_specs(),
+        jbuild(jget_config(arch).reduced()).param_specs(),
         is_leaf=lambda x: isinstance(x, JParamSpec))
     got = tlayers.tree_leaves(tree)
     assert len(got) == len(specs)
-    for a, s in zip(got, specs):
+    kinds = set()
+    for i, (a, b, s) in enumerate(zip(got, tlayers.tree_leaves(per_layer),
+                                      specs)):
+        kinds.add(s.init)
         if s.init in ("zeros", "ones"):
             want = np.full(s.shape, 1.0 if s.init == "ones" else 0.0)
         else:
             scale = {"small": 0.01, "normal": 1.0}.get(
                 s.init, 1 / np.sqrt(s.shape[0] if len(s.shape) >= 2
                                     else max(s.shape[0], 1)))
-            want = rng.standard_normal(s.shape, dtype=np.float32) * \
+            n = int(np.prod(s.shape))
+            want = np.concatenate([
+                np.random.default_rng((5, i, j)).standard_normal(
+                    min(chunk, n - j * chunk), dtype=np.float32)
+                for j in range(-(-n // chunk))]).reshape(s.shape) * \
                 np.float32(scale)
         assert a.dtype == np.float32 and np.array_equal(a, want)
+        if s.init == "fan_in" and s.axes[0] == "layers" and len(s.shape) > 2:
+            np.testing.assert_allclose(
+                b, a * np.float32(np.sqrt(s.shape[0] / s.shape[1])),
+                rtol=1e-6)
+        else:
+            assert np.array_equal(a, b)
+    assert {"zeros", "small", "fan_in"} <= kinds
+    assert ("normal" in kinds) == (arch == "recurrentgemma-2b")
 
 
 # ---------------------------------------------------------------- layers
@@ -366,12 +393,15 @@ def test_sdpa_blockwise_matches(kind):
 @pytest.fixture(scope="module")
 def perturbed_models():
     """Each arch's reduced model in both packages, float32, on one
-    perturbed numpy tree."""
+    perturbed numpy tree (stacked matrices at one layer's fan-in: at the
+    reference init's 1/sqrt(depth) a shallow stack amplifies float32
+    rounding past 1e-5, see chip_smoke.lm_reference_params)."""
     out = {}
     for arch in LM_ARCHS:
         model = build_model(get_config(arch).reduced(),
                             compute_dtype=torch.float32, device="cpu")
-        tree = _perturbed(convert.numpy_params(model, seed=1), seed=2)
+        tree = _perturbed(chip_smoke.lm_reference_params(convert, model,
+                                                         seed=1), seed=2)
         convert.params_from_numpy(model, tree)
         jmodel = jbuild(jget_config(arch).reduced(), compute_dtype=jnp.float32)
         out[arch] = (model, jmodel,
@@ -382,7 +412,8 @@ def perturbed_models():
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_model_prefill_and_decode_match(arch, perturbed_models):
     """Prefill logits and every cache, then three decode steps (the
-    vision arch with image embeddings spliced over its first positions)."""
+    vision arch with image embeddings spliced over its first positions,
+    the encoder-decoder with frames), then the teacher-forced pass."""
     model, jmodel, jparams = perturbed_models[arch]
     cfg = model.cfg
     rng = np.random.default_rng(4)
@@ -392,6 +423,9 @@ def test_model_prefill_and_decode_match(arch, perturbed_models):
     if cfg.num_patches:
         tb["image_embeds"], jb["image_embeds"] = _pair(
             rng, (2, cfg.num_patches, cfg.d_model))
+    if cfg.family == "audio":
+        tb["frames"], jb["frames"] = _pair(
+            rng, (2, cfg.encoder_len, cfg.d_model))
     tl, tc = model.prefill(tb, max_len=24)
     jl, jc = jmodel.prefill(jparams, jb, max_len=24)
     _close(tl, jl, F32)
@@ -417,7 +451,7 @@ def test_model_prefill_and_decode_match(arch, perturbed_models):
         _close(tl, jl, F32)
         caches_close()
     if not cfg.num_patches:
-        full = model({"tokens": torch.from_numpy(tokens)})
+        full = model(dict(tb, tokens=torch.from_numpy(tokens)))
         _close(full[:, 20], tl[:, 0], dict(rtol=2e-3, atol=2e-3))
 
 
@@ -468,3 +502,112 @@ def test_stack_layout_and_views():
     assert [k for k, _, _ in views] == list(cfg.layer_kinds())
     views[2][2]["k"].fill_(1.0)
     assert caches["groups"][0]["k"][1].eq(1.0).all()
+
+
+# ---------------------------------------------------------------- float64
+
+class _Dtypes:
+    """A module (``torch`` or ``jax.numpy``) whose float32 is float64."""
+
+    def __init__(self, module, wide):
+        self._module, self.float32 = module, wide
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+MODEL_MODULES = ("attention", "encdec", "layers", "model", "moe", "rglru",
+                 "ssm", "transformer")
+
+
+def float64_witness(arch: str, num_layers: int, d_model: int = 0) -> dict:
+    """Both packages on one reference-init tree (numpy_params, stacked
+    leaves at 1/sqrt(depth)) of ``arch``'s reduced config at
+    ``num_layers`` (and ``d_model``): the last-position logits of an
+    18-token prefill and three decode steps, in float32 and wholly in
+    float64 (every float32 the modules name is float64 there). The
+    relative L2 (largest over steps) of the port against the JAX package
+    in each, and of each package's float32 run against its float64 one:
+    where the first is far above the second, the packages compute other
+    functions; where it is of the order of the last two, float32
+    rounding, amplified by the stack, is all that parts them."""
+    kw = dict(num_layers=num_layers, **({"d_model": d_model} if d_model
+                                        else {}))
+    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), **kw)
+    tree = convert.numpy_params(build_model(cfg, device="cpu"), seed=1)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 21))
+
+    def run(tdt, jdt):
+        model = build_model(cfg, compute_dtype=tdt, device="cpu")
+        convert.params_from_numpy(model, tree)
+        assert {p.dtype for p in model.parameters()} == {tdt}
+        jmodel = jbuild(jcfg, compute_dtype=jdt)
+        jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jdt), tree)
+        tl, tc = model.prefill({"tokens": torch.from_numpy(tokens[:, :18])},
+                               max_len=24)
+        jl, jc = jmodel.prefill(jp, {"tokens": jnp.asarray(tokens[:, :18])},
+                                max_len=24)
+        out = [(tl, jl)]
+        for i in range(18, 21):
+            tl, tc = model.decode_step(torch.from_numpy(tokens[:, i:i + 1]),
+                                       tc, i)
+            jl, jc = jmodel.decode_step(jp, jnp.asarray(tokens[:, i:i + 1]),
+                                        jc, jnp.int32(i))
+            out.append((tl, jl))
+        assert tl.dtype == tdt and jl.dtype == jdt
+        return (np.stack([t[:, -1].double().numpy() for t, _ in out], 1),
+                np.stack([np.asarray(j[:, -1], np.float64) for _, j in out],
+                         1))
+
+    def rel(a, b):
+        return float((np.linalg.norm(a - b, axis=-1) /
+                      np.linalg.norm(b, axis=-1)).max())
+
+    t32, j32 = run(torch.float32, jnp.float32)
+    saved = []
+    jax.config.update("jax_enable_x64", True)
+    try:
+        for name in MODEL_MODULES:
+            for mod, attr, wide in (
+                    (importlib.import_module("repro.models." + name), "jnp",
+                     jnp.float64),
+                    (importlib.import_module("repro_torch.models." + name),
+                     "torch", torch.float64)):
+                if hasattr(mod, attr):
+                    saved.append((mod, attr, getattr(mod, attr)))
+                    setattr(mod, attr, _Dtypes(getattr(mod, attr), wide))
+        saved.append((torch.Tensor, "float", torch.Tensor.float))
+        torch.Tensor.float = torch.Tensor.double
+        t64, j64 = run(torch.float64, jnp.float64)
+    finally:
+        for mod, attr, value in reversed(saved):
+            setattr(mod, attr, value)
+        jax.config.update("jax_enable_x64", False)
+    return {"arch": arch, "num_layers": num_layers, "d_model": cfg.d_model,
+            "float32_port_vs_jax": rel(t32, j32),
+            "float64_port_vs_jax": rel(t64, j64),
+            "jax_float32_vs_float64": rel(j32, j64),
+            "port_float32_vs_float64": rel(t32, t64)}
+
+
+def test_reference_init_agrees_in_float64():
+    """At the reference init a deep recurrentgemma stack parts the two
+    packages' float32 logits by far more than the 1e-5 the model tests
+    hold (the reason they draw at one layer's fan-in); wholly in float64
+    the packages agree, and in float32 they are no further apart than
+    the JAX package's own float32 run is from its float64 one."""
+    got = float64_witness("recurrentgemma-2b", 8)
+    assert got["float32_port_vs_jax"] > 1e-4, got
+    assert got["float64_port_vs_jax"] < 1e-9, got
+    assert got["float32_port_vs_jax"] < 4 * got["jax_float32_vs_float64"], \
+        got
+    assert torch.Tensor.float is not torch.Tensor.double
+    assert not jax.config.jax_enable_x64
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_lm_models.py ARCH LAYERS [D_MODEL]: the
+    # float64 witness's readings at that size.
+    print(float64_witness(sys.argv[1], int(sys.argv[2]),
+                          int(sys.argv[3]) if len(sys.argv) > 3 else 0))
