@@ -147,9 +147,37 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     position on (at most 0.85 of that reading, as the bf16 teacher gap
     also is), then the float32 contract above (mamba2 too, its bf16
     readings printed).
- 9. the seconds from the start to each phase's end; the kernels line
-    (with each kernel's launches in the distributed runs; histogram's
-    also in the analytics runs), then
+ 9. lm_train: the LM training path (repro_torch.train, launch/train.py).
+    The walk corpus (launch/train.py's: PBA, 8192 vertices, 8 logical
+    procs, k = 8) generated on the card with its launch counts set to 0
+    just before and read just after: resolve_roots, gather and histogram
+    launched, no fallback. Every case of
+    src/repro_torch/reference_train.json (made by the JAX package on the
+    CPU in float32: each config's reduced() and qwen1.5-0.5b at its
+    published widths with 2 layers, params from lm_reference_params, three
+    AdamW steps on the corpus's batches) runs on the card in float32 (TF32
+    off): the corpus digest equal, step 1's loss and grad norm within rtol
+    1e-4, steps 2-3 within TRAIN_LATER_RTOL, three parameter checksums
+    within 1e-3; the MoE cases print the card's least router margin beside
+    the file's. Then the training cell at full width: qwen1.5-0.5b (24
+    layers, 463,987,712 parameters), float32 masters, bf16 compute, remat
+    "nothing", 8 x 512 tokens per step from the card's corpus, 10 steps
+    timed one by one (ms/step, tokens/s, peak device memory, the model
+    FLOPs' share of the bf16 peak), then a profiled step (the card's idle
+    share, device ops per step); gates: the loss descends and every loss
+    and grad norm is finite, accum=2 gives step 1's loss and grad norm
+    within TRAIN_ACCUM_RTOL of accum=1, bf16 against float32 on step 1's
+    weights and batch (the loss, the grad norm and every leaf's gradient,
+    each within its TRAIN_BF16_* bound and each control past it), and
+    the trained state's checkpoint (~5.6 GB: parameters, m and v in
+    float32) saves and loads back bit for bit (seconds and bytes printed;
+    deleted after). Last, restart-exactness at reduced() for qwen1.5-0.5b
+    and qwen3-moe (2 steps, a checkpoint, a fresh model, optimizer and
+    corpus restored from it, 2 more steps, against 4 straight), bit for
+    bit under torch.use_deterministic_algorithms.
+10. the seconds from the start to each phase's end; the kernels line
+    (with each kernel's launches in the distributed runs and in the
+    training corpus's build; histogram's also in the analytics runs), then
     {"ok": true, "device": {...}} as the last line.
 
 Exits with a non-zero code and prints no result when CUDA is not
@@ -2856,6 +2884,564 @@ def lm_serve_phase(torch, np, dev) -> dict:
     return cells
 
 
+# --- phase 9: the LM training path -------------------------------------------------
+
+# The walk corpus of launch/train.py (the port's PBA on the card, 8192
+# vertices over 8 logical procs, k = 8): building it launches these graph
+# kernels (host execution; pk_expand only for a PK corpus).
+TRAIN_CORPUS = {"generator": "pba", "num_vertices": 8192, "seed": 0}
+TRAIN_CORPUS_KERNELS = ("resolve_roots", "gather", "histogram")
+# The reference cases of reference_train.json (made by the JAX package on
+# the CPU in float32): each config's reduced() and qwen1.5-0.5b at full
+# width with its depth cut (LM_FULL_LAYERS), params from
+# lm_reference_params, TRAIN_REF_STEPS AdamW steps on corpus batches of
+# (batch, seq), the launcher's audio and vision stubs from default_rng(1).
+TRAIN_REF_STEPS = 3
+TRAIN_REF_SHAPES = {"reduced": (4, 32), "full_width": (2, 64)}
+TRAIN_REF_OPT = {"lr": 1e-3, "warmup_steps": 2}
+# Card (float32, TF32 off) against the file. Step 1's loss and grad norm
+# come before any update: rtol 1e-4. Steps 2-3 follow updates whose signs
+# Adam takes from gradients of any size, so a gradient near 0 that differs
+# in sign moves its weight by 2 lr: on the CPU the port's steps 2-3 read
+# up to 4.5e-7 (loss) and 3.7e-5 (grad norm) from the JAX package's
+# (tests/test_torch_train.py), so steps 2-3 are held at 1e-4 and 1e-3;
+# the parameter checksums (float64 sums of magnitudes and of squares of three
+# leaves after the last step) at 1e-3.
+TRAIN_REF_RTOL = 1e-4
+TRAIN_LATER_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
+TRAIN_CHECKSUM_RTOL = 1e-3
+# The proposed training cell: qwen1.5-0.5b at full width (24 layers,
+# 463,987,712 parameters), float32 masters, bf16 compute, remat "nothing",
+# 8 x 512 tokens per step from the card's corpus, TRAIN_CELL["steps"]
+# steps (then the profiled ones).
+TRAIN_CELL = {"arch": "qwen1.5-0.5b", "batch": 8, "seq": 512, "steps": 10,
+              "remat": "nothing"}
+TRAIN_CELL_OPT = {"lr": 1e-3, "warmup_steps": 5}
+# bf16 against float32 on step 1's weights and batch (train_precision):
+# the loss and the grad norm (relative) and the worst leaf's gradient
+# (relative L2). Each bound sits between the sound reading and a control
+# that a wrong answer would read: the loss of constant logits (ln V; at
+# initialisation every loss sits near it, so the loss alone separates
+# little), the float32 grad norm and leaf gradients of the next batch. The
+# run fails if a control falls within its bound. accum=2 against accum=1:
+# step 1's loss and grad norm, relative, bf16. All were predicted in
+# PERF.md before their first run on the card.
+TRAIN_BF16_LOSS_RTOL = 2.0 ** -14
+TRAIN_BF16_GRAD_NORM_RTOL = 2.0 ** -8
+TRAIN_BF16_LEAF_REL_L2 = 2.0 ** -4
+TRAIN_ACCUM_RTOL = 2.0 ** -8
+# Restart-exactness: TRAIN_RESTART_STEPS[0] steps, a checkpoint, a fresh
+# model, optimizer and corpus restored from it, TRAIN_RESTART_STEPS[1]
+# more steps, against the same steps run straight; bit for bit, under
+# torch.use_deterministic_algorithms (the embedding backward and the MoE
+# dispatch accumulate with atomics on CUDA otherwise).
+TRAIN_RESTART_ARCHS = ("qwen1.5-0.5b", "qwen3-moe-235b-a22b")
+TRAIN_RESTART_STEPS = (2, 2)
+
+
+@contextlib.contextmanager
+def env_var(name: str, value: str):
+    """The environment variable ``name`` set to ``value`` inside the block,
+    restored (or unset) after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def train_corpus(dev, vocab_size: int):
+    """launch/train.py's walk corpus for ``vocab_size``, generated on
+    ``dev``."""
+    from repro_torch.train.data import WalkCorpus, WalkCorpusConfig
+    return WalkCorpus(WalkCorpusConfig(vocab_size=vocab_size, **TRAIN_CORPUS),
+                      device=dev)
+
+
+def train_batches(np, corpus, cfg, steps: int, batch: int, seq: int,
+                  accum: int = 1) -> list:
+    """``steps`` batches from ``corpus`` ((accum, batch // accum, seq)
+    numpy leaves), each with launch/train.py's audio and vision stubs drawn
+    from default_rng(1) in its order."""
+    from repro_torch.train.data import batches
+    it = batches(corpus, batch, seq, accum=accum)
+    rng = np.random.default_rng(1)
+    out = []
+    for _ in range(steps):
+        b = next(it)
+        mb = batch // accum
+        if cfg.family == "audio":
+            b["frames"] = rng.normal(size=(
+                accum, mb, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+        if cfg.num_patches:
+            b["image_embeds"] = rng.normal(size=(
+                accum, mb, cfg.num_patches, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def corpus_sha256(np, batches: list) -> str:
+    """sha256 of the batches' tokens and labels (int32, in order)."""
+    h = hashlib.sha256()
+    for b in batches:
+        for k in ("tokens", "labels"):
+            h.update(np.ascontiguousarray(b[k], np.int32).tobytes())
+    return h.hexdigest()
+
+
+def train_checksums(np, named: dict) -> dict:
+    """{path: [float64 sum of magnitudes, float64 sum of squares]} of
+    ``named`` (path -> float array): the embedding, the final norm and the
+    tree's last leaf. Not the plain sum, which cancels: Adam's +-lr steps on
+    near-zero gradients move it by more than its share."""
+    last = sorted(named)[-1]
+    out = {}
+    for key in ("embed/tok", "final_norm/scale", last):
+        a = np.asarray(named[key], np.float64)
+        out[key] = [float(np.abs(a).sum()), float(np.square(a).sum())]
+    return out
+
+
+def train_port_record(torch, np, model, tree, batches: list,
+                      opt: dict) -> dict:
+    """The port's side of a training reference case: ``len(batches)``
+    steps of make_train_step from ``tree`` (float32 masters), each step's
+    loss, grad norm and lr, the checksums after the last step and, for
+    MoE, the least router margin of step 1's forward."""
+    from repro_torch.models.layers import tree_leaves, tree_paths
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    params = model.master_params(tree)
+    state = init_opt_state(params)
+    step = make_train_step(model, AdamWConfig(**opt))
+    rec = {"loss": [], "grad_norm": [], "lr": []}
+    if model.cfg.moe:
+        first = {k: torch.from_numpy(v[0]).to(model.device)
+                 for k, v in batches[0].items()}
+        with torch.no_grad(), lm_moe_calls(lm_router_margin) as routed:
+            model.loss(first, params)
+        rec["least_router_margin"] = min(routed)
+    for b in batches:
+        params, state, m = step(params, state, b)
+        for k in ("loss", "grad_norm", "lr"):
+            rec[k].append(float(m[k]))
+    rec["checksums"] = train_checksums(np, {
+        "/".join(map(str, p)): t.detach().cpu().numpy()
+        for p, t in zip(tree_paths(params), tree_leaves(params))})
+    return rec
+
+
+def train_mismatches(got: dict, want: dict, rtol: float, later: dict,
+                     checksum_rtol: float) -> list:
+    """Where ``got`` (train_port_record) leaves ``want`` (a reference
+    case): step 1's loss and grad norm past ``rtol``, later steps' past
+    ``later[metric]``, the learning rates unequal (past 1e-7), a checksum
+    past ``checksum_rtol``."""
+    bad = []
+
+    def off(a, b, tol):
+        return abs(a - b) > tol * abs(b)
+    for k in ("loss", "grad_norm"):
+        for i, (a, b) in enumerate(zip(got[k], want[k])):
+            if off(a, b, rtol if i == 0 else later[k]):
+                bad.append(f"step {i + 1} {k} {a!r} vs {b!r}")
+    for i, (a, b) in enumerate(zip(got["lr"], want["lr"])):
+        if off(a, b, 1e-7):
+            bad.append(f"step {i + 1} lr {a!r} vs {b!r}")
+    for key, want_sums in want["checksums"].items():
+        got_sums = got["checksums"][key]
+        if any(off(a, b, checksum_rtol) for a, b in zip(got_sums, want_sums)):
+            bad.append(f"checksum {key} {got_sums} vs {want_sums}")
+    return bad
+
+
+def train_reference_checks(torch, np, dev, corpora: dict) -> list:
+    """Every case of reference_train.json on the card in float32 (TF32
+    off): the corpus's digest, then the steps against the file's."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the float32 checks "
+                             "need them off (PyTorch's default)")
+    with open(os.path.join(HERE, "src", "repro_torch",
+                           "reference_train.json")) as f:
+        ref = json.load(f)
+    rows = []
+    for name, case in sorted(ref["cases"].items()):
+        t0 = time.perf_counter()
+        cfg = lm_config(get_config, case["arch"], case["width"])
+        if cfg.vocab_size not in corpora:
+            corpora[cfg.vocab_size] = train_corpus(dev, cfg.vocab_size)
+        corpus = corpora[cfg.vocab_size]
+        corpus.restore({"cursor": 0, "seed": TRAIN_CORPUS["seed"]})
+        batches = train_batches(np, corpus, cfg, TRAIN_REF_STEPS,
+                                case["batch"], case["seq"])
+        digest = corpus_sha256(np, batches)
+        model = build_model(cfg, compute_dtype=torch.float32, device=dev)
+        tree = lm_reference_params(convert, model)
+        got = train_port_record(torch, np, model, tree, batches,
+                                case["opt"])
+        del tree
+        bad = train_mismatches(got, case, TRAIN_REF_RTOL, TRAIN_LATER_RTOL,
+                               TRAIN_CHECKSUM_RTOL)
+        if digest != case["corpus_sha256"]:
+            bad.insert(0, f"corpus digest {digest}")
+        row = {"phase": "lm_train_reference", "case": name,
+               "num_layers": cfg.num_layers, "params": model.count_params(),
+               "batch": case["batch"], "seq": case["seq"],
+               "loss": got["loss"], "file_loss": case["loss"],
+               "grad_norm": got["grad_norm"],
+               "file_grad_norm": case["grad_norm"],
+               "rtol_step1": TRAIN_REF_RTOL, "rtol_later": TRAIN_LATER_RTOL,
+               "mismatches": bad, "wall_s": time.perf_counter() - t0}
+        if "least_router_margin" in case:
+            row["least_router_margin"] = {
+                "card": got["least_router_margin"],
+                "reference": case["least_router_margin"]}
+        emit(row)
+        rows.append(row)
+        if bad:
+            raise AssertionError(f"{name}: the card's training steps differ "
+                                 f"from the JAX package's: {bad}")
+        del model
+        torch.cuda.empty_cache()
+    return rows
+
+
+def loss_and_grads(torch, model, params, batch: dict) -> tuple:
+    """``model.loss`` of ``batch`` (tensors on the card) at a fresh copy of
+    the master ``params``, and its float32 gradients, leaf by leaf."""
+    from repro_torch.models.layers import tree_leaves
+    p = model.master_params(params)
+    loss = model.loss(batch, p)
+    grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), [g.float() for g in grads]
+
+
+def train_precision(torch, bf16, f32, params, batch: dict,
+                    next_batch: dict) -> dict:
+    """The ``bf16`` model's loss, grad norm and leaf gradients at
+    ``params`` on ``batch`` against the ``f32`` model's, each beside its
+    control (TRAIN_BF16_LOSS_RTOL's comment) and bound: the loss of constant
+    logits and the float32 loss, grad norm and gradients of ``next_batch``;
+    the leaves' worst reading against the controls' least."""
+    from repro_torch.models.layers import tree_paths
+
+    def l2(x):
+        return float(torch.linalg.vector_norm(x, dtype=torch.float64))
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    names = ["/".join(map(str, p)) for p in tree_paths(params)]
+    l16, g16 = loss_and_grads(torch, bf16, params, batch)
+    l32, g32 = loss_and_grads(torch, f32, params, batch)
+    leaf16 = [l2(a - b) / l2(b) for a, b in zip(g16, g32)]
+    n16 = math.sqrt(sum(l2(g) ** 2 for g in g16))
+    del g16
+    n32 = math.sqrt(sum(l2(g) ** 2 for g in g32))
+    lnext, gnext = loss_and_grads(torch, f32, params, next_batch)
+    leafnext = [l2(a - b) / l2(b) for a, b in zip(gnext, g32)]
+    nnext = math.sqrt(sum(l2(g) ** 2 for g in gnext))
+    del g32, gnext
+    worst = max(range(len(names)), key=leaf16.__getitem__)
+    least = min(range(len(names)), key=leafnext.__getitem__)
+    return {
+        "loss": {"bf16": l16, "float32": l32, "rel": rel(l16, l32),
+                 "control_constant_logits": rel(
+                     math.log(f32.cfg.vocab_size), l32),
+                 "next_batch_rel": rel(lnext, l32),
+                 "bound": TRAIN_BF16_LOSS_RTOL},
+        "grad_norm": {"bf16": n16, "float32": n32, "rel": rel(n16, n32),
+                      "control_next_batch": rel(nnext, n32),
+                      "bound": TRAIN_BF16_GRAD_NORM_RTOL},
+        "leaf_rel_l2": {"worst": leaf16[worst], "worst_leaf": names[worst],
+                        "control_next_batch_least": leafnext[least],
+                        "control_least_leaf": names[least],
+                        "bound": TRAIN_BF16_LEAF_REL_L2}}
+
+
+def precision_failures(prec: dict) -> list:
+    """Where train_precision's readings pass their bounds, or a control
+    falls within its bound (the gate could not fail)."""
+    readings = (("loss", "rel", "control_constant_logits"),
+                ("grad_norm", "rel", "control_next_batch"),
+                ("leaf_rel_l2", "worst", "control_next_batch_least"))
+    bad = []
+    for name, reading, control in readings:
+        r = prec[name]
+        if not r[reading] <= r["bound"]:
+            bad.append(f"{name} {r[reading]!r} past {r['bound']!r}")
+        if not r[control] > r["bound"]:
+            bad.append(f"{name}'s control {r[control]!r} within "
+                       f"{r['bound']!r}")
+    return bad
+
+
+def train_flops(model, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 N per token (forward and
+    backward; remat's recomputed forward not counted) plus attention's
+    12 L B S^2 H hd (scores and PV, forward and backward)."""
+    cfg = model.cfg
+    return 6 * model.count_params() * batch * seq + \
+        12 * cfg.num_layers * batch * seq * seq * model.heads * cfg.head_dim
+
+
+def lm_train_cell(torch, np, dev, corpora: dict) -> dict:
+    """TRAIN_CELL at full width: float32 masters drawn by the port's init
+    on the card (stacked matrices at one layer's fan-in, lm_layer_fan_in),
+    bf16 compute, under the REPRO_REMAT its caller sets (lm_train_phase:
+    TRAIN_CELL's); the steps timed one by one, then a profiled step; the
+    accum=2 check and train_precision on step 1's weights and batch; and
+    the checkpoint round trip of the trained state."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.checkpoint import (latest_checkpoint,
+                                              load_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.data import batches as corpus_batches
+    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
+                                             opt_state_struct)
+    from repro_torch.train.train_step import make_train_step
+
+    c = TRAIN_CELL
+    cfg = get_config(c["arch"])
+    if cfg.vocab_size not in corpora:
+        corpora[cfg.vocab_size] = train_corpus(dev, cfg.vocab_size)
+    corpus = corpora[cfg.vocab_size]
+    model = build_model(cfg, compute_dtype=torch.bfloat16, device=dev)
+    if model.count_params() != QWEN_PARAMS:
+        raise AssertionError(f"count_params {model.count_params()}")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = lm_layer_fan_in(model, model.master_params(
+            generator=torch.Generator(dev).manual_seed(LM_SEED)))
+    corpus.restore({"cursor": 0, "seed": TRAIN_CORPUS["seed"]})
+    batches = train_batches(np, corpus, cfg, c["steps"], c["batch"],
+                            c["seq"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    opt = AdamWConfig(**TRAIN_CELL_OPT)
+
+    # Step 1's weights and batch: with accum = 2, and bf16 against float32.
+    first = batches[0]
+    half = {k: v.reshape((2, v.shape[1] // 2) + v.shape[2:])
+            for k, v in first.items()}
+    step = make_train_step(model, opt)
+    checks = {}
+    for label, b in (("accum1", first), ("accum2", half)):
+        p = model.master_params(params)
+        _, _, m = step(p, init_opt_state(p), b)
+        checks[label] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        del p, m
+    f32 = build_model(cfg, compute_dtype=torch.float32, device=dev)
+    precision = train_precision(torch, model, f32, params, *(
+        {k: torch.from_numpy(v[0]).to(dev) for k, v in b.items()}
+        for b in batches[:2]))
+    del f32
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_opt_state(params)
+    losses, norms, ms = [], [], []
+    for b in batches[:c["steps"]]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    more = corpus_batches(corpus, c["batch"], c["seq"])
+    prof = profile_fn(torch, lambda: step(params, state, next(more)))
+    runs = prof["profiled_runs"]
+
+    tokens = c["batch"] * c["seq"]
+    step_ms = statistics.median(ms[1:])
+    flops = train_flops(model, c["batch"], c["seq"])
+    a1, a2 = checks["accum1"], checks["accum2"]
+    rel = {k: abs(a2[k] - a1[k]) / abs(a1[k]) for k in a1}
+    row = {"phase": "lm_train", **c, "params": model.count_params(),
+           "opt": TRAIN_CELL_OPT, "compute_dtype": "bfloat16",
+           "master_dtype": "float32", "setup_s": setup_s,
+           "loss": losses, "grad_norm": norms, "step_ms": ms,
+           "step_ms_median": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_allocated_bytes": peak,
+           "model_flops_per_step": flops,
+           "bf16_peak_share": flops / (step_ms / 1e3 * BF16_FLOP_PER_S),
+           "bf16_bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+           "profile": {k: prof[k] for k in (
+               "wall_s", "profiled_runs", "kernels_busy_s",
+               "device_idle_share_of_wall", "top_device_ops")},
+           "device_ops_per_step": prof["device_events"] / runs,
+           "accum_check": {**checks, "rel": rel, "rtol": TRAIN_ACCUM_RTOL},
+           "bf16_vs_float32": precision}
+
+    # The checkpoint round trip of the trained state, bit for bit.
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        t1 = time.perf_counter()
+        path = save_checkpoint(tmp, c["steps"], params, state,
+                               {"data": corpus.state(), "arch": cfg.name})
+        save_s = time.perf_counter() - t1
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t1 = time.perf_counter()
+        lp, lstate, man = load_checkpoint(
+            latest_checkpoint(tmp), params, opt_state_struct(params), dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(params) + tree_leaves(state["m"]) +
+            tree_leaves(state["v"]),
+            tree_leaves(lp) + tree_leaves(lstate["m"]) +
+            tree_leaves(lstate["v"]))) and \
+            int(lstate["step"]) == int(state["step"]) and \
+            man["step"] == c["steps"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["checkpoint"] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                         "bit_equal": same}
+    emit(row)
+    del params, state, lp, lstate
+    torch.cuda.empty_cache()
+
+    finite = all(math.isfinite(x) for x in losses + norms)
+    if not finite or not losses[-1] < losses[0]:
+        raise AssertionError(f"the full-width loss did not descend: "
+                             f"{losses}, grad norms {norms}")
+    if max(rel.values()) > TRAIN_ACCUM_RTOL:
+        raise AssertionError(f"accum=2 differs from accum=1: {checks}")
+    bad = precision_failures(precision)
+    if bad:
+        raise AssertionError(f"bf16 against float32 at step 1: {bad}")
+    if not same:
+        raise AssertionError("the full-width checkpoint did not round-trip")
+    return row
+
+
+def train_restart_check(torch, np, dev, corpus, arch: str) -> dict:
+    """TRAIN_RESTART_STEPS at reduced(): steps run straight against the
+    same steps split by a checkpoint, restored into a fresh model,
+    optimizer state and corpus; bit for bit, under deterministic
+    algorithms."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.checkpoint import (latest_checkpoint,
+                                              load_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
+                                             opt_state_struct)
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(arch).reduced()
+    opt = AdamWConfig(**TRAIN_REF_OPT)
+    n1, n2 = TRAIN_RESTART_STEPS
+    b, s = TRAIN_REF_SHAPES["reduced"]
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        def fresh():
+            model = build_model(cfg, compute_dtype=torch.float32,
+                                device=dev)
+            return model, make_train_step(model, opt)
+
+        model, step = fresh()
+        tree = lm_reference_params(convert, model)
+        corpus.restore({"cursor": 0, "seed": TRAIN_CORPUS["seed"]})
+        params = model.master_params(tree)
+        state = init_opt_state(params)
+        for bt in train_batches(np, corpus, cfg, n1 + n2, b, s):
+            params, state, m = step(params, state, bt)
+        straight = (float(m["loss"]), tree_leaves(params))
+
+        model, step = fresh()
+        corpus.restore({"cursor": 0, "seed": TRAIN_CORPUS["seed"]})
+        params = model.master_params(tree)
+        state = init_opt_state(params)
+        for bt in train_batches(np, corpus, cfg, n1, b, s):
+            params, state, m = step(params, state, bt)
+        tmp = tempfile.mkdtemp(prefix="train_restart_")
+        try:
+            save_checkpoint(tmp, n1, params, state, {"data": corpus.state()})
+            model, step = fresh()
+            second = train_corpus(dev, cfg.vocab_size)
+            loaded, state, man = load_checkpoint(
+                latest_checkpoint(tmp), params, opt_state_struct(params),
+                dev)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        second.restore(man["data"])
+        params = model.master_params(loaded)
+        # the restored corpus continues where the first left off
+        rest = train_batches(np, second, cfg, n2, b, s)
+        for bt in rest:
+            params, state, m = step(params, state, bt)
+        split = (float(m["loss"]), tree_leaves(params))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    same = straight[0] == split[0] and all(
+        torch.equal(x, y) for x, y in zip(straight[1], split[1]))
+    row = {"phase": "lm_train_restart", "arch": arch, "width": "reduced",
+           "steps": [n1, n2], "deterministic_algorithms": True,
+           "loss_straight": straight[0], "loss_restarted": split[0],
+           "bit_equal": same}
+    emit(row)
+    if not same:
+        raise AssertionError(f"{arch}: a restart from the checkpoint "
+                             "differs from the straight run")
+    return row
+
+
+def lm_train_phase(torch, np, dev) -> dict:
+    """Phase 9: the walk corpus on the card (its graph kernels' launches
+    counted, 0 fallbacks, its digest against reference_train.json), the
+    reference cases, the full-width cell and the restart checks."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    corpus = train_corpus(dev, 512)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    row = {"phase": "lm_train_corpus", **TRAIN_CORPUS, "vocab_size": 512,
+           "num_vertices_built": corpus.n,
+           "dropped_edges": corpus.stats.dropped_edges,
+           "fallback_counts": corpus.stats.fallback_counts,
+           "fallback_events": ops.fallback_counts(), "launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    if corpus.stats.fallback_counts or ops.fallback_counts() or min(
+            launches[k] for k in TRAIN_CORPUS_KERNELS) < 1:
+        raise AssertionError(f"the corpus build fell back or left a graph "
+                             f"kernel unlaunched: {row}")
+    corpora = {512: corpus}
+    refs = train_reference_checks(torch, np, dev, corpora)
+    t1 = time.perf_counter()
+    with env_var("REPRO_REMAT", TRAIN_CELL["remat"]):
+        cell = lm_train_cell(torch, np, dev, corpora)
+    cell["wall_s"] = time.perf_counter() - t1
+    restarts = [train_restart_check(torch, np, dev, corpus, arch)
+                for arch in TRAIN_RESTART_ARCHS]
+    out = {"launches": launches, "reference_cases": len(refs),
+           "cell": cell, "restarts": restarts,
+           "wall_s": time.perf_counter() - t0}
+    emit({"phase": "lm_train_done", "reference_cases": len(refs),
+          "wall_s": out["wall_s"]})
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3087,9 +3673,13 @@ def main() -> int:
     # 8. the LM serving path: no kernel of the port lies on it
     lm_serve_phase(torch, np, dev)
     phase_done("8_lm_serve")
+
+    # 9. the LM training path: its walk corpus launches the PBA kernels
+    train = lm_train_phase(torch, np, dev)
+    phase_done("9_lm_train")
     emit({"phase": "phase_ends", "seconds_from_start": phase_ends})
 
-    # 9. the kernels line and the last line
+    # 10. the kernels line and the last line
     table = {
         "resolve_roots": ("src/repro/kernels/edge_resolve.py:87",
                           "src/repro_torch/kernels/csrc/resolve.cu",
@@ -3161,6 +3751,7 @@ def main() -> int:
             kernels[-1]["per_run"] = head["per_run"]
         kernels[-1]["launches_distributed"] = {
             k: v[name] for k, v in dist_launches.items() if v.get(name)}
+        kernels[-1]["launches_train"] = train["launches"].get(name, 0)
     hist = next(k for k in kernels if k["name"] == "histogram")
     hist["launches_analytics"] = {
         "main_path_analytics": degrees["launches"]["histogram"],

@@ -22,6 +22,15 @@ with --cpu) and runs, through the front door with no device given:
   rmat_scale26_sharded   Graph500 scale 26, edge factor 16
   shard_sink          preset hub_stress streamed into shards on flat(N),
       read back by rank 0
+  dp_sync             the training path's int8 data-parallel gradient
+      sync (repro_torch.train.compress.dp_sync) on a gradient tree of
+      qwen1.5-0.5b's full-width shapes (463,987,712 float32 values per
+      rank, drawn per rank from a seeded generator), two steps, the
+      second carrying the first's error buffers; every rank's mean and
+      error buffers must equal, bit for bit, the EF-int8 arithmetic done
+      by every rank alone on all ranks' gradients, and the mean lie
+      within one quantization step of the exact mean. ``--only dp_sync``
+      runs this case alone.
 
 The sharded PBA cases then run the sharded analytics on every rank's
 share (degree_counts_sharded, edge_count_sharded, max_degree_sharded),
@@ -44,6 +53,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import json
+import math
 import os
 import subprocess
 import sys
@@ -51,6 +61,82 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DP_ARCH = "qwen1.5-0.5b"
+
+
+def dp_grad(torch, spec, rank: int, step: int, leaf: int, device):
+    """Rank ``rank``'s gradient of leaf ``leaf`` at ``step``: standard
+    normal draws from a generator seeded by the three, scaled by
+    10^-(leaf % 4) so the leaves' scales differ."""
+    gen = torch.Generator(device).manual_seed(
+        (step * 1000 + rank) * 100_000 + leaf)
+    return torch.randn(spec.shape, generator=gen, device=device) * \
+        10.0 ** -(leaf % 4)
+
+
+def dp_sync_case(torch, rank: int, world: int, device, gpu: bool,
+                 repeats: int, cpu: bool) -> dict:
+    """The dp_sync case (module docstring); returns this rank's results."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.compress import dp_sync
+
+    cfg = get_config(DP_ARCH)
+    if cpu:
+        cfg = cfg.reduced()
+    specs = tree_leaves(build_model(cfg, device="cpu").param_specs())
+    if gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    error, outs, walls = None, [], []
+    for step in range(2):
+        grads = [dp_grad(torch, sp, rank, step, i, device)
+                 for i, sp in enumerate(specs)]
+        steps = []
+        for _ in range(repeats):
+            dist.barrier()
+            if gpu:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            red, new_error = dp_sync(grads, error)
+            if gpu:
+                torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        walls.append(steps)
+        outs.append((red, new_error))
+        error = new_error
+        del grads
+    peak = torch.cuda.max_memory_allocated(device) if gpu else None
+
+    # Every rank alone: the EF-int8 arithmetic on all ranks' leaves.
+    inv = torch.tensor(1 / 127.0, dtype=torch.float32, device=device)
+    equal, worst = True, 0.0
+    for i, sp in enumerate(specs):
+        errs = [torch.zeros(sp.shape, device=device)] * world
+        for step in range(2):
+            xs = [dp_grad(torch, sp, r, step, i, device) + errs[r]
+                  for r in range(world)]
+            peak_x = torch.stack([torch.clamp(x.abs().max(), min=1e-12)
+                                  for x in xs]).max()
+            scale = peak_x * inv
+            qs = [torch.clamp(torch.round(x / scale), -127, 127) for x in xs]
+            total = qs[0].clone()
+            for q in qs[1:]:
+                total += q
+            mean = (total * scale) / torch.tensor(float(world),
+                                                  device=device)
+            errs = [(x.double() - q.double() * scale.double()).float()
+                    for x, q in zip(xs, qs)]
+            red, new_error = outs[step]
+            equal = equal and torch.equal(red[i], mean) and \
+                torch.equal(new_error[i], errs[rank])
+            exact = torch.stack(xs).mean(0)
+            worst = max(worst, float((red[i] - exact).abs().max() / scale))
+    return {"bit_equal": equal, "worst_over_scale": worst, "walls": walls,
+            "peak_allocated_bytes": peak,
+            "values": sum(math.prod(sp.shape) for sp in specs)}
 
 
 def shares(torch, edge_digest, src, dst, bounds) -> list:
@@ -123,6 +209,8 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=3,
                     help="timed runs of each case (the first includes "
                     "NCCL's setup of the case's communicators)")
+    ap.add_argument("--only", choices=("dp_sync",), default=None,
+                    help="run this case alone")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -167,8 +255,9 @@ def main() -> int:
     gpu = device.type == "cuda"
 
     t0 = time.perf_counter()
+    graphs = args.only is None
     ref = references(torch, np, api, edge_digest, specs, world, device) \
-        if rank == 0 else None
+        if rank == 0 and graphs else None
     ref_s = time.perf_counter() - t0
     if gpu:
         dist.init_process_group(backend, device_id=device,
@@ -197,7 +286,8 @@ def main() -> int:
                                          topology=api.Topology.pods(r, c))),
         ("pba_streamed_flat", pba.replace(topology=api.Topology.flat(world))),
         ("pk_3b_sharded", pk.replace(execution="sharded")),
-        ("rmat_scale26_sharded", rmat.replace(execution="sharded")))
+        ("rmat_scale26_sharded", rmat.replace(execution="sharded"))) \
+        if graphs else ()
     ok = True
     if rank == 0:
         print(json.dumps({"phase": "setup", "world_size": world,
@@ -300,7 +390,45 @@ def main() -> int:
             ok = ok and good
             print(json.dumps(row), flush=True)
 
-    # The shard sink: rank 0 gathers and writes; read back there.
+    if graphs:
+        ok = shard_sink_case(api, storage, edge_digest, hub, ref, rank, world,
+                             gpu, device, gathered) and ok
+
+    # The training path's DP gradient sync.
+    mine = dp_sync_case(torch, rank, world, device, gpu, args.repeats,
+                        args.cpu)
+    everyone = gathered(mine)
+    if rank == 0:
+        good = all(g["bit_equal"] for g in everyone) and \
+            max(g["worst_over_scale"] for g in everyone) <= 1.0
+        ok = ok and good
+        print(json.dumps({
+            "phase": "distributed_cards", "case": "dp_sync",
+            "arch": DP_ARCH + (" reduced" if args.cpu else ""),
+            "world_size": world, "values_per_rank": mine["values"],
+            "bit_equal": [g["bit_equal"] for g in everyone],
+            "worst_error_over_scale": max(g["worst_over_scale"]
+                                          for g in everyone),
+            "walls_s_rank0": mine["walls"],
+            "walls_s_slowest": [[max(w) for w in zip(*(g["walls"][k]
+                                                       for g in everyone))]
+                                for k in range(2)],
+            "peak_allocated_bytes": [g["peak_allocated_bytes"]
+                                     for g in everyone], "ok": good}),
+            flush=True)
+    verdict = [ok]
+    dist.broadcast_object_list(verdict, src=0)
+    dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps({"ok": bool(verdict[0]), "world_size": world,
+                          "backend": backend}), flush=True)
+    return 0 if verdict[0] else 1
+
+
+def shard_sink_case(api, storage, edge_digest, hub, ref, rank, world, gpu,
+                    device, gathered) -> bool:
+    """The shard sink: rank 0 gathers and writes; read back there."""
+    import torch.distributed as dist
     out_dir = tempfile.mkdtemp(prefix="torch_dist_shards_") \
         if rank == 0 else None
     objs = [out_dir]
@@ -318,20 +446,14 @@ def main() -> int:
         got = edge_digest(src, dst)
         good = got == ref["shard_sink"] and \
             all(m == manifests[0] for m in manifests)
-        ok = ok and good
         print(json.dumps({"phase": "distributed_cards",
                           "case": "shard_sink", "world_size": world,
                           "num_shards": sres.manifest["num_shards"],
                           "wall_s": wall, "read_back_matches":
                           got == ref["shard_sink"], "ok": good}),
               flush=True)
-    verdict = [ok]
-    dist.broadcast_object_list(verdict, src=0)
-    dist.destroy_process_group()
-    if rank == 0:
-        print(json.dumps({"ok": bool(verdict[0]), "world_size": world,
-                          "backend": backend}), flush=True)
-    return 0 if verdict[0] else 1
+        return good
+    return True
 
 
 if __name__ == "__main__":

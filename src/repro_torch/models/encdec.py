@@ -16,7 +16,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamSpec, TensorStruct, apply_mlp,
                                        apply_norm, mlp_specs, norm_specs,
                                        tree_map)
-from repro_torch.models.transformer import _slice, _stack
+from repro_torch.models.transformer import _slice, _stack, with_remat
 
 
 def cross_specs(cfg, heads: int, kv_heads: int) -> dict:
@@ -96,23 +96,29 @@ def project_cross_kv(cfg, params, enc_out, heads, kv_heads):
 
 
 def run_decoder(cfg, params, x, positions, self_caches, cross_kv, heads,
-                kv_heads):
+                kv_heads, train: bool = False):
     """x: (B, S, D) token embeddings. self_caches: None or the stacked
     self-attention caches (written in place); cross_kv: stacked (ck, cv).
-    Returns (x, self_caches)."""
+    With ``train`` each layer's body is recomputed in the backward pass
+    (the reference's nothing-saveable remat, whatever ``REPRO_REMAT``
+    says). Returns (x, self_caches)."""
     ck, cv = cross_kv
-    for j in range(cfg.num_layers):
-        lp = _slice(params["decoder"], j)
-        cache = None if self_caches is None else _slice(self_caches, j)
+
+    def body(x, lp, ck_j, cv_j, cache):
         h = apply_norm(cfg, lp["norm1"], x)
         h, _ = attn.gqa_attention(cfg, lp["self_attn"], h, "global",
                                   positions, cache, heads, kv_heads)
         x = x + h
         h = apply_norm(cfg, lp["norm_x"], x)
-        x = x + _cross_attend(cfg, lp["cross"], h, ck[j], cv[j], heads,
+        x = x + _cross_attend(cfg, lp["cross"], h, ck_j, cv_j, heads,
                               kv_heads)
         h = apply_norm(cfg, lp["norm2"], x)
-        x = x + apply_mlp(cfg, lp["mlp"], h)
+        return x + apply_mlp(cfg, lp["mlp"], h)
+
+    fn = with_remat(body) if train else body
+    for j in range(cfg.num_layers):
+        x = fn(x, _slice(params["decoder"], j), ck[j], cv[j],
+               None if self_caches is None else _slice(self_caches, j))
     return x, self_caches
 
 

@@ -1,4 +1,4 @@
-"""Top-level model API: build -> specs/init -> prefill / decode_step.
+"""Top-level model API: build -> specs/init -> loss / prefill / decode_step.
 
 The port of the JAX package's ``models/model.py``, for every family it
 serves: dense and vision GQA, MoE, MLA, Mamba-2 SSD, RG-LRU hybrids and the
@@ -18,6 +18,12 @@ The leaves the reference reads uncast in float32 stay float32
 scale to float32), the MoE router (its logits are float32), the SSD
 decay ``a_log`` and ``dt_bias``, and the RG-LRU's ``lam``; stored in bf16
 they would round before use, and routing would pick other experts.
+
+Training keeps the reference's float32 masters instead: ``Model.loss``
+takes a tree from :meth:`Model.master_params` (float32 leaves with
+``requires_grad``), and the forward casts each weight at use, so a bf16
+forward over float32 masters is the reference's computation. Only the
+serving entry points run under ``torch.inference_mode``.
 
 The encoder-decoder (``family == "audio"``) prefills from ``tokens`` and
 ``frames`` (B, encoder_len, d_model): the encoder runs once, each decoder
@@ -157,14 +163,44 @@ class Model(nn.Module):
                                "or convert.params_from_numpy() first")
         return self.tree
 
+    def master_params(self, tree: Optional[dict] = None,
+                      generator: Optional[torch.Generator] = None) -> dict:
+        """Float32 training parameters in the JAX layout, each a leaf on
+        the model's device with ``requires_grad``: ``tree`` (numpy arrays
+        or tensors, e.g. ``convert.numpy_params``) copied, or else drawn
+        by :meth:`init`'s rule from ``generator``. The reference trains
+        float32 masters and casts each to the compute dtype at use, as
+        every layer function here does (``.to(x.dtype)``); the serving
+        copy (:meth:`set_params`) is not touched."""
+        self._require_single_device()
+        specs = self.param_specs()
+        if tree is None:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            tree = init_tree(generator, specs, self.device,
+                             lambda path, _: torch.float32)
+        if tree_paths(tree) != tree_paths(specs):
+            raise ValueError("parameter tree paths differ from the specs'")
+
+        def leaf(path, t):
+            t = t.detach() if torch.is_tensor(t) else torch.as_tensor(t)
+            if tuple(t.shape) != _at(specs, path).shape:
+                raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                                 f"{tuple(t.shape)}, spec "
+                                 f"{_at(specs, path).shape}")
+            return t.to(self.device, torch.float32, copy=True) \
+                .requires_grad_(True)
+
+        return tree_map(leaf, tree)
+
     # ---------------------------------------------------------- forward
 
-    def _embed(self, batch):
+    def _embed(self, batch, params):
         cfg = self.cfg
-        x = embed_tokens(self._params()["embed"], batch["tokens"],
+        x = embed_tokens(params["embed"], batch["tokens"],
                          self.compute_dtype)
         if cfg.num_patches and "image_embeds" in batch:
-            img = batch["image_embeds"].to(self.compute_dtype)
+            img = batch["image_embeds"].to(self.device, self.compute_dtype)
             npatch = img.shape[1]
             x = torch.cat([img, x[:, npatch:]], dim=1)
         return x
@@ -172,43 +208,72 @@ class Model(nn.Module):
     def _positions(self, n: int):
         return torch.arange(n, dtype=torch.int32, device=self.device)
 
+    def _encode(self, batch, params):
+        cfg = self.cfg
+        if "frames" not in batch:
+            raise ValueError(f"{cfg.name}: the encoder-decoder needs "
+                             "batch['frames'] (B, encoder_len, d_model)")
+        enc = encdec_lib.run_encoder(
+            cfg, params["encdec"],
+            batch["frames"].to(self.device, self.compute_dtype),
+            self.heads, self.kv_heads)
+        return encdec_lib.project_cross_kv(cfg, params["encdec"], enc,
+                                           self.heads, self.kv_heads)
+
     @torch.inference_mode()
     def encode(self, batch):
         """The encoder-decoder's encoder over ``batch["frames"]``, then each
         decoder layer's cross K/V: (ck, cv), each (L, B, encoder_len, KV,
         head_dim)."""
-        cfg = self.cfg
-        if "frames" not in batch:
-            raise ValueError(f"{cfg.name}: the encoder-decoder needs "
-                             "batch['frames'] (B, encoder_len, d_model)")
-        params = self._params()["encdec"]
-        enc = encdec_lib.run_encoder(
-            cfg, params, batch["frames"].to(self.device, self.compute_dtype),
-            self.heads, self.kv_heads)
-        return encdec_lib.project_cross_kv(cfg, params, enc, self.heads,
-                                           self.kv_heads)
+        return self._encode(batch, self._params())
 
-    def _stack(self, x, positions, caches, cross_kv=None):
+    def _stack(self, params, x, positions, caches, cross_kv=None,
+               train: bool = False):
         """The decoder stack (the encoder-decoder's with ``cross_kv``);
-        returns (x, caches)."""
-        params = self._params()
+        returns (x, caches, aux), aux the MoE load-balancing loss (0.0
+        without MoE)."""
         if self.cfg.family == "audio":
-            return encdec_lib.run_decoder(self.cfg, params["encdec"], x,
-                                          positions, caches, cross_kv,
-                                          self.heads, self.kv_heads)
+            x, caches = encdec_lib.run_decoder(
+                self.cfg, params["encdec"], x, positions, caches, cross_kv,
+                self.heads, self.kv_heads, train=train)
+            return x, caches, 0.0
         return tf.apply_stack(self.cfg, params["stack"], x, positions,
-                              caches, self.heads, self.kv_heads)
+                              caches, self.heads, self.kv_heads, train=train)
 
     @torch.inference_mode()
     def forward(self, batch) -> torch.Tensor:
         """Teacher-forced logits at every position, (B, S, V), with no
         cache (the pass the training loss takes)."""
         params = self._params()
-        x = self._embed(batch)
-        cross = self.encode(batch) if self.cfg.family == "audio" else None
-        x, _ = self._stack(x, self._positions(x.shape[1]), None, cross)
+        x = self._embed(batch, params)
+        cross = self._encode(batch, params) \
+            if self.cfg.family == "audio" else None
+        x, _, _ = self._stack(params, x, self._positions(x.shape[1]), None,
+                              cross)
         x = apply_norm(self.cfg, params["final_norm"], x)
         return logits_out(self.cfg, params["embed"], x)
+
+    def loss(self, batch, params: Optional[dict] = None) -> torch.Tensor:
+        """Next-token cross entropy plus 0.01 x the MoE load-balancing
+        loss, differentiable (no inference mode): the reference's
+        ``Model.loss``. ``batch``: tokens and labels (B, S) on the model's
+        device (with frames for the encoder-decoder, image_embeds where
+        the config has patches); ``params``: the float32 master tree
+        (:meth:`master_params`), default the serving copy. The encoder
+        runs inside the differentiated function, the stack with
+        ``train=True`` (remat per ``REPRO_REMAT``); the logsumexp and the
+        label logit are float32."""
+        params = self._params() if params is None else params
+        x = self._embed(batch, params)
+        cross = self._encode(batch, params) \
+            if self.cfg.family == "audio" else None
+        x, _, aux = self._stack(params, x, self._positions(x.shape[1]),
+                                None, cross, train=True)
+        x = apply_norm(self.cfg, params["final_norm"], x)
+        logits = logits_out(self.cfg, params["embed"], x).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        return (lse - tgt).mean() + 0.01 * aux
 
     # ---------------------------------------------------------- serving
 
@@ -235,15 +300,16 @@ class Model(nn.Module):
         params = self._params()
         b, s = batch["tokens"].shape
         max_len = max_len or s
-        x = self._embed(batch)
+        x = self._embed(batch, params)
         if self.cfg.family == "audio":
-            cross = self.encode(batch)
+            cross = self._encode(batch, params)
             selfc = self._zeros(self.cache_structs(b, max_len)["self"])
-            x, _ = self._stack(x, self._positions(s), selfc, cross)
+            x, _, _ = self._stack(params, x, self._positions(s), selfc,
+                                  cross)
             caches = {"self": selfc, "cross": cross}
         else:
-            x, caches = self._stack(x, self._positions(s),
-                                    self.init_cache(b, max_len))
+            x, caches, _ = self._stack(params, x, self._positions(s),
+                                       self.init_cache(b, max_len))
         x = apply_norm(self.cfg, params["final_norm"], x[:, -1:])
         return logits_out(self.cfg, params["embed"], x), caches
 
@@ -256,9 +322,10 @@ class Model(nn.Module):
         positions = torch.full((1,), pos, dtype=torch.int32,
                                device=self.device)
         if self.cfg.family == "audio":
-            x, _ = self._stack(x, positions, caches["self"], caches["cross"])
+            x, _, _ = self._stack(params, x, positions, caches["self"],
+                                  caches["cross"])
         else:
-            x, caches = self._stack(x, positions, caches)
+            x, caches, _ = self._stack(params, x, positions, caches)
         x = apply_norm(self.cfg, params["final_norm"], x)
         return logits_out(self.cfg, params["embed"], x), caches
 

@@ -9,13 +9,21 @@ the stack, each layer reading views of its slice of the stacked params and
 caches (so cache writes land in the stacked buffers, in place).
 
 Every layer = pre-norm mixer (GQA or MLA attention, RG-LRU or SSD) +
-pre-norm MLP (dense or MoE), residual around each; remat belongs to
-training (ROADMAP item 15c). The MoE layers' load-balancing loss is
-dropped here: serving does not use it.
+pre-norm MLP (dense or MoE), residual around each. The stack returns the
+MoE layers' summed load-balancing loss beside its output, as the
+reference does (``Model.loss`` adds it). Training recomputes each group
+body (one pattern period, the reference's scan step) in the backward pass
+under ``torch.utils.checkpoint``, per ``REPRO_REMAT`` (see
+:func:`remat_policy`).
 """
 from __future__ import annotations
 
+import functools
+import os
 from typing import Any
+
+import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -57,6 +65,8 @@ def layer_specs(cfg, kind: str, heads: int, kv_heads: int) -> dict:
 
 def apply_layer(cfg, p, kind: str, x, positions, cache, heads: int,
                 kv_heads: int):
+    """One layer; returns (x, cache, aux), aux the MoE load-balancing
+    loss (0.0 without MoE)."""
     h = apply_norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS:
         if cfg.attention == "mla":
@@ -71,14 +81,15 @@ def apply_layer(cfg, p, kind: str, x, positions, cache, heads: int,
     else:
         h, new_cache = ssm_lib.apply_ssm(cfg, p["mixer"], h, cache)
     x = x + h
+    aux = 0.0                       # the load-balancing loss, MoE only
     if "mlp" in p:
         h = apply_norm(cfg, p["norm2"], x)
         if cfg.moe:
-            h, _ = moe_lib.apply_moe(cfg, p["mlp"], h)
+            h, aux = moe_lib.apply_moe(cfg, p["mlp"], h)
         else:
             h = apply_mlp(cfg, p["mlp"], h)
         x = x + h
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _stack(specs, n: int):
@@ -143,30 +154,67 @@ def _slice(tree, j: int):
     return tree_map(lambda _, t: t[j], tree)
 
 
-def layer_views(cfg, params, caches):
-    """(kind, params, cache) of every layer in stack order: views of the
-    stacked groups' slices (cache None where ``caches`` is None)."""
-    p = len(cfg.layer_pattern)
-    n_full = cfg.num_layers // p
-    kinds = cfg.layer_kinds()
-    out = []
-    for j in range(n_full):
-        for pos in range(p):
-            out.append((cfg.layer_pattern[pos],
-                        _slice(params["groups"][pos], j),
-                        None if caches is None
-                        else _slice(caches["groups"][pos], j)))
-    for i, lp in enumerate(params["rem"]):
-        out.append((kinds[n_full * p + i], lp,
-                    None if caches is None else caches["rem"][i]))
-    return out
+#: Weight products: a matrix times a 2-D weight (``x @ w`` folds the
+#: leading axes into one ``mm``). The attention einsums are ``bmm``.
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy() -> str:
+    """``REPRO_REMAT`` as the reference reads it: "nothing" (the default:
+    save nothing, recompute the whole group body), "none" (no remat) or
+    "dots" (save the weight products' outputs, recompute the rest)."""
+    return os.environ.get("REPRO_REMAT", "nothing")
+
+
+def with_remat(fn, policy: str = "nothing"):
+    """``fn`` recomputed in the backward pass by ``policy``
+    (:func:`remat_policy`'s values)."""
+    if policy == "none":
+        return fn
+    kwargs = {}
+    if policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                             **kwargs)
 
 
 def apply_stack(cfg, params, x, positions, caches, heads: int,
-                kv_heads: int):
+                kv_heads: int, train: bool = False):
     """Run the full layer stack. caches: None or cache_structs-shaped
-    tensors, updated in place and returned."""
-    for kind, lp, cache in layer_views(cfg, params, caches):
-        x, _ = apply_layer(cfg, lp, kind, x, positions, cache, heads,
-                           kv_heads)
-    return x, caches
+    tensors, updated in place and returned. Returns (x, caches, aux): aux
+    the MoE layers' summed load-balancing loss, a float32 scalar (0.0, a
+    Python float, without MoE). Under ``train`` each full group (the
+    ``p`` layers of one pattern period) is recomputed in the backward pass
+    per :func:`remat_policy`; the ``rem`` layers are not, as in the
+    reference."""
+    p = len(cfg.layer_pattern)
+    n_full = cfg.num_layers // p
+    aux = 0.0
+
+    def group_body(xc, aux, group_params, group_caches):
+        for pos in range(p):
+            xc, _, a = apply_layer(
+                cfg, group_params[pos], cfg.layer_pattern[pos], xc,
+                positions, None if group_caches is None
+                else group_caches[pos], heads, kv_heads)
+            aux = aux + a
+        return xc, aux
+
+    body = with_remat(group_body, remat_policy()) if train else group_body
+    for j in range(n_full):
+        x, aux = body(x, aux, [_slice(g, j) for g in params["groups"]],
+                      None if caches is None
+                      else [_slice(c, j) for c in caches["groups"]])
+    kinds = cfg.layer_kinds()
+    for i, lp in enumerate(params["rem"]):
+        x, _, a = apply_layer(cfg, lp, kinds[n_full * p + i], x, positions,
+                              None if caches is None else caches["rem"][i],
+                              heads, kv_heads)
+        aux = aux + a
+    return x, caches, aux

@@ -14,6 +14,7 @@ of X.T: out[i, q] == X[q, d*lp + i].
   transpose_payload  the same with trailing payload dims (exchange 2)
   tail_mask / mask_tail   mask entries past a global total
   all_reduce_sum / all_reduce_max   across every device of the topology
+  group_all_reduce_  in place over a process group (the DP gradient sync)
   gather_to_root / run_on_root   rank 0's part in the shard sinks
 
 On the host topology, and on a one-device topology with no process
@@ -190,6 +191,15 @@ def all_reduce_sum(x, topo: Topology, device=None):
 def all_reduce_max(x, topo: Topology, device=None):
     """:func:`all_reduce_sum` with the maximum."""
     return _all_reduce(x, topo, "MAX", device)
+
+
+def group_all_reduce_(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
+    """``x`` reduced in place by ``op`` ("SUM" or "MAX") over ``group``
+    (a ``torch.distributed`` group, default the world); the identity with
+    no process group. Returns ``x``."""
+    if spmd.group_active():
+        dist.all_reduce(x, op=getattr(dist.ReduceOp, op), group=group)
+    return x
 
 
 def gather_to_root(parts, topo: Topology) -> Optional[tuple]:

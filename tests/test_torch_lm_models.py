@@ -481,7 +481,8 @@ def test_model_bf16_matches():
 
 def test_stack_layout_and_views():
     """groups hold the period's layers on a leading axis, rem the rest;
-    each layer reads views, so cache writes land in the stacked buffer."""
+    apply_stack hands each layer views of its slice, so a decode step's
+    cache writes land in the stacked buffers, in place."""
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
                               num_layers=5, layer_pattern=("global", "local"),
                               local_window=4)
@@ -498,10 +499,15 @@ def test_stack_layout_and_views():
     convert.params_from_numpy(model, convert.numpy_params(model, 0))
     caches = model.init_cache(1, 16)
     assert caches["groups"][1]["k"].shape == (2, 1, 4, 4, 32)  # the ring
-    views = ttf.layer_views(cfg, model.tree["stack"], caches)
-    assert [k for k, _, _ in views] == list(cfg.layer_kinds())
-    views[2][2]["k"].fill_(1.0)
-    assert caches["groups"][0]["k"][1].eq(1.0).all()
+    buffers = ([caches["groups"][pos]["k"][j] for j in range(2)
+                for pos in range(2)] + [caches["rem"][0]["k"]])
+    ptrs = [b.data_ptr() for b in buffers]
+    _, out = model.decode_step(torch.tensor([[3]]), caches, 2)
+    assert out["groups"][0]["k"] is caches["groups"][0]["k"]
+    assert [b.data_ptr() for b in buffers] == ptrs
+    for b in buffers:                   # every layer, in stack order
+        assert b[:, 2].ne(0).any()      # position 2 (slot 2 of the ring)
+        assert b[:, :2].eq(0).all() and b[:, 3:].eq(0).all()
 
 
 # ---------------------------------------------------------------- float64
