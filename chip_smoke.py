@@ -175,7 +175,15 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     and qwen3-moe (2 steps, a checkpoint, a fresh model, optimizer and
     corpus restored from it, 2 more steps, against 4 straight), bit for
     bit under torch.use_deterministic_algorithms.
-10. the seconds from the start to each phase's end; the kernels line
+10. lm_sharded: sharded LM serving on one card (repro_torch.sharding,
+    runtime/mesh.py). A world-size-1 NCCL group and the mesh of
+    launch.mesh.make_production_mesh(num_devices=1); qwen1.5-0.5b at full
+    width and llama4-scout-17b-a16e cut to 2 layers (its MoE prefill and
+    decode), bf16, 8 x 512 prompts and 32 greedy decode steps, run first
+    unsharded and then under the prefill and decode rules on the same
+    draws: every step's logits equal (torch.equal), so every token; no
+    kernel launched.
+11. the seconds from the start to each phase's end; the kernels line
     (with each kernel's launches in the distributed runs and in the
     training corpus's build; histogram's also in the analytics runs), then
     {"ok": true, "device": {...}} as the last line.
@@ -2387,6 +2395,8 @@ def lm_router_margin(cfg, p, x) -> float:
     routing probability minus the (k+1)-th (a near-tie can pick other
     experts on another device)."""
     from repro_torch.models import moe
+    from repro_torch.sharding import ctx
+    p = ctx.gathered(p, moe.MOE_AXES)     # the router's "data" blocks
     top = moe.route(cfg, p, x)[0].topk(cfg.top_k + 1, dim=-1).values
     return float((top[..., -2] - top[..., -1]).min())
 
@@ -3442,6 +3452,211 @@ def lm_train_phase(torch, np, dev) -> dict:
     return out
 
 
+# --- phase 10: sharded LM serving -------------------------------------------------
+
+# Phase 10 (one card) and scripts/torch_distributed_check.py --only lm_tp
+# (four) serve under the sharding rules (repro_torch.sharding): batch 8,
+# 512-token prompts, 32 decode steps. Phase 10 runs qwen1.5-0.5b at full
+# width and llama4-scout-17b-a16e cut to LM_TP_SMOKE_LAYERS, each first
+# unsharded and then under the rules of make_production_mesh(num_devices=1)
+# over a world-size-1 NCCL group, greedy (each step fed the argmax of the
+# last), the same draws: every logit must be equal, and so every token.
+LM_TP_CELL = {"batch": 8, "prompt": 512, "new_tokens": 32}
+LM_TP_SMOKE_ARCHS = ("qwen1.5-0.5b", "llama4-scout-17b-a16e")
+LM_TP_SMOKE_LAYERS = {"llama4-scout-17b-a16e": 2}
+LM_TP_FULL_LAYERS = {"llama4-scout-17b-a16e": 48}
+C10D_PREFIX = "c10d::"      # the collectives' dispatcher ops
+
+
+def c10d_calls(torch, fn) -> dict:
+    """Calls of each c10d dispatcher op (the collectives) during one
+    fn(), by name, from torch.profiler's trace of the host's ops (raw
+    events, as host_op_calls scans them)."""
+    from torch.profiler import ProfilerActivity, profile
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        sync()
+    calls: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(C10D_PREFIX):
+            calls[e.name()] = calls.get(e.name(), 0) + 1
+    return dict(sorted(calls.items()))
+
+
+def lm_tp_model(torch, dev, arch: str, layers: int = 0, tp: int = 1,
+                dtype=None, reduced: bool = False):
+    """``arch`` at full width (``reduced``: its reduced() config;
+    ``layers`` cuts the depth), padded for ``tp``, without parameters
+    (:func:`lm_tp_load` draws them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return build_model(cfg, tp=tp, device=dev,
+                       compute_dtype=dtype or torch.bfloat16)
+
+
+def lm_tp_load(torch, model, rules=None, fan_in: bool = True):
+    """``model``'s weights: the port's init seeded LM_SEED (with ``rules``
+    this rank's blocks of the same draws); with ``fan_in`` each stacked
+    matrix rescaled to one layer's fan-in (lm_layer_fan_in), as phase 8
+    draws LM_MIXER_ARCHS (it draws LM_CELL_ARCHS without). Returns the
+    model."""
+    model.init(torch.Generator(model.device).manual_seed(LM_SEED), rules)
+    if fan_in:
+        lm_layer_fan_in(model)
+    return model
+
+
+def lm_tp_tokens(torch, np, vocab: int, dev, cell: dict = LM_TP_CELL):
+    """The cell's (batch, prompt + new_tokens) tokens, uniform over the
+    unpadded vocabulary, from default_rng(LM_SEED)."""
+    b, s, n = cell["batch"], cell["prompt"], cell["new_tokens"]
+    return torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, vocab, (b, s + n))).to(dev)
+
+
+def lm_tp_serve(torch, prefill, decode, tokens, s: int, n: int,
+                greedy: bool = False) -> dict:
+    """Prefill of ``tokens[:, :s]``, then ``n`` decode steps fed
+    ``tokens[:, s + i]`` (teacher-forced) or, ``greedy``, the argmax of
+    the last logits (the whole vocabulary must be local). Returns the
+    logits of every step (B, n + 1, V), the tokens fed, the prefill's wall
+    and the decode's ms per step (device-synchronised walls)."""
+    sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill({"tokens": tokens[:, :s]})
+    sync()
+    prefill_s = time.perf_counter() - t0
+    steps, fed = [logits[:, 0]], []
+    t0 = time.perf_counter()
+    for i in range(n):
+        tok = logits[:, -1].argmax(-1, keepdim=True) if greedy \
+            else tokens[:, s + i:s + i + 1]
+        fed.append(tok)
+        logits, caches = decode(tok, caches, s + i)
+        steps.append(logits[:, 0])
+    sync()
+    return {"logits": torch.stack(steps, 1), "fed": torch.cat(fed, 1),
+            "prefill_s": prefill_s,
+            "decode_ms_per_step": (time.perf_counter() - t0) / n * 1e3,
+            "caches": caches}
+
+
+def lm_gap_parts(torch, got, want) -> dict:
+    """The sums lm_step_gap takes its norms from, per position (float64,
+    on the host), so ranks holding disjoint blocks of (B, T, V) logits can
+    add theirs: sum (got_t - want_t)^2, sum want_t^2, and sum (got_t -
+    want_{t+1})^2 (a cache one slot off)."""
+    got, want = got.double(), want.double()
+    return {"diff": (got - want).square().sum((0, 2)).cpu(),
+            "want": want.square().sum((0, 2)).cpu(),
+            "next": (got[:, :-1] - want[:, 1:]).square().sum((0, 2)).cpu()}
+
+
+def lm_gap_from_parts(parts: list) -> dict:
+    """lm_step_gap from the ranks' lm_gap_parts."""
+    total = {k: sum(p[k] for p in parts) for k in parts[0]}
+    near = (total["diff"] / total["want"]).sqrt()
+    far = (total["next"] / total["want"][1:]).sqrt()
+    if not bool(near.isfinite().all()):
+        raise AssertionError("non-finite logits")
+    out = {"rel_l2_max": float(near.max()),
+           "unrelated_rel_l2_min": float(far.min())}
+    out["share"] = out["rel_l2_max"] / out["unrelated_rel_l2_min"] \
+        if out["unrelated_rel_l2_min"] else math.inf
+    return out
+
+
+def lm_sharded_phase(torch, np, dev) -> dict:
+    """Phase 10: sharded serving on one card. A world-size-1 NCCL group
+    (file:// rendezvous, ``device_id`` the card) and the mesh of
+    make_production_mesh(num_devices=1); for each of LM_TP_SMOKE_ARCHS the
+    model unsharded, then the same draws under the prefill and decode
+    rules (serve.make_serve_fns(model, rules=...)), greedy over LM_TP_CELL:
+    every step's logits equal (torch.equal), so every token; the launch
+    counts read 0 (no kernel lies on this path)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.runtime.mesh import ProcessMesh
+    from repro_torch.serve import make_serve_fns
+    from repro_torch.sharding import make_rules
+
+    t_phase = time.perf_counter()
+    b, s, n = (LM_TP_CELL[k] for k in ("batch", "prompt", "new_tokens"))
+    rdzv = tempfile.mkdtemp(prefix="chip_smoke_rdzv_")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/store",
+                            world_size=1, rank=0, device_id=dev)
+    rows = {}
+    try:
+        topo = make_production_mesh(num_devices=1)
+        mesh = ProcessMesh.build(topo, dev)
+        ops.reset_launch_counts()
+        for arch in LM_TP_SMOKE_ARCHS:
+            t0 = time.perf_counter()
+            layers = LM_TP_SMOKE_LAYERS.get(arch, 0)
+            torch.cuda.empty_cache()
+            plain = lm_tp_load(torch, lm_tp_model(torch, dev, arch, layers))
+            tokens = lm_tp_tokens(torch, np, plain.raw_cfg.vocab_size, dev)
+            want = lm_tp_serve(torch, lambda bt: plain.prefill(bt, s + n),
+                               plain.decode_step, tokens, s, n, greedy=True)
+            del plain, want["caches"]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            prules = make_rules(mesh, "prefill", b)
+            drules = make_rules(mesh, "decode", b)
+            model = lm_tp_load(torch, lm_tp_model(torch, dev, arch, layers),
+                               prules)
+            prefill, _ = make_serve_fns(model, rules=prules, max_len=s + n)
+            _, decode = make_serve_fns(model, rules=drules)
+            got = lm_tp_serve(torch, prefill, decode, tokens, s, n,
+                              greedy=True)
+            del got["caches"]
+            row = {"phase": "lm_sharded_one_card", "arch": arch,
+                   "mesh": dict(mesh.shape), "world_size": 1,
+                   "backend": "nccl", **LM_TP_CELL, "greedy": True,
+                   "reduced": f"num_layers {LM_TP_FULL_LAYERS[arch]} -> "
+                   f"{layers}" if layers else None,
+                   "batch_axes": list(prules.batch_axes),
+                   "logits_equal": bool(torch.equal(got["logits"],
+                                                    want["logits"])),
+                   "tokens_equal": bool(torch.equal(got["fed"],
+                                                    want["fed"])),
+                   "max_abs_diff": float((got["logits"].float() -
+                                          want["logits"].float()).abs().max()),
+                   "prefill_s": got["prefill_s"],
+                   "decode_ms_per_step": got["decode_ms_per_step"],
+                   "unsharded_prefill_s": want["prefill_s"],
+                   "unsharded_decode_ms_per_step":
+                       want["decode_ms_per_step"],
+                   "peak_allocated_bytes":
+                       torch.cuda.max_memory_allocated(dev),
+                   "wall_s": time.perf_counter() - t0}
+            emit(row)
+            rows[arch] = row
+            del model, got, want, tokens
+            torch.cuda.empty_cache()
+            if not (row["logits_equal"] and row["tokens_equal"]):
+                raise AssertionError(f"{arch}: the sharded run differs from "
+                                     f"the unsharded one: {row}")
+        launches = ops.launch_counts()
+        if any(launches.values()):
+            raise AssertionError(f"sharded serving launched a graph "
+                                 f"kernel: {launches}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    emit({"phase": "lm_sharded_done", "wall_s": time.perf_counter() - t_phase})
+    return rows
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3677,9 +3892,13 @@ def main() -> int:
     # 9. the LM training path: its walk corpus launches the PBA kernels
     train = lm_train_phase(torch, np, dev)
     phase_done("9_lm_train")
+
+    # 10. sharded LM serving on one card: no kernel lies on it either
+    lm_sharded_phase(torch, np, dev)
+    phase_done("10_lm_sharded")
     emit({"phase": "phase_ends", "seconds_from_start": phase_ends})
 
-    # 10. the kernels line and the last line
+    # 11. the kernels line and the last line
     table = {
         "resolve_roots": ("src/repro/kernels/edge_resolve.py:87",
                           "src/repro_torch/kernels/csrc/resolve.cu",

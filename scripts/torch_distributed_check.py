@@ -4,6 +4,7 @@ rank's edges to the one-device paths.
 
     torchrun --nproc_per_node=4 scripts/torch_distributed_check.py        # N GPUs, NCCL
     torchrun --nproc_per_node=4 scripts/torch_distributed_check.py --cpu  # gloo, small sizes
+    torchrun --nproc_per_node=4 scripts/torch_distributed_check.py --only lm_tp
 
 Before the process group exists, rank 0 runs the one-device paths (no
 group: host execution, the flat(1) device stream, the pk_3b stream, the
@@ -22,6 +23,25 @@ with --cpu) and runs, through the front door with no device given:
   rmat_scale26_sharded   Graph500 scale 26, edge factor 16
   shard_sink          preset hub_stress streamed into shards on flat(N),
       read back by rank 0
+  lm_tp               sharded LM serving (repro_torch.sharding) on four
+      processes, batch 8, 512-token prompts, 32 decode steps
+      teacher-forced, each model at the mesh's "model" size (its
+      padding), drawn as phase 8 of chip_smoke.py draws it: qwen1.5-0.5b
+      in float32 on (data, model) = (1, 4) and (2, 2) against the same
+      model on one card (rtol = atol = 1e-3); phi3-medium-14b in bf16 at
+      tp 4 (KV heads padded to 20) on (1, 4) against one card
+      (chip_smoke.lm_near, the control one position off past its bound);
+      llama4-scout-17b-a16e in float32 cut to 4 layers on (1, 4) and
+      (2, 2) against one card (1e-3), and in bf16 cut to 8 layers on
+      (1, 4) against one card; llama4-scout-17b-a16e at full depth (48
+      layers, 215.6 GB in bf16, more than one card holds) on (1, 4) and
+      (2, 2), each against its own teacher-forced pass, and the two
+      layouts against each other (reported). A bf16 MoE bound applies
+      where no assignment was dropped, as phase 8 holds it (the dropped
+      counts and the least router margin printed).
+      Each run prints every rank's init, prefill and decode walls, weight
+      bytes and peak device memory, and the c10d calls of one decode
+      step (rank 0's host trace). ``--only lm_tp`` runs this case alone.
   dp_sync             the training path's int8 data-parallel gradient
       sync (repro_torch.train.compress.dp_sync) on a gradient tree of
       qwen1.5-0.5b's full-width shapes (463,987,712 float32 values per
@@ -209,7 +229,7 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=3,
                     help="timed runs of each case (the first includes "
                     "NCCL's setup of the case's communicators)")
-    ap.add_argument("--only", choices=("dp_sync",), default=None,
+    ap.add_argument("--only", choices=("dp_sync", "lm_tp"), default=None,
                     help="run this case alone")
     args = ap.parse_args()
     import numpy as np
@@ -256,8 +276,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     graphs = args.only is None
+    lm = args.only in (None, "lm_tp")
     ref = references(torch, np, api, edge_digest, specs, world, device) \
         if rank == 0 and graphs else None
+    lm_refs = lm_tp_references(torch, np, chip_smoke, device, args.cpu) \
+        if rank == 0 and lm else None
     ref_s = time.perf_counter() - t0
     if gpu:
         dist.init_process_group(backend, device_id=device,
@@ -394,11 +417,23 @@ def main() -> int:
         ok = shard_sink_case(api, storage, edge_digest, hub, ref, rank, world,
                              gpu, device, gathered) and ok
 
+    # Sharded LM serving.
+    if lm:
+        if world != 4:
+            raise SystemExit(f"lm_tp runs on 4 processes, not {world}")
+        kept: dict = {}
+        for run in LM_TP_RUNS:
+            for shape in run[4]:
+                ok = lm_tp_case(torch, np, chip_smoke, run, shape, lm_refs,
+                                rank, device, args.cpu, gathered, kept) \
+                    and ok
+        del lm_refs, kept
+
     # The training path's DP gradient sync.
     mine = dp_sync_case(torch, rank, world, device, gpu, args.repeats,
-                        args.cpu)
-    everyone = gathered(mine)
-    if rank == 0:
+                        args.cpu) if args.only in (None, "dp_sync") else None
+    everyone = gathered(mine) if mine is not None else None
+    if rank == 0 and mine is not None:
         good = all(g["bit_equal"] for g in everyone) and \
             max(g["worst_over_scale"] for g in everyone) <= 1.0
         ok = ok and good
@@ -423,6 +458,217 @@ def main() -> int:
         print(json.dumps({"ok": bool(verdict[0]), "world_size": world,
                           "backend": backend}), flush=True)
     return 0 if verdict[0] else 1
+
+
+# --- lm_tp: sharded LM serving -------------------------------------------------------
+
+# (name, arch, layers, dtype, meshes, reference); the weights drawn as
+# phase 8 of chip_smoke.py draws them (the MoE config's stacked matrices
+# at one layer's fan-in, LM_TP_FAN_IN); --cpu: reduced() configs with the
+# depths of LM_TP_CPU_LAYERS and the cell LM_TP_CPU_CELL.
+LLAMA4 = "llama4-scout-17b-a16e"
+LM_TP_RUNS = (
+    ("qwen_float32", "qwen1.5-0.5b", 0, "float32", ((1, 4), (2, 2)),
+     "one_card"),
+    ("phi3_tp4", "phi3-medium-14b", 0, "bfloat16", ((1, 4),), "one_card"),
+    # top-1 routing in bf16 flips at near ties and a 512-token prompt
+    # overflows the busiest experts, so the bf16 runs bind only where no
+    # assignment was dropped (phase 8's rule); float32 at a depth one card
+    # holds is the check of the expert-parallel path that always binds
+    ("llama4_float32_4_layers", LLAMA4, 4, "float32", ((1, 4), (2, 2)),
+     "one_card"),
+    ("llama4_8_layers", LLAMA4, 8, "bfloat16", ((1, 4),), "one_card"),
+    ("llama4_48_layers", LLAMA4, 0, "bfloat16", ((1, 4), (2, 2)),
+     "teacher_forced"),
+)
+LM_TP_FAN_IN = (LLAMA4,)
+LM_TP_CPU_LAYERS = {"llama4_8_layers": 4, "llama4_float32_4_layers": 2}
+LM_TP_CPU_CELL = {"batch": 4, "prompt": 32, "new_tokens": 4}
+
+
+def lm_tp_references(torch, np, chip_smoke, device, cpu: bool) -> dict:
+    """Rank 0, before the group exists: each one-card run's logits (B,
+    new_tokens + 1, V) on the host, keyed by the run and the padded
+    model's tp (the model at each mesh's "model" size)."""
+    from repro_torch.models import moe
+    cell = LM_TP_CPU_CELL if cpu else chip_smoke.LM_TP_CELL
+    s, n = cell["prompt"], cell["new_tokens"]
+    out = {}
+    for name, arch, layers, dtype, meshes, ref in LM_TP_RUNS:
+        if ref != "one_card":
+            continue
+        layers = LM_TP_CPU_LAYERS.get(name, 0) if cpu else layers
+        for tp in sorted({m[1] for m in meshes}):
+            model = chip_smoke.lm_tp_load(torch, chip_smoke.lm_tp_model(
+                torch, device, arch, layers, tp, getattr(torch, dtype), cpu),
+                fan_in=arch in LM_TP_FAN_IN)
+            tokens = chip_smoke.lm_tp_tokens(
+                torch, np, model.raw_cfg.vocab_size, device, cell)
+            res = chip_smoke.lm_tp_serve(
+                torch, lambda b: model.prefill(b, s + n), model.decode_step,
+                tokens, s, n)
+            with chip_smoke.lm_moe_calls(moe.dropped_assignments) as drops:
+                model.prefill({"tokens": tokens[:, :s]}, s + n)
+            out[(name, tp)] = {"logits": res["logits"].cpu(),
+                               "prefill_s": res["prefill_s"],
+                               "decode_ms_per_step":
+                                   res["decode_ms_per_step"],
+                               "prefill_dropped": sum(drops)}
+            del model, res
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def lm_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
+               device, cpu: bool, gathered, kept: dict) -> bool:
+    """One sharded run of LM_TP_RUNS on ``shape`` = (data, model): every
+    rank builds the model at the mesh's tp and draws its blocks, prefills
+    its batch rows and decodes teacher-forced, and is held to the one-card
+    run (``refs``, broadcast from rank 0) or to its own teacher-forced
+    pass; beside it each rank's peak memory, the prefill wall, ms per
+    decode step and the c10d calls of one decode step (rank 0's host
+    trace). ``kept``: the 48-layer runs' gathered logits, so the two
+    layouts are held to each other. Returns the verdict (rank 0)."""
+    import torch.distributed as dist
+    from repro_torch.models import moe
+    from repro_torch.runtime.mesh import ProcessMesh
+    from repro_torch.serve import make_serve_fns
+    from repro_torch.sharding import make_rules, sharding_ctx
+    from repro_torch.sharding.rules import block_range
+
+    name, arch, layers, dtype, _, ref_kind = run
+    cell = LM_TP_CPU_CELL if cpu else chip_smoke.LM_TP_CELL
+    b, s, n = cell["batch"], cell["prompt"], cell["new_tokens"]
+    layers = LM_TP_CPU_LAYERS.get(name, 0) if cpu else layers
+    gpu = device.type == "cuda"
+    sync = torch.cuda.synchronize if gpu else (lambda: None)
+    if gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    mesh = ProcessMesh(("data", "model"), shape, device)
+    tp = shape[1]
+    t0 = time.perf_counter()
+    model = chip_smoke.lm_tp_model(torch, device, arch, layers, tp,
+                                   getattr(torch, dtype), cpu)
+    prules = make_rules(mesh, "prefill", b, kv_sharded=model.kv_sharded)
+    drules = make_rules(mesh, "decode", b, kv_sharded=model.kv_sharded)
+    chip_smoke.lm_tp_load(torch, model, prules, fan_in=arch in LM_TP_FAN_IN)
+    sync()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in model.parameters())
+    tokens = chip_smoke.lm_tp_tokens(torch, np, model.raw_cfg.vocab_size,
+                                     device, cell)
+    bax = prules.batch_axes
+    lo, hi = block_range(b, mesh.axis_size(bax), mesh.axis_index(bax)) \
+        if bax else (0, b)
+    v = model.cfg.vocab_size // tp
+    v0 = mesh.axis_index("model") * v
+    mine = tokens[lo:hi]
+    prefill, _ = make_serve_fns(model, rules=prules, max_len=s + n)
+    _, decode = make_serve_fns(model, rules=drules)
+    dist.barrier()
+    res = chip_smoke.lm_tp_serve(torch, prefill, decode, mine, s, n)
+    # the prefill again, its MoE calls measured (host syncs: untimed)
+    with chip_smoke.lm_moe_calls(moe.dropped_assignments) as drops, \
+            chip_smoke.lm_moe_calls(chip_smoke.lm_router_margin) as margins:
+        prefill({"tokens": mine[:, :s]})
+    # the c10d calls of one decode step (the last step again)
+    step = lambda: decode(mine[:, s + n - 1:s + n], res["caches"],
+                          s + n - 1)
+    if rank == 0:
+        calls = chip_smoke.c10d_calls(torch, step)
+    else:
+        step()
+        sync()
+        calls = None
+    got = res["logits"]
+    row = {"init_s": init_s, "weight_bytes": weight_bytes,
+           "prefill_s": res["prefill_s"],
+           "decode_ms_per_step": res["decode_ms_per_step"]}
+    if ref_kind == "one_card":
+        want = refs[(name, tp)]["logits"] if rank == 0 else None
+        box = [None if want is None else tuple(want.shape)]
+        dist.broadcast_object_list(box, src=0)
+        full = want.to(device) if rank == 0 else torch.empty(
+            box[0], dtype=got.dtype, device=device)
+        dist.broadcast(full, src=0)
+        want = full[lo:hi, :, v0:v0 + v]
+        row["max_abs_diff"] = float((got.float() - want.float()).abs().max())
+        if dtype == "float32":
+            row["allclose"] = bool(torch.allclose(
+                got, want, rtol=chip_smoke.LM_CARD_RTOL,
+                atol=chip_smoke.LM_CARD_ATOL))
+        row["parts"] = chip_smoke.lm_gap_parts(torch, got, want)
+        del full, want
+    else:
+        with sharding_ctx(prules, mesh), chip_smoke.lm_moe_calls(
+                moe.dropped_assignments) as tdrops:
+            full = model({"tokens": mine})
+        row["teacher_dropped"] = sum(tdrops)
+        row["parts"] = chip_smoke.lm_gap_parts(torch, got, full[:, s - 1:])
+        del full
+    row["prefill_dropped"] = sum(drops)
+    row["least_router_margin"] = min(margins) if margins else None
+    row["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(device) \
+        if gpu else None
+    blocks = gathered({"rows": (lo, hi), "vocab": (v0, v0 + v),
+                       "logits": got.float().cpu()}) \
+        if ref_kind == "teacher_forced" else None
+    del res, model, got
+    if gpu:
+        torch.cuda.empty_cache()
+    everyone = gathered(row)
+    if rank != 0:
+        return True
+    gap = chip_smoke.lm_gap_from_parts([r.pop("parts") for r in everyone])
+    out = {"phase": "distributed_cards", "case": "lm_tp", "run": name,
+           "arch": arch, "layers": layers or "all", "dtype": dtype,
+           "mesh": {"data": shape[0], "model": shape[1]},
+           "tp": tp, "batch_axes": list(bax), **cell,
+           "reference": ref_kind, "gap": gap,
+           "tolerance_rel_l2": chip_smoke.LM_BF16_REL_L2,
+           "tolerance_share": chip_smoke.LM_NEAR_SHARE,
+           "c10d_calls_one_decode_step": calls,
+           "ranks": everyone}
+    if ref_kind == "one_card":
+        one = refs[(name, tp)]
+        out["one_card"] = {k: one[k] for k in (
+            "prefill_s", "decode_ms_per_step", "prefill_dropped")}
+    good = math.isfinite(gap["rel_l2_max"])
+    if dtype == "float32":
+        out["tolerance"] = [chip_smoke.LM_CARD_RTOL, chip_smoke.LM_CARD_ATOL]
+        good = good and all(r["allclose"] for r in everyone)
+    else:
+        # the control: logits one position off lie past the bound
+        out["control_past_bound"] = \
+            gap["unrelated_rel_l2_min"] > chip_smoke.LM_BF16_REL_L2
+        # phase 8's rule: the bound applies where no assignment was dropped
+        applies = all(r["prefill_dropped"] == 0 and
+                      r.get("teacher_dropped", 0) == 0 for r in everyone) \
+            and out.get("one_card", {}).get("prefill_dropped", 0) == 0
+        out["bound_applies"] = applies
+        good = good and out["control_past_bound"] and (
+            not applies or chip_smoke.lm_near(gap))
+    if blocks is not None:
+        full = torch.empty((b, n + 1, blocks[0]["logits"].shape[-1] * tp))
+        for blk in blocks:
+            (r0, r1), (c0, c1) = blk["rows"], blk["vocab"]
+            full[r0:r1, :, c0:c1] = blk["logits"]
+        if name in kept:
+            # reported, not gated: top-1 routing in bf16 flips at near
+            # ties, and another layout rounds otherwise (the reduced
+            # llama4 on the CPU: bf16 against float32 unsharded reads 0.91)
+            other_shape, other = kept[name]
+            out["against_" + "x".join(map(str, other_shape))] = \
+                chip_smoke.lm_gap_from_parts(
+                    [chip_smoke.lm_gap_parts(torch, full, other)])
+        else:
+            kept[name] = (shape, full)
+    out["ok"] = good
+    print(json.dumps(out), flush=True)
+    return good
 
 
 def shard_sink_case(api, storage, edge_digest, hub, ref, rank, world, gpu,

@@ -121,9 +121,11 @@ def numpy_params(model, seed: int) -> dict:
     return tree_map(lambda _, __: next(leaves), model.param_specs())
 
 
-def params_from_numpy(model, tree: dict):
+def params_from_numpy(model, tree: dict, rules=None):
     """Load a numpy tree in the JAX layout (:func:`numpy_params`) into
-    ``model``, cast per ``Model.param_dtype`` on its device; returns the
-    model."""
+    ``model``, cast per ``Model.param_dtype`` on its device; with
+    ``rules`` (``repro_torch.sharding.Rules``) only this rank's block of
+    each leaf (each leaf a view of its array, sliced before it is copied).
+    Returns the model."""
     return model.set_params(tree_map(
-        lambda _, a: torch.from_numpy(np.asarray(a)), tree))
+        lambda _, a: torch.from_numpy(np.asarray(a)), tree), rules)

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.models.layers import (ParamSpec, TensorStruct, apply_rope,
                                        rmsnorm, rope_freqs)
+from repro_torch.sharding import ctx as shard
 
 BLOCK_Q = 1024
 BLOCK_KV = 1024
@@ -182,15 +183,45 @@ def _project(x, w):
     return (x @ w.to(x.dtype).reshape(d, h * hd)).unflatten(-1, (h, hd))
 
 
+GQA_AXES = {"wq": ("embed", "heads", None), "wk": ("embed", "kv", None),
+            "wv": ("embed", "kv", None), "wo": ("heads", None, "embed"),
+            "bq": ("heads", None), "bk": ("kv", None), "bv": ("kv", None)}
+
+
+def layer_cache_len(cfg, kind: str, max_len: int) -> int:
+    """The length of a layer's cache for ``max_len`` positions: a local
+    layer's ring of ``local_window`` slots when ``max_len`` is longer,
+    else ``max_len``. Local layers keep an O(window) ring buffer; chunked
+    layers stay full-length (their sibling global layers need the full
+    cache anyway)."""
+    if kind == "local" and cfg.local_window and max_len > cfg.local_window:
+        return cfg.local_window
+    return max_len
+
+
 def gqa_attention(cfg, p, x, kind: str, positions, cache=None,
-                  heads: int = 0, kv_heads: int = 0):
+                  heads: int = 0, kv_heads: int = 0, cache_len: int = 0):
     """x: (B, S, D); positions: (S,) int32. cache: None (no cache, the
     teacher-forced pass) or dict(k, v) of (B, T, K, Dh), which prefill
     fills and a decode step (S == 1) writes at ``positions[0]``, both in
-    place. Returns (out, cache)."""
+    place. Returns (out, cache).
+
+    Under a sharding context: ``x`` is the whole sequence of this rank's
+    batch rows; Q runs on this rank's heads, K and V on its KV heads when
+    they are sharded, else on all of them (each local q head ``h`` reading
+    KV head ``h // g``); ``wo`` is row-parallel, so ``out`` is this rank's
+    partial sum. The cache is this rank's block per
+    ``serve_step.cache_shardings`` for ``cache_len`` positions: by heads,
+    whole, or by sequence when the KV heads cannot be split. A decode step
+    into a sequence-split cache writes its position on the rank that owns
+    it, each rank attends all heads over its own positions, and the parts
+    are combined over "model" (global max, then the softmax's sum, then
+    the weighted values)."""
     b, s, d = x.shape
     hd = cfg.head_dim
     g = heads // kv_heads
+    p = shard.gathered(p, GQA_AXES)
+    tp, t = shard.model_axis()
 
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
@@ -202,10 +233,44 @@ def gqa_attention(cfg, p, x, kind: str, positions, cache=None,
     cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    hl, kl = q.shape[2], k.shape[2]
+    # the KV head of each local q head: the local KV heads in groups of g
+    # (KV sharded with the q heads, or one rank), else an index into all
+    sel = None if kl * g == hl else \
+        (t * hl + torch.arange(hl, device=x.device)) // g
 
-    ring = (cache is not None and kind == "local" and cfg.local_window
-            and cache["k"].shape[1] == cfg.local_window)
+    seq_split = False
+    if cache is None:
+        glen = 0
+    elif shard.active() and tp > 1:
+        if not cache_len:
+            raise ValueError("a sharded cache needs its global length")
+        glen = layer_cache_len(cfg, kind, cache_len)
+        rules = shard.current_rules()
+        seq_split = not (rules.kv_sharded and kv_heads % tp == 0) \
+            and rules.seq_shard_cache and glen % tp == 0
+    else:
+        glen = cache["k"].shape[1]
+    ring = bool(cache is not None and kind == "local" and cfg.local_window
+                and glen == cfg.local_window)
+    lo = t * (glen // tp) if seq_split else 0
     if cache is None:                       # no cache
+        kk, vv = k, v
+        k_positions = positions
+    elif seq_split and s == 1:              # decode into this rank's block
+        out = _decode_seq_split(cfg, kind, q, k, v, cache, positions, ring,
+                                glen, lo, tp, t, kv_heads, g)
+        y = out.reshape(b, s, hl * hd) @ p["wo"].to(x.dtype).reshape(
+            hl * hd, d)
+        return y, cache
+    elif seq_split:                         # prefill: write owned positions
+        w = glen if ring else 0
+        start = s - min(s, w) if ring else 0
+        ppos = torch.arange(start, s, dtype=torch.int64, device=x.device)
+        slot = ppos % w if ring else ppos
+        owned = (slot >= lo) & (slot < lo + cache["k"].shape[1])
+        cache["k"][:, slot[owned] - lo] = k[:, start:][:, owned]
+        cache["v"][:, slot[owned] - lo] = v[:, start:][:, owned]
         kk, vv = k, v
         k_positions = positions
     elif s == 1 and ring:                   # decode into the ring buffer
@@ -222,13 +287,13 @@ def gqa_attention(cfg, p, x, kind: str, positions, cache=None,
         p_i = pos - ((pos - iota) % w)
         k_positions = torch.where(p_i >= 0, p_i, _UNWRITTEN).to(torch.int32)
     elif s == 1:                            # decode step at positions[0]
-        t = cache["k"].shape[1]
+        t_len = cache["k"].shape[1]
         # dynamic_update_slice clamps the start so the write fits
-        at = positions[:1].clamp(0, t - 1).long()
+        at = positions[:1].clamp(0, t_len - 1).long()
         cache["k"].index_copy_(1, at, k)
         cache["v"].index_copy_(1, at, v)
         kk, vv = cache["k"], cache["v"]
-        k_positions = torch.arange(t, dtype=torch.int32, device=x.device)
+        k_positions = torch.arange(t_len, dtype=torch.int32, device=x.device)
     elif ring:                              # prefill the ring: last w tokens
         w = cfg.local_window
         tail = min(s, w)
@@ -244,12 +309,56 @@ def gqa_attention(cfg, p, x, kind: str, positions, cache=None,
         kk, vv = k, v
         k_positions = positions
 
-    qg = q.reshape(b, s, kv_heads, g, hd)
+    if sel is None:
+        qg = q.reshape(b, s, kl, hl // kl, hd)
+    else:
+        qg = q.reshape(b, s, hl, 1, hd)
+        kk, vv = kk[:, :, sel], vv[:, :, sel]
     out = sdpa(qg, kk, vv, kind, cfg.local_window, cfg.chunk_size,
                positions, k_positions)
-    y = out.reshape(b, s, heads * hd) @ p["wo"].to(x.dtype).reshape(
-        heads * hd, d)
+    y = out.reshape(b, s, hl * hd) @ p["wo"].to(x.dtype).reshape(
+        hl * hd, d)
     return y, cache
+
+
+def _decode_seq_split(cfg, kind, q, k, v, cache, positions, ring: bool,
+                      glen: int, lo: int, tp: int, t: int, kv_heads: int,
+                      g: int):
+    """One decode step's attention over a cache split by sequence over
+    "model" (this rank holds positions or ring slots [lo, lo + T/tp)):
+    the step's K and V written on the rank that owns its slot, every head's
+    scores over this rank's slots, then the softmax and the weighted values
+    combined over "model". Returns this rank's heads' output (B, 1, Hl,
+    Dh)."""
+    mesh = shard.current_mesh()
+    b, _, hl, hd = q.shape
+    n = cache["k"].shape[1]
+    pos = positions[0]
+    slot = pos % glen if ring else pos.clamp(0, glen - 1)
+    at = (slot - lo).long()
+    owned = (at >= 0) & (at < n)
+    at = at.clamp(0, n - 1)[None]
+    for name, new in (("k", k), ("v", v)):
+        old = cache[name].index_select(1, at)
+        cache[name].index_copy_(1, at, torch.where(owned, new, old))
+    iota = lo + torch.arange(n, dtype=torch.int32, device=q.device)
+    if ring:
+        p_i = pos - ((pos - iota) % glen)
+        k_positions = torch.where(p_i >= 0, p_i, _UNWRITTEN).to(torch.int32)
+    else:
+        k_positions = iota
+    qa = mesh.all_gather(q, "model", 2).reshape(b, 1, kv_heads, g, hd)
+    scores = _scores(qa, cache["k"]) * hd ** -0.5
+    ok = _mask_value(kind, positions[:, None], k_positions[None, :],
+                     cfg.local_window, cfg.chunk_size)
+    scores = torch.where(ok, scores, NEG_INF)
+    m = mesh.all_reduce(scores.amax(dim=-1), "model", "max")
+    e = torch.exp(scores - m[..., None])
+    l = mesh.all_reduce(e.sum(dim=-1), "model")
+    w = (e / l[..., None]).to(v.dtype)
+    o = torch.einsum("bkgst,btkd->bskgd", w.float(), cache["v"].float())
+    o = mesh.all_reduce(o, "model").to(v.dtype)
+    return o.reshape(b, 1, tp * hl, hd)[:, :, t * hl:(t + 1) * hl]
 
 
 # ---------------------------------------------------------------- mla module

@@ -2,11 +2,20 @@
 
 The port of the JAX package's ``models/layers.py``. Parameters are nested
 dicts (and lists) of tensors in the JAX package's layout; each model
-provides a parallel tree of ``ParamSpec`` (shape + logical axis names). The
-axes stay as data for tensor parallelism, which is not ported yet. Trees
+provides a parallel tree of ``ParamSpec`` (shape + logical axis names),
+which the sharding rules map to mesh axes (``sharding/rules.py``). Trees
 are walked in the order ``jax.tree_util.tree_flatten`` walks them: dict
 keys sorted, lists in order, so one seed draws the same leaves in both
 packages (``repro_torch.convert.numpy_params``).
+
+Under a sharding context (``repro_torch.sharding``) the same functions run
+on this rank's blocks: each parameter's "embed" dimension is gathered over
+"data" at its use (``sharding.ctx.gather_weight``); the MLP is column-
+then row-parallel over "model" (:func:`apply_mlp` returns this rank's
+partial sum, which the layer reduces); the embedding and the output head
+are vocab-parallel (:func:`embed_tokens` looks up this rank's rows and
+gives zeros for the others, :func:`logits_out` gives this rank's block of
+the vocabulary).
 
 Every function computes what its JAX counterpart computes, in the same
 precision: norms in float32, RoPE angles in float32, tanh-approximated
@@ -21,6 +30,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import ctx as shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +55,13 @@ class TensorStruct(NamedTuple):
 
 
 def tree_map(fn: Callable, tree, path: tuple = ()):
-    """``fn(path, leaf)`` over a nested dict / list / tuple tree (a named
-    tuple is a leaf: ``TensorStruct`` is one), leaves visited in
-    ``jax.tree_util.tree_flatten``'s order; returns the same structure."""
+    """``fn(path, leaf)`` over a nested dict / list / tuple tree (a tuple
+    subclass is a leaf: ``TensorStruct`` and ``sharding.PartitionSpec``
+    are), leaves visited in ``jax.tree_util.tree_flatten``'s order;
+    returns the same structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], path + (k,)) for k in sorted(tree)}
-    if isinstance(tree, list) or (isinstance(tree, tuple)
-                                  and not hasattr(tree, "_fields")):
+    if isinstance(tree, list) or type(tree) is tuple:
         return type(tree)(tree_map(fn, v, path + (i,))
                           for i, v in enumerate(tree))
     return fn(path, tree)
@@ -87,32 +98,46 @@ def init_scale(spec: ParamSpec) -> float:
 
 
 def init_param(generator: torch.Generator, spec: ParamSpec,
-               device=None, dtype=None) -> torch.Tensor:
+               device=None, dtype=None, slices=None) -> torch.Tensor:
     """One parameter drawn by ``spec.init`` from ``generator`` (on
     ``device``), stored as ``dtype`` (default ``spec.dtype``). The draw is
     float32 whatever ``dtype`` is; a stacked leaf is drawn one layer at a
-    time, so one stored in bf16 never exists whole in float32."""
+    time, so one stored in bf16 never exists whole in float32. With
+    ``slices`` (one per dimension) only that block is kept: the whole
+    leaf (a stacked leaf's layers one at a time) is drawn all the same,
+    so the block is the same values whatever the layout."""
     dtype = dtype or spec.dtype
+    full = tuple(spec.shape)
+    slices = tuple(slices) if slices is not None \
+        else tuple(slice(0, n) for n in full)
+    shape = tuple(sl.stop - sl.start for sl in slices)
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
+        return torch.ones(shape, dtype=dtype, device=device)
     scale = init_scale(spec)
-    out = torch.empty(spec.shape, dtype=dtype, device=device)
-    stacked = spec.axes[:1] == ("layers",)
-    for row in (out if stacked else [out]):
-        draw = torch.randn(row.shape, generator=generator,
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if spec.axes[:1] != ("layers",):
+        draw = torch.randn(full, generator=generator, dtype=torch.float32,
+                           device=device)
+        return out.copy_(draw[slices].mul_(scale))
+    for j in range(full[0]):
+        draw = torch.randn(full[1:], generator=generator,
                            dtype=torch.float32, device=device)
-        row.copy_(draw.mul_(scale))
+        if slices[0].start <= j < slices[0].stop:
+            out[j - slices[0].start].copy_(draw[slices[1:]].mul_(scale))
     return out
 
 
 def init_tree(generator: torch.Generator, specs, device=None,
-              dtype_of: Optional[Callable] = None):
+              dtype_of: Optional[Callable] = None,
+              slices_of: Optional[Callable] = None):
     """Every leaf of ``specs`` drawn in turn from ``generator``;
-    ``dtype_of(path, spec)`` gives each leaf's stored dtype."""
+    ``dtype_of(path, spec)`` gives each leaf's stored dtype,
+    ``slices_of(path, spec)`` the block of it to keep (default all)."""
     return tree_map(lambda path, s: init_param(
-        generator, s, device, dtype_of(path, s) if dtype_of else None), specs)
+        generator, s, device, dtype_of(path, s) if dtype_of else None,
+        slices_of(path, s) if slices_of else None), specs)
 
 
 # ---------------------------------------------------------------- norms
@@ -140,9 +165,11 @@ def norm_specs(cfg) -> dict:
 
 
 def apply_norm(cfg, p, x):
+    scale = shard.gather_weight(p["scale"], ("embed",))
     if cfg.norm == "layernorm":
-        return layernorm(x, p["scale"], p["bias"])
-    return rmsnorm(x, p["scale"])
+        return layernorm(x, scale, shard.gather_weight(p["bias"],
+                                                       ("embed",)))
+    return rmsnorm(x, scale)
 
 
 # ---------------------------------------------------------------- rope
@@ -177,7 +204,14 @@ def mlp_specs(cfg) -> dict:
             "wo": ParamSpec((f, d), ("mlp", "embed"))}
 
 
+MLP_AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
+
+
 def apply_mlp(cfg, p, x):
+    """The MLP of ``x``; under a sharding context, this rank's partial sum
+    over its block of the hidden columns (column- then row-parallel)."""
+    p = shard.gathered(p, MLP_AXES)
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["wi"].to(x.dtype)) * (x @ p["wg"].to(x.dtype))
     else:
@@ -197,11 +231,24 @@ def embed_specs(cfg) -> dict:
 
 
 def embed_tokens(p, tokens, dtype):
-    return p["tok"].to(dtype)[tokens]
+    """The embedding rows of ``tokens``; under a sharding context this
+    rank's vocab-parallel part: its block of rows, zeros for tokens outside
+    it (the caller sums the parts over "model")."""
+    w = shard.gather_weight(p["tok"], ("vocab", "embed")).to(dtype)
+    tp, t = shard.model_axis()
+    if tp == 1:
+        return w[tokens]
+    lo = t * w.shape[0]
+    local = (tokens >= lo) & (tokens < lo + w.shape[0])
+    rows = w[torch.where(local, tokens - lo, 0)]
+    return torch.where(local[..., None], rows, 0)
 
 
 def logits_out(cfg, p, x):
-    w = p["head"] if "head" in p else p["tok"]
+    """Logits of ``x``; under a sharding context this rank's block of the
+    vocabulary (the rules' ``logits_btv``)."""
+    w = shard.gather_weight(p["head"] if "head" in p else p["tok"],
+                            ("vocab", "embed"))
     return x @ w.to(x.dtype).T
 
 

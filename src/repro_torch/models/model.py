@@ -6,7 +6,22 @@ encoder-decoder. ``build_model(cfg, tp)`` resolves the same TP-divisibility
 padding: query heads pad up to a multiple of the model-axis size; KV heads
 smaller than the axis stay unsharded (replicated); Mamba-2's inner dim
 pads so SSD heads split evenly; the vocab pads to a multiple of ``tp``.
-Only ``tp == 1`` holds parameters here: sharding is ROADMAP item 15d.
+A model of any ``tp`` runs unsharded when no rules are given, as the
+reference's does (the padded model is the reference of every sharded run
+at that ``tp``).
+
+Sharded serving (``repro_torch.sharding``): ``init``, ``set_params`` and
+``convert.params_from_numpy`` given ``rules`` keep only this rank's block
+of each leaf (``Rules.param_pspec``; the whole tree is the same function
+of the seed on every mesh), and ``prefill`` / ``decode_step`` /
+``forward`` run under ``sharding_ctx(rules, rules.mesh)``
+(``serve.make_serve_fns(model, rules=...)``): they take this rank's batch
+rows (the rules' batch axes) and return this rank's block of the
+vocabulary (``logits_btv``) and caches laid out by
+``serve.serve_step.cache_shardings``. The GQA families (dense, vision,
+MoE) run on any mesh; MLA, the SSD, the RG-LRU and the encoder-decoder
+only on a mesh of one device, and training not under rules: both are
+ROADMAP item 15e.
 
 Parameters live in the module (``Model.params``, the JAX package's nested
 layout) on the model's device. The reference keeps float32 parameters and
@@ -47,6 +62,8 @@ from repro_torch.models.layers import (TensorStruct, apply_norm, embed_specs,
                                        norm_specs, tree_leaves, tree_map,
                                        tree_paths)
 from repro_torch.runtime import spmd
+from repro_torch.sharding import ctx as shard
+from repro_torch.sharding.rules import local_shape, local_slices
 
 #: Keys of the tree whose leaves stay float32 (see the module docstring):
 #: the norms (layers', MLA's q/kv, the SSD's gated norm, the encoder-
@@ -92,6 +109,8 @@ class Model(nn.Module):
         self.device = device
         self.tree: Optional[dict] = None    # nested dict of the Parameters
         self.params: Optional[ParamTree] = None
+        self.param_rules = None             # the rules the tree is laid out by
+        self._cache_len = 0                 # global length of sharded caches
 
     # ---------------------------------------------------------- specs/init
 
@@ -116,46 +135,151 @@ class Model(nn.Module):
         return torch.float32 if any(k in FLOAT32_KEYS for k in path) \
             else self.compute_dtype
 
-    def _require_single_device(self) -> None:
-        if self.tp != 1:
+    def check_rules(self, rules) -> None:
+        """Raise unless this model can be laid out by ``rules``: ROADMAP
+        item 15e (``NotImplementedError``) for ``no_tp`` and for MLA, the
+        SSD, the RG-LRU and the encoder-decoder on a mesh of more than one
+        device; ``ValueError`` for a "model" axis other than ``tp``, KV
+        sharding other than the model's, or an "embed" dimension the
+        "data" axis does not divide."""
+        mesh = rules.mesh
+        cfg = self.cfg
+        if rules.no_tp:
             raise NotImplementedError(
-                f"tp={self.tp}: tensor-parallel sharding is not ported yet "
-                "(ROADMAP item 15d); build with tp=1")
+                "the no_tp rules are not ported yet (ROADMAP item 15e)")
+        unported = [name for name, hit in (
+            ("MLA", cfg.attention == "mla"),
+            ("the SSD", "ssm" in cfg.layer_kinds()),
+            ("the RG-LRU", "rec" in cfg.layer_kinds()),
+            ("the encoder-decoder", cfg.family == "audio")) if hit]
+        if unported and mesh.size > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: {', '.join(unported)} under sharding rules on "
+                f"a mesh of {mesh.size} devices is not ported yet (ROADMAP "
+                "item 15e)")
+        msz = int(mesh.shape.get("model", 1))
+        if msz != self.tp:
+            raise ValueError(f"the model is padded for tp={self.tp}, the "
+                             f"mesh's model axis has {msz} devices")
+        if self.tp > 1 and rules.kv_sharded != self.kv_sharded:
+            raise ValueError(f"rules.kv_sharded={rules.kv_sharded}, the "
+                             f"model's KV heads ({self.kv_heads}) are "
+                             f"{'' if self.kv_sharded else 'not '}split "
+                             f"over tp={self.tp}")
+        for path, spec in zip(tree_paths(self.param_specs()),
+                              tree_leaves(self.param_specs())):
+            pspec = rules.param_pspec(spec)
+            for dim, n in enumerate(spec.shape):
+                other = [a for a in pspec.axes_of(dim) if a != "model"]
+                if other and n % mesh.axis_size(tuple(other)):
+                    raise ValueError(
+                        f"{'/'.join(map(str, path))}: dim {dim} ({n}) does "
+                        f"not divide over {other}")
 
-    def set_params(self, tree: dict) -> "Model":
-        """Hold ``tree`` (the JAX layout; tensors of any dtype and device)
-        as this model's parameters, each moved to the model's device and
-        stored in :meth:`param_dtype`. Shapes must match the specs."""
-        self._require_single_device()
+    def _slices_of(self, rules):
+        """(path, spec) -> this rank's block of the leaf under ``rules``."""
+        def slices(_, spec):
+            return local_slices(rules.param_pspec(spec), spec.shape,
+                                rules.mesh)
+        return slices
+
+    def set_params(self, tree: dict, rules=None) -> "Model":
+        """Hold ``tree`` (the JAX layout; tensors of any dtype and device,
+        at the specs' shapes) as this model's parameters, each moved to the
+        model's device and stored in :meth:`param_dtype`; with ``rules``
+        only this rank's block of each leaf (:meth:`check_rules`)."""
         specs = self.param_specs()
         paths, got = tree_paths(specs), tree_paths(tree)
         if got != paths:
             raise ValueError(f"parameter tree paths differ from the specs': "
                              f"{sorted(set(got) ^ set(paths))[:4]}")
 
-        def place(path, t):
+        def whole(path, t):
             spec = _at(specs, path)
             if tuple(t.shape) != spec.shape:
                 raise ValueError(f"{'/'.join(map(str, path))}: shape "
                                  f"{tuple(t.shape)}, spec {spec.shape}")
-            return nn.Parameter(t.to(self.device, self.param_dtype(path)),
-                                requires_grad=False)
+            return t
 
-        self.tree = tree_map(place, tree)
+        tree = tree_map(whole, tree)
+        if rules is not None:
+            self.check_rules(rules)
+            slices_of = self._slices_of(rules)
+            return self._set_local_params(tree_map(
+                lambda path, t: t[slices_of(path, _at(specs, path))], tree),
+                rules)
+        return self._hold(tree, None)
+
+    def _set_local_params(self, tree: dict, rules) -> "Model":
+        """Hold ``tree``, already this rank's blocks under ``rules``."""
+        self.check_rules(rules)
+        slices_of = self._slices_of(rules)
+        specs = self.param_specs()
+
+        def block(path, t):
+            want = tuple(sl.stop - sl.start
+                         for sl in slices_of(path, _at(specs, path)))
+            if tuple(t.shape) != want:
+                raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                                 f"{tuple(t.shape)}, this rank's block "
+                                 f"{want}")
+            return t
+
+        return self._hold(tree_map(block, tree), rules)
+
+    def _hold(self, tree: dict, rules) -> "Model":
+        self.tree = tree_map(lambda path, t: nn.Parameter(
+            t.to(self.device, self.param_dtype(path)), requires_grad=False),
+            tree)
         self.params = ParamTree(self.tree)
+        self.param_rules = rules
         return self
 
-    def init(self, generator: Optional[torch.Generator] = None) -> "Model":
+    def init(self, generator: Optional[torch.Generator] = None,
+             rules=None) -> "Model":
         """Draw every parameter by its spec's init kind from ``generator``
         (a ``torch.Generator`` on the model's device; default: seeded 0),
         leaf by leaf in the JAX tree's order, each cast to its stored dtype
-        as it is drawn."""
-        self._require_single_device()
+        as it is drawn. With ``rules``, each leaf is drawn whole all the
+        same (a stacked leaf one layer at a time) and only this rank's
+        block is kept, so every mesh holds blocks of the same tree."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
-        self.set_params(init_tree(generator, self.param_specs(), self.device,
-                                  lambda path, _: self.param_dtype(path)))
-        return self
+        if rules is None:
+            return self.set_params(init_tree(
+                generator, self.param_specs(), self.device,
+                lambda path, _: self.param_dtype(path)))
+        self.check_rules(rules)
+        return self._set_local_params(init_tree(
+            generator, self.param_specs(), self.device,
+            lambda path, _: self.param_dtype(path), self._slices_of(rules)),
+            rules)
+
+    def _layout(self):
+        """(rules, mesh) of the sharding context the call runs in, checked
+        against the parameters' layout; None outside a context."""
+        rules, mesh = shard.current_rules(), shard.current_mesh()
+        if rules is None or mesh is None:
+            if self.param_rules is not None:
+                raise ValueError("the model holds this rank's blocks of its "
+                                 "parameters: run it under sharding_ctx "
+                                 "(serve.make_serve_fns(model, rules=...))")
+            return None
+        held = self.param_rules
+        if held is None:
+            raise ValueError("a sharded run needs the parameters laid out by "
+                             "the rules: init(..., rules=) or set_params("
+                             "..., rules=)")
+        if mesh is not held.mesh or rules.mesh is not held.mesh or \
+                rules.kv_sharded != held.kv_sharded or \
+                rules.no_tp != held.no_tp:
+            raise ValueError("the sharding context's rules lay the "
+                             "parameters out otherwise than they are held")
+        return rules, mesh
+
+    def _global_batch(self, b: int) -> int:
+        bax = shard.batch_axes()
+        return b * shard.current_mesh().axis_size(bax) if bax else b
 
     def _params(self) -> dict:
         if self.tree is None:
@@ -172,7 +296,6 @@ class Model(nn.Module):
         float32 masters and casts each to the compute dtype at use, as
         every layer function here does (``.to(x.dtype)``); the serving
         copy (:meth:`set_params`) is not touched."""
-        self._require_single_device()
         specs = self.param_specs()
         if tree is None:
             if generator is None:
@@ -196,13 +319,23 @@ class Model(nn.Module):
     # ---------------------------------------------------------- forward
 
     def _embed(self, batch, params):
+        """The residual stream's input, in the residual's layout: under a
+        sharding context each rank's vocab-parallel part (the image
+        embeddings on model rank 0 only) summed over "model"."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], batch["tokens"],
                          self.compute_dtype)
         if cfg.num_patches and "image_embeds" in batch:
             img = batch["image_embeds"].to(self.device, self.compute_dtype)
             npatch = img.shape[1]
+            if shard.model_axis()[1]:
+                img = torch.zeros_like(img)
             x = torch.cat([img, x[:, npatch:]], dim=1)
+        x = shard.reduce_seq(x)
+        b, s = batch["tokens"].shape
+        if shard.active():
+            shard.constrain(x, "act_btd", (self._global_batch(b),
+                                           shard.padded_len(s), cfg.d_model))
         return x
 
     def _positions(self, n: int):
@@ -228,7 +361,7 @@ class Model(nn.Module):
         return self._encode(batch, self._params())
 
     def _stack(self, params, x, positions, caches, cross_kv=None,
-               train: bool = False):
+               train: bool = False, cache_len: int = 0):
         """The decoder stack (the encoder-decoder's with ``cross_kv``);
         returns (x, caches, aux), aux the MoE load-balancing loss (0.0
         without MoE)."""
@@ -238,19 +371,23 @@ class Model(nn.Module):
                 self.heads, self.kv_heads, train=train)
             return x, caches, 0.0
         return tf.apply_stack(self.cfg, params["stack"], x, positions,
-                              caches, self.heads, self.kv_heads, train=train)
+                              caches, self.heads, self.kv_heads, train=train,
+                              cache_len=cache_len)
 
     @torch.inference_mode()
     def forward(self, batch) -> torch.Tensor:
         """Teacher-forced logits at every position, (B, S, V), with no
-        cache (the pass the training loss takes)."""
+        cache (the pass the training loss takes); under a sharding context
+        this rank's rows and block of the vocabulary."""
         params = self._params()
+        self._layout()
+        s = batch["tokens"].shape[1]
         x = self._embed(batch, params)
         cross = self._encode(batch, params) \
             if self.cfg.family == "audio" else None
-        x, _, _ = self._stack(params, x, self._positions(x.shape[1]), None,
-                              cross)
-        x = apply_norm(self.cfg, params["final_norm"], x)
+        x, _, _ = self._stack(params, x, self._positions(s), None, cross)
+        x = apply_norm(self.cfg, params["final_norm"],
+                       shard.gather_seq(x, s))
         return logits_out(self.cfg, params["embed"], x)
 
     def loss(self, batch, params: Optional[dict] = None) -> torch.Tensor:
@@ -262,7 +399,12 @@ class Model(nn.Module):
         (:meth:`master_params`), default the serving copy. The encoder
         runs inside the differentiated function, the stack with
         ``train=True`` (remat per ``REPRO_REMAT``); the logsumexp and the
-        label logit are float32."""
+        label logit are float32. Not under sharding rules (ROADMAP item
+        15e)."""
+        if shard.active():
+            raise NotImplementedError(
+                "training under sharding rules is not ported yet (ROADMAP "
+                "item 15e)")
         params = self._params() if params is None else params
         x = self._embed(batch, params)
         cross = self._encode(batch, params) \
@@ -285,7 +427,26 @@ class Model(nn.Module):
                                 self.kv_heads)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return self._zeros(self.cache_structs(batch, max_len))
+        """Zero caches for ``batch`` sequences of ``max_len`` positions;
+        under a sharding context this rank's blocks of them
+        (``serve_step.cache_shardings``; ``batch`` is the global batch)."""
+        structs = self.cache_structs(batch, max_len)
+        if self._layout() is None:
+            return self._zeros(structs)
+        self._cache_len = max_len
+        return self._zeros(self._local_cache_structs(structs, batch))
+
+    def _local_cache_structs(self, structs, batch: int):
+        from repro_torch.serve.serve_step import cache_shardings
+        rules, mesh = shard.current_rules(), shard.current_mesh()
+        bax = rules.batch_axes
+        if bax and batch % mesh.axis_size(bax):
+            raise ValueError(f"batch {batch} does not divide over the batch "
+                             f"axes {bax}")
+        specs = cache_shardings(rules, structs)
+        leaves = iter(tree_leaves(specs))
+        return tree_map(lambda _, st: TensorStruct(
+            local_shape(next(leaves), st.shape, mesh), st.dtype), structs)
 
     def _zeros(self, structs):
         return tree_map(
@@ -296,11 +457,15 @@ class Model(nn.Module):
     def prefill(self, batch, max_len: int = 0):
         """Process the prompt; returns (last-position logits (B, 1, V),
         caches of ``max_len`` positions filled with the prompt's K/V or
-        the recurrent states; the encoder-decoder's carry its cross K/V)."""
+        the recurrent states; the encoder-decoder's carry its cross K/V).
+        Under a sharding context: this rank's batch rows in, its rows and
+        block of the vocabulary out, its blocks of the caches."""
         params = self._params()
+        layout = self._layout()
         b, s = batch["tokens"].shape
         max_len = max_len or s
         x = self._embed(batch, params)
+        gb = self._global_batch(b) if layout else b
         if self.cfg.family == "audio":
             cross = self._encode(batch, params)
             selfc = self._zeros(self.cache_structs(b, max_len)["self"])
@@ -309,25 +474,48 @@ class Model(nn.Module):
             caches = {"self": selfc, "cross": cross}
         else:
             x, caches, _ = self._stack(params, x, self._positions(s),
-                                       self.init_cache(b, max_len))
-        x = apply_norm(self.cfg, params["final_norm"], x[:, -1:])
-        return logits_out(self.cfg, params["embed"], x), caches
+                                       self.init_cache(gb, max_len),
+                                       cache_len=max_len)
+        x = apply_norm(self.cfg, params["final_norm"],
+                       shard.gather_seq(x, s)[:, -1:])
+        logits = logits_out(self.cfg, params["embed"], x)
+        return shard.constrain(logits, "logits_btv",
+                               (gb, 1, self.cfg.vocab_size)), caches
 
     @torch.inference_mode()
     def decode_step(self, tokens, caches, pos: int):
         """One token step. tokens: (B, 1); pos: the current length. The
-        caches are written in place and returned."""
+        caches are written in place and returned. Under a sharding
+        context: this rank's rows and caches (those ``prefill`` or
+        ``init_cache`` made) in, its rows and block of the vocabulary
+        out."""
         params = self._params()
-        x = embed_tokens(params["embed"], tokens, self.compute_dtype)
+        layout = self._layout()
+        b = tokens.shape[0]
+        if layout is not None:
+            gb = self._global_batch(b)
+            want = tree_leaves(self._local_cache_structs(
+                self.cache_structs(gb, self._cache_len), gb))
+            got = tree_leaves(caches)
+            if [tuple(w.shape) for w in want] != \
+                    [tuple(g.shape) for g in got]:
+                raise ValueError("the caches are not this rank's blocks of "
+                                 "the last ones init_cache / prefill made")
+        x = self._embed({"tokens": tokens}, params)
         positions = torch.full((1,), pos, dtype=torch.int32,
                                device=self.device)
         if self.cfg.family == "audio":
             x, _, _ = self._stack(params, x, positions, caches["self"],
                                   caches["cross"])
         else:
-            x, caches, _ = self._stack(params, x, positions, caches)
-        x = apply_norm(self.cfg, params["final_norm"], x)
-        return logits_out(self.cfg, params["embed"], x), caches
+            x, caches, _ = self._stack(params, x, positions, caches,
+                                       cache_len=self._cache_len)
+        x = apply_norm(self.cfg, params["final_norm"], shard.gather_seq(x, 1))
+        logits = logits_out(self.cfg, params["embed"], x)
+        if layout is not None:
+            shard.constrain(logits, "logits_btv",
+                            (self._global_batch(b), 1, self.cfg.vocab_size))
+        return logits, caches
 
 
 def _at(tree, path):

@@ -15,8 +15,32 @@ Experts are chosen by a stable descending sort of the probabilities, not
 ``torch.topk``: on a tie ``jax.lax.top_k`` takes the lower expert id first,
 and ``torch.topk`` does not promise an order among equal values.
 
-The reference's ``_grouped_manual`` (expert parallelism in a shard_map
-over the mesh's model axis) needs a mesh; it waits for the sharding slice.
+Under a sharding context (``repro_torch.sharding``) the layer runs expert
+parallel over "model", each rank holding a block of the experts
+(``block_range``: ceil(E / tp) each, the last ranks short or empty when
+"model" does not divide E) and of the shared expert's hidden columns. Its
+input is the whole sequence of the rank's batch rows (the layer gathers
+it), and its output is in the residual's layout:
+
+  prefill  the reference's ``_grouped_manual``: routing replicated over
+           "model", the per-row capacity from the whole sequence,
+           positions from the global flat (b, s, k) order; each rank
+           scatters only its experts' assignments (the others go to a
+           trash column ``cap``), runs its experts, and takes the
+           gate-weighted sum over k before a float32 reduce-scatter over
+           the sequence. The reference takes ``_grouped_auto`` where
+           "model" divides neither E nor s; both compute the same values,
+           and so does this path for any E and s.
+  decode   the flat (E, C, D) path (``moe_ecd``): the step's tokens are
+           gathered over the batch axes so the capacity and positions are
+           the global batch's, each rank runs its experts on their whole
+           capacity (the C dimension is not split over "data": each data
+           rank computes it), keeps its batch rows, and the float32
+           all-reduce over "model" sums the experts' parts.
+
+The shared expert is column- then row-parallel (its partial sum reduced
+in the activations' dtype), and the load-balancing loss is taken from the
+global routing (its two (E,) sums all-reduced over the batch axes).
 """
 from __future__ import annotations
 
@@ -24,6 +48,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamSpec
+from repro_torch.sharding import ctx as shard
+from repro_torch.sharding.rules import block_range
+
+MOE_AXES = {"router": ("embed", None),
+            "wi": ("experts", "embed", "moe_mlp"),
+            "wg": ("experts", "embed", "moe_mlp"),
+            "wo": ("experts", "moe_mlp", "embed"),
+            "shared_wi": ("embed", "mlp"), "shared_wg": ("embed", "mlp"),
+            "shared_wo": ("mlp", "embed")}
 
 
 def moe_specs(cfg) -> dict:
@@ -123,7 +156,12 @@ def _flat(cfg, p, x, gate_vals, flat_ids, pos_in_e, keep, cap: int):
 
 def dropped_assignments(cfg, p, x) -> int:
     """How many of the top-k assignments of ``x`` (B, S, D) apply_moe
-    drops for want of capacity."""
+    drops for want of capacity; under a sharding context, of this rank's
+    batch rows in a prefill, of the step's whole batch in a decode step
+    (gathered as apply_moe gathers it)."""
+    p = shard.gathered(p, MOE_AXES)
+    if x.shape[1] == 1 and shard.batch_axes():
+        x = shard.current_mesh().all_gather(x, shard.batch_axes(), 0)
     b, s, _ = x.shape
     _, _, ids = route(cfg, p, x)
     if s > 1:
@@ -134,7 +172,11 @@ def dropped_assignments(cfg, p, x) -> int:
 
 
 def apply_moe(cfg, p, x):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss float32 scalar)."""
+    """x: (B, S, D) -> (out (B, S, D), aux_loss float32 scalar). Under a
+    sharding context, expert parallel (see the module); ``out`` is then in
+    the residual's layout."""
+    if shard.active():
+        return _apply_moe_sharded(cfg, p, x)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     probs, gate_vals, expert_ids = route(cfg, p, x)
@@ -166,3 +208,101 @@ def apply_moe(cfg, p, x):
         t * k)
     aux = e * torch.sum(me * ce)
     return y, aux
+
+
+def _grouped_local(cfg, p, x, gate_vals, ids_r, pos_r, keep, cap: int,
+                   e0: int, e1: int):
+    """Per-row dispatch to this rank's experts [e0, e1) (``p``'s expert
+    leaves hold just them): x (B, S, D); ids_r / pos_r / keep (B, S*k).
+    Returns this rank's part of the gate-weighted sum over k."""
+    b, s, d = x.shape
+    k, el = cfg.top_k, e1 - e0
+    if el == 0:
+        return x.new_zeros((b, s, d))
+    ok = keep & (ids_r >= e0) & (ids_r < e1)
+    ids_l = torch.where(ok, ids_r - e0, 0)
+    pos_l = torch.where(ok, pos_r, cap)                       # trash column
+    src = torch.repeat_interleave(x, k, dim=1)
+    src = torch.where(ok[..., None], src, 0)
+    buf = x.new_zeros((b, el * (cap + 1), d))
+    buf.scatter_add_(1, (ids_l * (cap + 1) + pos_l)[..., None].expand(
+        -1, -1, d), src)
+    buf = buf.view(b, el, cap + 1, d)[:, :, :cap].contiguous()
+    out_buf = _experts(p, buf).reshape(b, el * cap, d)
+    slot = ids_l * cap + pos_l.clamp(max=cap - 1)
+    gathered = out_buf.gather(1, slot[..., None].expand(-1, -1, d))
+    gathered = torch.where(ok[..., None], gathered, 0)
+    weighted = gathered * gate_vals.reshape(b, s * k, 1).to(x.dtype)
+    return weighted.reshape(b, s, k, d).sum(dim=2)
+
+
+def _flat_local(cfg, p, x, gate_vals, flat_ids, pos_in_e, keep, cap: int,
+                e0: int, e1: int):
+    """Flat-token dispatch of a decode step to this rank's experts [e0,
+    e1): x (T, D); flat_ids (T*k,). Returns this rank's part (T, D)."""
+    t, d = x.shape
+    k, el = cfg.top_k, e1 - e0
+    if el == 0:
+        return x.new_zeros((t, d))
+    ok = keep & (flat_ids >= e0) & (flat_ids < e1)
+    ids_l = torch.where(ok, flat_ids - e0, 0)
+    pos_l = torch.where(ok, pos_in_e, cap)                    # trash column
+    src = torch.repeat_interleave(x, k, dim=0)
+    src = torch.where(ok[:, None], src, 0)
+    buf = x.new_zeros((el * (cap + 1), d))
+    buf.index_add_(0, ids_l * (cap + 1) + pos_l, src)
+    buf = buf.view(el, cap + 1, d)[:, :cap].contiguous()
+    out_buf = _experts(p, buf).reshape(el * cap, d)
+    gathered = torch.where(ok[:, None],
+                           out_buf[ids_l * cap + pos_l.clamp(max=cap - 1)], 0)
+    weighted = gathered * gate_vals.reshape(-1, 1).to(x.dtype)
+    return weighted.reshape(t, k, d).sum(dim=1)
+
+
+def _apply_moe_sharded(cfg, p, x):
+    """apply_moe under a sharding context (see the module)."""
+    mesh = shard.current_mesh()
+    bax = shard.batch_axes()
+    p = shard.gathered(p, MOE_AXES)
+    tp, ti = shard.model_axis()
+    e0, e1 = block_range(cfg.num_experts, tp, ti)
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    if s > 1:
+        probs, gate_vals, expert_ids = route(cfg, p, x)
+        cap = capacity(cfg, s)
+        ids_r = expert_ids.reshape(b, s * k)
+        pos_r = _position_in_expert(ids_r)
+        y = _grouped_local(cfg, p, x, gate_vals, ids_r, pos_r, pos_r < cap,
+                           cap, e0, e1)
+        y = shard.reduce_seq(y.float()).to(x.dtype)
+        stats = torch.stack([probs.reshape(-1, e).sum(0), torch.zeros(
+            e, device=x.device).index_add_(0, expert_ids.reshape(-1),
+                                           torch.ones(b * s * k,
+                                                      device=x.device))])
+        if bax:
+            stats = mesh.all_reduce(stats, bax)
+        tokens = b * s * (mesh.axis_size(bax) if bax else 1)
+    else:
+        xg = mesh.all_gather(x, bax, 0) if bax else x
+        probs, gate_vals, expert_ids = route(cfg, p, xg)
+        tokens = xg.shape[0] * s
+        cap = capacity(cfg, tokens)
+        flat_ids = expert_ids.reshape(-1)
+        pos_in_e = _position_in_expert(flat_ids)
+        y = _flat_local(cfg, p, xg.reshape(tokens, d), gate_vals, flat_ids,
+                        pos_in_e, pos_in_e < cap, cap, e0, e1)
+        r0 = mesh.axis_index(bax) * b if bax else 0
+        y = y[r0:r0 + b].reshape(b, s, d)
+        y = shard.reduce_seq(y.float()).to(x.dtype)
+        stats = torch.stack([probs.reshape(-1, e).sum(0), torch.zeros(
+            e, device=x.device).index_add_(0, flat_ids,
+                                           torch.ones(tokens * k,
+                                                      device=x.device))])
+    if cfg.shared_expert_d_ff:
+        hs = F.silu(x @ p["shared_wi"].to(x.dtype)) * (
+            x @ p["shared_wg"].to(x.dtype))
+        y = y + shard.reduce_seq(hs @ p["shared_wo"].to(x.dtype))
+    # Switch-style load-balancing aux loss, from the global routing.
+    me, ce = stats[0] / tokens, stats[1] / (tokens * k)
+    return y, e * torch.sum(me * ce)

@@ -15,6 +15,14 @@ reference does (``Model.loss`` adds it). Training recomputes each group
 body (one pattern period, the reference's scan step) in the backward pass
 under ``torch.utils.checkpoint``, per ``REPRO_REMAT`` (see
 :func:`remat_policy`).
+
+Under a sharding context each layer runs on this rank's blocks and its
+residual follows the rules' ``act_btd``: split by sequence over "model"
+in prefill (all-gathered before the mixer and the MLP, their row-parallel
+partial outputs reduce-scattered back; a sequence that "model" does not
+divide is padded at the end, and the mixer sees only the real positions),
+replicated over "model" in a decode step (the partial outputs
+all-reduced). The MoE layer reduces its own output (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamSpec, TensorStruct, apply_mlp,
                                        apply_norm, mlp_specs, norm_specs,
                                        tree_map)
+from repro_torch.sharding import ctx as shard
 
 ATTN_KINDS = ("global", "local", "chunked", "bidir")
 
@@ -64,10 +73,13 @@ def layer_specs(cfg, kind: str, heads: int, kv_heads: int) -> dict:
 
 
 def apply_layer(cfg, p, kind: str, x, positions, cache, heads: int,
-                kv_heads: int):
+                kv_heads: int, cache_len: int = 0):
     """One layer; returns (x, cache, aux), aux the MoE load-balancing
-    loss (0.0 without MoE)."""
-    h = apply_norm(cfg, p["norm1"], x)
+    loss (0.0 without MoE). ``x`` is in the residual's layout (the whole
+    sequence outside a sharding context); ``positions`` holds the real
+    positions; ``cache_len`` is the caches' global length (sharded runs)."""
+    s = positions.shape[0]
+    h = shard.gather_seq(apply_norm(cfg, p["norm1"], x), s)
     if kind in ATTN_KINDS:
         if cfg.attention == "mla":
             h, new_cache = attn.mla_attention(cfg, p["mixer"], h, kind,
@@ -75,19 +87,19 @@ def apply_layer(cfg, p, kind: str, x, positions, cache, heads: int,
         else:
             h, new_cache = attn.gqa_attention(cfg, p["mixer"], h, kind,
                                               positions, cache, heads,
-                                              kv_heads)
+                                              kv_heads, cache_len)
     elif kind == "rec":
         h, new_cache = rglru_lib.apply_rglru(cfg, p["mixer"], h, cache)
     else:
         h, new_cache = ssm_lib.apply_ssm(cfg, p["mixer"], h, cache)
-    x = x + h
+    x = x + shard.reduce_seq(h)
     aux = 0.0                       # the load-balancing loss, MoE only
     if "mlp" in p:
-        h = apply_norm(cfg, p["norm2"], x)
+        h = shard.gather_seq(apply_norm(cfg, p["norm2"], x), s)
         if cfg.moe:
             h, aux = moe_lib.apply_moe(cfg, p["mlp"], h)
         else:
-            h = apply_mlp(cfg, p["mlp"], h)
+            h = shard.reduce_seq(apply_mlp(cfg, p["mlp"], h))
         x = x + h
     return x, new_cache, aux
 
@@ -119,13 +131,9 @@ def mixer_cache_struct(cfg, kind: str, batch: int, max_len: int, dtype,
     if kind in ATTN_KINDS:
         if cfg.attention == "mla":
             return attn.mla_cache_struct(cfg, batch, max_len, dtype)
-        # Local-attention layers keep an O(window) ring buffer. Chunked
-        # layers stay full-length (their sibling global layers need the
-        # full cache anyway).
-        if kind == "local" and cfg.local_window and max_len > cfg.local_window:
-            return attn.gqa_cache_struct(cfg, batch, cfg.local_window,
-                                         kv_heads, dtype)
-        return attn.gqa_cache_struct(cfg, batch, max_len, kv_heads, dtype)
+        return attn.gqa_cache_struct(
+            cfg, batch, attn.layer_cache_len(cfg, kind, max_len), kv_heads,
+            dtype)
     if kind == "rec":
         return rglru_lib.rglru_cache_struct(cfg, batch, dtype)
     return ssm_lib.ssm_cache_struct(cfg, batch, dtype)
@@ -185,7 +193,7 @@ def with_remat(fn, policy: str = "nothing"):
 
 
 def apply_stack(cfg, params, x, positions, caches, heads: int,
-                kv_heads: int, train: bool = False):
+                kv_heads: int, train: bool = False, cache_len: int = 0):
     """Run the full layer stack. caches: None or cache_structs-shaped
     tensors, updated in place and returned. Returns (x, caches, aux): aux
     the MoE layers' summed load-balancing loss, a float32 scalar (0.0, a
@@ -202,7 +210,7 @@ def apply_stack(cfg, params, x, positions, caches, heads: int,
             xc, _, a = apply_layer(
                 cfg, group_params[pos], cfg.layer_pattern[pos], xc,
                 positions, None if group_caches is None
-                else group_caches[pos], heads, kv_heads)
+                else group_caches[pos], heads, kv_heads, cache_len)
             aux = aux + a
         return xc, aux
 
@@ -215,6 +223,6 @@ def apply_stack(cfg, params, x, positions, caches, heads: int,
     for i, lp in enumerate(params["rem"]):
         x, _, a = apply_layer(cfg, lp, kinds[n_full * p + i], x, positions,
                               None if caches is None else caches["rem"][i],
-                              heads, kv_heads)
+                              heads, kv_heads, cache_len)
         aux = aux + a
     return x, caches, aux

@@ -1,0 +1,154 @@
+"""Activation-sharding context.
+
+The port of the JAX package's ``sharding/ctx.py``. Model code runs under
+``sharding_ctx(rules, mesh)`` to run sharded: each rank holds the blocks
+of the parameters, caches and activations that the rules give it
+(``rules.py``), computes on them, and changes layout through the mesh's
+collectives (``runtime/mesh.py``) where the reference's roles say the
+layout changes. Outside a context the model runs unsharded and every
+helper here is the identity.
+
+``constrain(x, role, full_shape)`` checks, inside a context, that ``x``
+is this rank's block of a tensor of ``full_shape`` laid out as the rules
+map ``role``, and raises ``ValueError`` if not, so a wrong layout fails
+loudly instead of computing on the wrong slice. (The reference's
+``constrain`` asks XLA for the layout; here the code makes it, and this
+checks it.) :func:`gather_weight` is the FSDP gather of a parameter's
+data-sharded dimensions at its use.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+import types
+from typing import Optional
+
+import torch
+
+from repro_torch.sharding.rules import local_shape
+
+_state = threading.local()
+
+
+def current_rules():
+    return getattr(_state, "rules", None)
+
+
+def current_mesh():
+    return getattr(_state, "mesh", None)
+
+
+@contextlib.contextmanager
+def sharding_ctx(rules, mesh):
+    prev = (current_rules(), current_mesh())
+    _state.rules, _state.mesh = rules, mesh
+    try:
+        yield
+    finally:
+        _state.rules, _state.mesh = prev
+
+
+def active() -> bool:
+    """Whether the code runs inside a sharding context."""
+    return current_rules() is not None and current_mesh() is not None
+
+
+def constrain(x, role: str, full_shape=None):
+    """``x``, checked (inside a context) to be this rank's block of a
+    tensor of ``full_shape`` (default: ``x``'s own shape) laid out as the
+    rules map ``role``; raises ``ValueError`` otherwise. The identity
+    outside a context, and for a role the rules leave unconstrained."""
+    if not active():
+        return x
+    rules, mesh = current_rules(), current_mesh()
+    spec = rules.activation_spec(role, x.dim())
+    if spec is None:
+        return x
+    full = tuple(x.shape if full_shape is None else full_shape)
+    want = local_shape(spec, full, mesh)
+    if tuple(x.shape) != want:
+        raise ValueError(f"{role}: this rank's block of {full} under "
+                         f"{spec} is {want}, the tensor is "
+                         f"{tuple(x.shape)}")
+    return x
+
+
+def model_axis() -> tuple[int, int]:
+    """(size, this rank's index) of the mesh's "model" axis; (1, 0)
+    outside a context."""
+    if not active():
+        return 1, 0
+    mesh = current_mesh()
+    return mesh.axis_size("model"), mesh.axis_index("model")
+
+
+def gather_weight(w, axes: tuple):
+    """Parameter ``w`` (this rank's block; ``axes`` its logical axes, the
+    unstacked ParamSpec's) with every dimension the rules shard over an
+    axis other than "model" gathered over that axis: the "embed"
+    dimension's ZeRO/FSDP block over "data", as XLA gathers it at each use.
+    The "model" blocks stay local (tensor and expert parallelism)."""
+    if not active():
+        return w
+    mesh = current_mesh()
+    pspec = current_rules().param_pspec(types.SimpleNamespace(
+        axes=tuple(axes), shape=tuple(w.shape)))
+    for dim in range(w.dim()):
+        other = tuple(a for a in pspec.axes_of(dim) if a != "model")
+        if other and mesh.axis_size(other) > 1:
+            w = mesh.all_gather(w, other, dim)
+    return w
+
+
+def gathered(p: dict, axes: dict) -> dict:
+    """:func:`gather_weight` of each leaf of ``p`` present in ``axes``
+    (leaf name -> logical axes); the other leaves as they are."""
+    return {k: gather_weight(v, axes[k]) if k in axes else v
+            for k, v in p.items()}
+
+
+def batch_axes() -> Optional[tuple]:
+    """The rules' batch axes (None outside a context or when the batch is
+    not sharded)."""
+    rules = current_rules()
+    return (rules.batch_axes or None) if rules is not None else None
+
+
+def seq_sharded() -> bool:
+    """Whether the residual stream is split by sequence over "model" (the
+    rules' ``act_btd``); False outside a sharding context."""
+    if not active():
+        return False
+    spec = current_rules().activation_spec("act_btd", 3)
+    return spec is not None and "model" in spec.axes_of(1)
+
+
+def padded_len(s: int) -> int:
+    """The residual's sequence length for ``s`` positions: a multiple of
+    the "model" axis when the residual is split by sequence."""
+    tp, _ = model_axis()
+    return -(-s // tp) * tp if seq_sharded() else s
+
+
+def gather_seq(x, s: int):
+    """The whole sequence (its ``s`` real positions) of a residual-layout
+    tensor: all-gathered over "model" when split by sequence."""
+    if not seq_sharded():
+        return x
+    return current_mesh().all_gather(x, "model", 1)[:, :s]
+
+
+def reduce_seq(y):
+    """A row-parallel partial output (B, S, D) summed over "model" into the
+    residual's layout: reduce-scattered by sequence (padded to
+    :func:`padded_len`) or all-reduced."""
+    if not active():
+        return y
+    mesh = current_mesh()
+    if not seq_sharded():
+        return mesh.all_reduce(y, "model")
+    s = y.shape[1]
+    pad = padded_len(s) - s
+    if pad:
+        y = torch.cat([y, y.new_zeros((y.shape[0], pad, y.shape[2]))], 1)
+    return mesh.reduce_scatter(y, "model", 1)

@@ -9,8 +9,8 @@ microbatch's. The step updates the parameters and the optimizer state in
 place and returns them with the metrics ``loss``, ``grad_norm`` and
 ``lr`` (float32 scalars on the device).
 
-Sharding (the reference's ``rules`` and ``batch_shardings``) is ROADMAP
-item 15d.
+:func:`batch_shardings` is the reference's batch layout (a
+``PartitionSpec`` per leaf); a train step under rules is ROADMAP item 15e.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import TensorStruct, tree_leaves, tree_map
+from repro_torch.sharding.rules import PartitionSpec as P
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 
@@ -36,7 +37,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, rules: Optional[Any] = None):
     device."""
     if rules is not None:
         raise NotImplementedError(
-            "sharded training rules are not ported yet (ROADMAP item 15d)")
+            "training under sharding rules is not ported yet (ROADMAP item "
+            "15e)")
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -82,3 +84,10 @@ def batch_struct(model, global_batch: int, seq_len: int,
         s["image_embeds"] = TensorStruct(
             (accum, mb, cfg.num_patches, cfg.d_model), model.compute_dtype)
     return s
+
+
+def batch_shardings(rules, batch_s) -> dict:
+    """Microbatch dims: (accum None, batch over the rules' batch axes, the
+    rest None), a ``PartitionSpec`` per leaf of ``batch_s``."""
+    return tree_map(lambda _, s: P(None, rules.batch_axes or None,
+                                   *([None] * (len(s.shape) - 2))), batch_s)

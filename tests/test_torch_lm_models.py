@@ -161,12 +161,24 @@ def test_qwen_count_params():
 
 
 def test_tensor_parallel_models_hold_no_parameters():
-    model = build_model(get_config("qwen1.5-0.5b").reduced(), tp=2,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15d"):
-        model.init(torch.Generator().manual_seed(0))
+    """A model of tp > 1 holds no parameters until it is given some; given
+    no sharding rules it holds the whole padded tree and runs unsharded,
+    as the JAX package's does (the reference of every sharded run at that
+    tp, tests/test_torch_lm_tp.py)."""
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              vocab_size=511)
+    model = build_model(cfg, tp=2, device="cpu")
     with pytest.raises(RuntimeError, match="no parameters"):
         model.prefill({"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    model.init(torch.Generator().manual_seed(0))
+    jmodel = jbuild(dataclasses.replace(jget_config("qwen1.5-0.5b").reduced(),
+                                        vocab_size=511), tp=2)
+    assert model.param_rules is None and model.cfg.vocab_size == 512
+    assert model.count_params(model.tree) == model.count_params() == \
+        jmodel.count_params()
+    logits, _ = model.prefill({"tokens": torch.zeros((1, 4),
+                                                     dtype=torch.long)})
+    assert logits.shape == (1, 1, 512) and bool(logits.isfinite().all())
 
 
 def test_init_draws_each_kind_in_its_dtype():

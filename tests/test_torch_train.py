@@ -376,7 +376,7 @@ def test_train_step_descends_and_counts():
 
 def test_train_step_refuses_sharding_rules_and_builds_batch_structs():
     cfg, model, _ = _tiny()
-    with pytest.raises(NotImplementedError, match="15d"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15e"):
         tstep.make_train_step(model, topt.AdamWConfig(), rules=object())
     for arch in ("qwen1.5-0.5b", "phi-3-vision-4.2b", "whisper-medium"):
         for bf16 in (False, True):
