@@ -3456,15 +3456,22 @@ def lm_train_phase(torch, np, dev) -> dict:
 
 # Phase 10 (one card) and scripts/torch_distributed_check.py --only lm_tp
 # (four) serve under the sharding rules (repro_torch.sharding): batch 8,
-# 512-token prompts, 32 decode steps. Phase 10 runs qwen1.5-0.5b at full
-# width and llama4-scout-17b-a16e cut to LM_TP_SMOKE_LAYERS, each first
-# unsharded and then under the rules of make_production_mesh(num_devices=1)
-# over a world-size-1 NCCL group, greedy (each step fed the argmax of the
-# last), the same draws: every logit must be equal, and so every token.
+# 512-token prompts (whisper-medium with its 1500 frames), 32 decode
+# steps. Phase 10 runs qwen1.5-0.5b at full width and the others at their
+# published widths cut to LM_TP_SMOKE_LAYERS (whisper's encoder too),
+# each first unsharded and then under the rules of
+# make_production_mesh(num_devices=1) over a world-size-1 NCCL group,
+# greedy (each step fed the argmax of the last), the same draws: every
+# logit must be equal, and so every token.
 LM_TP_CELL = {"batch": 8, "prompt": 512, "new_tokens": 32}
-LM_TP_SMOKE_ARCHS = ("qwen1.5-0.5b", "llama4-scout-17b-a16e")
-LM_TP_SMOKE_LAYERS = {"llama4-scout-17b-a16e": 2}
-LM_TP_FULL_LAYERS = {"llama4-scout-17b-a16e": 48}
+LM_TP_SMOKE_ARCHS = ("qwen1.5-0.5b", "llama4-scout-17b-a16e", "minicpm3-4b",
+                     "mamba2-130m", "recurrentgemma-2b", "whisper-medium")
+LM_TP_SMOKE_LAYERS = {"llama4-scout-17b-a16e": 2, "minicpm3-4b": 2,
+                      "mamba2-130m": 2, "recurrentgemma-2b": 2,
+                      "whisper-medium": 2}
+LM_TP_FULL_LAYERS = {"llama4-scout-17b-a16e": 48, "minicpm3-4b": 62,
+                     "mamba2-130m": 24, "recurrentgemma-2b": 26,
+                     "whisper-medium": 24}
 C10D_PREFIX = "c10d::"      # the collectives' dispatcher ops
 
 
@@ -3489,14 +3496,15 @@ def c10d_calls(torch, fn) -> dict:
 def lm_tp_model(torch, dev, arch: str, layers: int = 0, tp: int = 1,
                 dtype=None, reduced: bool = False):
     """``arch`` at full width (``reduced``: its reduced() config;
-    ``layers`` cuts the depth), padded for ``tp``, without parameters
-    (:func:`lm_tp_load` draws them)."""
+    ``layers`` cuts the depth, an encoder's too), padded for ``tp``,
+    without parameters (:func:`lm_tp_load` draws them)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = get_config(arch)
     cfg = cfg.reduced() if reduced else cfg
     if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = dataclasses.replace(cfg, num_layers=layers, encoder_layers=(
+            layers if cfg.encoder_layers else 0))
     return build_model(cfg, tp=tp, device=dev,
                        compute_dtype=dtype or torch.bfloat16)
 
@@ -3521,17 +3529,30 @@ def lm_tp_tokens(torch, np, vocab: int, dev, cell: dict = LM_TP_CELL):
         0, vocab, (b, s + n))).to(dev)
 
 
+def lm_tp_extras(torch, np, cfg, dev, cell: dict = LM_TP_CELL) -> dict:
+    """The prompt's inputs besides its tokens: an encoder-decoder's frames
+    (batch, encoder_len, d_model), float32 standard normals from
+    default_rng(LM_SEED + 1); none for the other configs."""
+    if cfg.family != "audio":
+        return {}
+    return {"frames": torch.from_numpy(np.random.default_rng(
+        LM_SEED + 1).standard_normal((cell["batch"], cfg.encoder_len,
+                                      cfg.d_model), dtype=np.float32)).to(
+        dev)}
+
+
 def lm_tp_serve(torch, prefill, decode, tokens, s: int, n: int,
-                greedy: bool = False) -> dict:
-    """Prefill of ``tokens[:, :s]``, then ``n`` decode steps fed
-    ``tokens[:, s + i]`` (teacher-forced) or, ``greedy``, the argmax of
-    the last logits (the whole vocabulary must be local). Returns the
-    logits of every step (B, n + 1, V), the tokens fed, the prefill's wall
-    and the decode's ms per step (device-synchronised walls)."""
+                greedy: bool = False, extras=None) -> dict:
+    """Prefill of ``tokens[:, :s]`` (with ``extras``, e.g. frames), then
+    ``n`` decode steps fed ``tokens[:, s + i]`` (teacher-forced) or,
+    ``greedy``, the argmax of the last logits (the whole vocabulary must
+    be local). Returns the logits of every step (B, n + 1, V), the tokens
+    fed, the prefill's wall and the decode's ms per step
+    (device-synchronised walls)."""
     sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, caches = prefill({"tokens": tokens[:, :s]})
+    logits, caches = prefill({"tokens": tokens[:, :s], **(extras or {})})
     sync()
     prefill_s = time.perf_counter() - t0
     steps, fed = [logits[:, 0]], []
@@ -3605,8 +3626,10 @@ def lm_sharded_phase(torch, np, dev) -> dict:
             torch.cuda.empty_cache()
             plain = lm_tp_load(torch, lm_tp_model(torch, dev, arch, layers))
             tokens = lm_tp_tokens(torch, np, plain.raw_cfg.vocab_size, dev)
+            extras = lm_tp_extras(torch, np, plain.cfg, dev)
             want = lm_tp_serve(torch, lambda bt: plain.prefill(bt, s + n),
-                               plain.decode_step, tokens, s, n, greedy=True)
+                               plain.decode_step, tokens, s, n, greedy=True,
+                               extras=extras)
             del plain, want["caches"]
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -3617,13 +3640,15 @@ def lm_sharded_phase(torch, np, dev) -> dict:
             prefill, _ = make_serve_fns(model, rules=prules, max_len=s + n)
             _, decode = make_serve_fns(model, rules=drules)
             got = lm_tp_serve(torch, prefill, decode, tokens, s, n,
-                              greedy=True)
+                              greedy=True, extras=extras)
             del got["caches"]
             row = {"phase": "lm_sharded_one_card", "arch": arch,
                    "mesh": dict(mesh.shape), "world_size": 1,
                    "backend": "nccl", **LM_TP_CELL, "greedy": True,
                    "reduced": f"num_layers {LM_TP_FULL_LAYERS[arch]} -> "
-                   f"{layers}" if layers else None,
+                   f"{layers}" + (f", encoder_layers 24 -> {layers}" if
+                                  model.cfg.encoder_layers else "")
+                   if layers else None,
                    "batch_axes": list(prules.batch_axes),
                    "logits_equal": bool(torch.equal(got["logits"],
                                                     want["logits"])),
@@ -3641,7 +3666,7 @@ def lm_sharded_phase(torch, np, dev) -> dict:
                    "wall_s": time.perf_counter() - t0}
             emit(row)
             rows[arch] = row
-            del model, got, want, tokens
+            del model, got, want, tokens, extras
             torch.cuda.empty_cache()
             if not (row["logits_equal"] and row["tokens_equal"]):
                 raise AssertionError(f"{arch}: the sharded run differs from "

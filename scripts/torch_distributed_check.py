@@ -38,7 +38,15 @@ with --cpu) and runs, through the front door with no device given:
       (2, 2), each against its own teacher-forced pass, and the two
       layouts against each other (reported). A bf16 MoE bound applies
       where no assignment was dropped, as phase 8 holds it (the dropped
-      counts and the least router margin printed).
+      counts and the least router margin printed). minicpm3-4b (MLA),
+      mamba2-130m (the SSD), recurrentgemma-2b (RG-LRU and local MQA)
+      and whisper-medium (the encoder-decoder, 1500 frames) at full
+      depth, drawn at one layer's fan-in as phase 8 draws them: float32
+      on (1, 4) and (2, 2) against one card (1e-3), bf16 on (1, 4)
+      against one card by chip_smoke.lm_near (their logits move little
+      from one position to the next at this init, so lm_near's share of
+      the control binds, not its absolute value; mamba2's bf16 gap is
+      printed, not bound: chip_smoke.LM_BF16_UNFAITHFUL).
       Each run prints every rank's init, prefill and decode walls, weight
       bytes and peak device memory, and the c10d calls of one decode
       step (rank 0's host trace). ``--only lm_tp`` runs this case alone.
@@ -480,8 +488,23 @@ LM_TP_RUNS = (
     ("llama4_8_layers", LLAMA4, 8, "bfloat16", ((1, 4),), "one_card"),
     ("llama4_48_layers", LLAMA4, 0, "bfloat16", ((1, 4), (2, 2)),
      "teacher_forced"),
+    ("minicpm3_float32", "minicpm3-4b", 0, "float32", ((1, 4), (2, 2)),
+     "one_card"),
+    ("minicpm3_tp4", "minicpm3-4b", 0, "bfloat16", ((1, 4),), "one_card"),
+    ("mamba2_float32", "mamba2-130m", 0, "float32", ((1, 4), (2, 2)),
+     "one_card"),
+    ("mamba2_tp4", "mamba2-130m", 0, "bfloat16", ((1, 4),), "one_card"),
+    ("recurrentgemma_float32", "recurrentgemma-2b", 0, "float32",
+     ((1, 4), (2, 2)), "one_card"),
+    ("recurrentgemma_tp4", "recurrentgemma-2b", 0, "bfloat16", ((1, 4),),
+     "one_card"),
+    ("whisper_float32", "whisper-medium", 0, "float32", ((1, 4), (2, 2)),
+     "one_card"),
+    ("whisper_tp4", "whisper-medium", 0, "bfloat16", ((1, 4),), "one_card"),
 )
-LM_TP_FAN_IN = (LLAMA4,)
+# phase 8 draws the MoE and the four mixer configs at one layer's fan-in
+LM_TP_FAN_IN = (LLAMA4, "minicpm3-4b", "mamba2-130m", "recurrentgemma-2b",
+                "whisper-medium")
 LM_TP_CPU_LAYERS = {"llama4_8_layers": 4, "llama4_float32_4_layers": 2}
 LM_TP_CPU_CELL = {"batch": 4, "prompt": 32, "new_tokens": 4}
 
@@ -504,17 +527,19 @@ def lm_tp_references(torch, np, chip_smoke, device, cpu: bool) -> dict:
                 fan_in=arch in LM_TP_FAN_IN)
             tokens = chip_smoke.lm_tp_tokens(
                 torch, np, model.raw_cfg.vocab_size, device, cell)
+            extras = chip_smoke.lm_tp_extras(torch, np, model.cfg, device,
+                                             cell)
             res = chip_smoke.lm_tp_serve(
                 torch, lambda b: model.prefill(b, s + n), model.decode_step,
-                tokens, s, n)
+                tokens, s, n, extras=extras)
             with chip_smoke.lm_moe_calls(moe.dropped_assignments) as drops:
-                model.prefill({"tokens": tokens[:, :s]}, s + n)
+                model.prefill({"tokens": tokens[:, :s], **extras}, s + n)
             out[(name, tp)] = {"logits": res["logits"].cpu(),
                                "prefill_s": res["prefill_s"],
                                "decode_ms_per_step":
                                    res["decode_ms_per_step"],
                                "prefill_dropped": sum(drops)}
-            del model, res
+            del model, res, extras
             if device.type == "cuda":
                 torch.cuda.empty_cache()
     return out
@@ -566,14 +591,17 @@ def lm_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
     v = model.cfg.vocab_size // tp
     v0 = mesh.axis_index("model") * v
     mine = tokens[lo:hi]
+    extras = {k: v[lo:hi] for k, v in chip_smoke.lm_tp_extras(
+        torch, np, model.cfg, device, cell).items()}
     prefill, _ = make_serve_fns(model, rules=prules, max_len=s + n)
     _, decode = make_serve_fns(model, rules=drules)
     dist.barrier()
-    res = chip_smoke.lm_tp_serve(torch, prefill, decode, mine, s, n)
+    res = chip_smoke.lm_tp_serve(torch, prefill, decode, mine, s, n,
+                                 extras=extras)
     # the prefill again, its MoE calls measured (host syncs: untimed)
     with chip_smoke.lm_moe_calls(moe.dropped_assignments) as drops, \
             chip_smoke.lm_moe_calls(chip_smoke.lm_router_margin) as margins:
-        prefill({"tokens": mine[:, :s]})
+        prefill({"tokens": mine[:, :s], **extras})
     # the c10d calls of one decode step (the last step again)
     step = lambda: decode(mine[:, s + n - 1:s + n], res["caches"],
                           s + n - 1)
@@ -605,7 +633,7 @@ def lm_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
     else:
         with sharding_ctx(prules, mesh), chip_smoke.lm_moe_calls(
                 moe.dropped_assignments) as tdrops:
-            full = model({"tokens": mine})
+            full = model({"tokens": mine, **extras})
         row["teacher_dropped"] = sum(tdrops)
         row["parts"] = chip_smoke.lm_gap_parts(torch, got, full[:, s - 1:])
         del full
@@ -641,16 +669,21 @@ def lm_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
         out["tolerance"] = [chip_smoke.LM_CARD_RTOL, chip_smoke.LM_CARD_ATOL]
         good = good and all(r["allclose"] for r in everyone)
     else:
-        # the control: logits one position off lie past the bound
+        # the control: logits one position off lie past the bound, except
+        # where the init moves them little from one position to the next
+        # (LM_PRECISION_ARCHS; lm_near's share binds there)
         out["control_past_bound"] = \
             gap["unrelated_rel_l2_min"] > chip_smoke.LM_BF16_REL_L2
-        # phase 8's rule: the bound applies where no assignment was dropped
+        control_binds = arch not in chip_smoke.LM_PRECISION_ARCHS
+        # phase 8's rules: the bound applies where no assignment was
+        # dropped, and not to a bf16 path unfaithful by design
         applies = all(r["prefill_dropped"] == 0 and
                       r.get("teacher_dropped", 0) == 0 for r in everyone) \
-            and out.get("one_card", {}).get("prefill_dropped", 0) == 0
+            and out.get("one_card", {}).get("prefill_dropped", 0) == 0 \
+            and arch not in chip_smoke.LM_BF16_UNFAITHFUL
         out["bound_applies"] = applies
-        good = good and out["control_past_bound"] and (
-            not applies or chip_smoke.lm_near(gap))
+        good = good and (out["control_past_bound"] or not control_binds) \
+            and (not applies or chip_smoke.lm_near(gap))
     if blocks is not None:
         full = torch.empty((b, n + 1, blocks[0]["logits"].shape[-1] * tp))
         for blk in blocks:

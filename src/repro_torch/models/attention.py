@@ -34,6 +34,7 @@ import torch
 from repro_torch.models.layers import (ParamSpec, TensorStruct, apply_rope,
                                        rmsnorm, rope_freqs)
 from repro_torch.sharding import ctx as shard
+from repro_torch.sharding.rules import kv_cache_split
 
 BLOCK_Q = 1024
 BLOCK_KV = 1024
@@ -246,9 +247,8 @@ def gqa_attention(cfg, p, x, kind: str, positions, cache=None,
         if not cache_len:
             raise ValueError("a sharded cache needs its global length")
         glen = layer_cache_len(cfg, kind, cache_len)
-        rules = shard.current_rules()
-        seq_split = not (rules.kv_sharded and kv_heads % tp == 0) \
-            and rules.seq_shard_cache and glen % tp == 0
+        seq_split = kv_cache_split(shard.current_rules(), kv_heads, glen,
+                                   tp) == "seq"
     else:
         glen = cache["k"].shape[1]
     ring = bool(cache is not None and kind == "local" and cfg.local_window
@@ -352,30 +352,46 @@ def _decode_seq_split(cfg, kind, q, k, v, cache, positions, ring: bool,
     ok = _mask_value(kind, positions[:, None], k_positions[None, :],
                      cfg.local_window, cfg.chunk_size)
     scores = torch.where(ok, scores, NEG_INF)
-    m = mesh.all_reduce(scores.amax(dim=-1), "model", "max")
-    e = torch.exp(scores - m[..., None])
-    l = mesh.all_reduce(e.sum(dim=-1), "model")
-    w = (e / l[..., None]).to(v.dtype)
-    o = torch.einsum("bkgst,btkd->bskgd", w.float(), cache["v"].float())
-    o = mesh.all_reduce(o, "model").to(v.dtype)
+    o = shard.combine_seq_split(scores, cache["v"], "bkgst,btkd->bskgd",
+                                v.dtype)
     return o.reshape(b, 1, tp * hl, hd)[:, :, t * hl:(t + 1) * hl]
 
 
 # ---------------------------------------------------------------- mla module
 
+MLA_AXES = {"wdq": ("embed", None), "wuq": (None, "heads", None),
+            "wdkv": ("embed", None), "wkr": ("embed", None),
+            "wuk": (None, "heads", None), "wuv": (None, "heads", None),
+            "wo": ("heads", None, "embed")}
+
+
 def mla_attention(cfg, p, x, kind: str, positions, cache=None,
-                  heads: int = 0):
+                  heads: int = 0, cache_len: int = 0):
     """MiniCPM3-style MLA. x: (B, S, D); cache: None or dict(ckv, k_rope)
     of (B, T, kv_lora_rank) / (B, T, qk_rope_dim), which a prefill writes
     from slot 0 and a decode step at ``positions[0]``, in place. A prefill
     expands K and V from the latent and attends through :func:`sdpa`; a
     decode step attends in the latent space over every slot at or before
-    its position (no window, no chunk). Scores are float32 in both."""
+    its position (no window, no chunk). Scores are float32 in both.
+
+    Under a sharding context: the heads are this rank's (``wuq``, ``wuk``,
+    ``wuv`` and the row-parallel ``wo``: ``out`` is a partial sum); the
+    latent ``ckv`` and ``k_rope`` are computed whole on every rank. The
+    cache (``cache_len`` positions) is split by sequence over "model"
+    when "model" divides its length (``serve_step.cache_shardings``),
+    else held whole. Split, a prefill writes the positions this rank
+    owns and a decode step writes its position on the rank that owns it;
+    the step's ``q_abs`` and ``q_rope`` are gathered over "model", each
+    rank scores every head over its own positions, and the latent context
+    is combined over "model" (:func:`shard.combine_seq_split`)."""
     b, s, d = x.shape
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    p = shard.gathered(p, MLA_AXES)
+    tp, t = shard.model_axis()
 
     cq = rmsnorm(x @ p["wdq"].to(x.dtype), p["q_norm"])
     q = _project(cq, p["wuq"])
+    hl = q.shape[2]
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     cos, sin = rope_freqs(rope_d, cfg.rope_theta, positions)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -384,17 +400,37 @@ def mla_attention(cfg, p, x, kind: str, positions, cache=None,
     k_rope = apply_rope((x @ p["wkr"].to(x.dtype))[:, :, None, :],
                         cos, sin)[:, :, 0]  # (B, S, rope_d), head-shared
 
+    seq_split = False
+    if cache is not None and shard.active() and tp > 1:
+        if not cache_len:
+            raise ValueError("a sharded cache needs its global length")
+        seq_split = shard.current_rules().seq_shard_cache and \
+            cache_len % tp == 0
+    n = cache["ckv"].shape[1] if cache is not None else 0
+    glen = cache_len if seq_split else n
+    lo = t * n if seq_split else 0
+
     decode = cache is not None and s == 1
     if decode:
-        t = cache["ckv"].shape[1]
-        # dynamic_update_slice clamps the start so the write fits
-        at = positions[:1].clamp(0, t - 1).long()
-        cache["ckv"].index_copy_(1, at, ckv)
-        cache["k_rope"].index_copy_(1, at, k_rope)
+        # dynamic_update_slice clamps the start so the write fits; a split
+        # cache is written on the rank that owns the slot
+        at = (positions[:1].clamp(0, glen - 1) - lo).long()
+        owned = (at >= 0) & (at < n)
+        at = at.clamp(0, n - 1)
+        for name, new in (("ckv", ckv), ("k_rope", k_rope)):
+            if seq_split:
+                new = torch.where(owned, new, cache[name].index_select(1, at))
+            cache[name].index_copy_(1, at, new)
         ckv_all, kr_all = cache["ckv"], cache["k_rope"]
-        k_positions = torch.arange(t, dtype=torch.int32, device=x.device)
+        k_positions = lo + torch.arange(n, dtype=torch.int32,
+                                        device=x.device)
     else:
-        if cache is not None:
+        if seq_split:                   # this rank's positions only
+            hi = min(s, lo + n)
+            if hi > lo:
+                cache["ckv"][:, :hi - lo] = ckv[:, lo:hi]
+                cache["k_rope"][:, :hi - lo] = k_rope[:, lo:hi]
+        elif cache is not None:
             cache["ckv"][:, :s] = ckv
             cache["k_rope"][:, :s] = k_rope
         ckv_all, kr_all = ckv, k_rope
@@ -406,30 +442,38 @@ def mla_attention(cfg, p, x, kind: str, positions, cache=None,
         # Absorbed decode: project q into latent space; never expand the
         # cache.
         q_abs = torch.einsum("bshk,rhk->bshr", q_nope, wuk)
+        if seq_split:
+            qa = shard.current_mesh().all_gather(
+                torch.cat([q_abs, q_rope], dim=-1), "model", 2)
+            q_abs, q_rope = qa[..., :-rope_d], qa[..., -rope_d:]
         sc = (torch.einsum("bshr,btr->bhst", q_abs.float(), ckv_all.float())
               + torch.einsum("bshk,btk->bhst", q_rope.float(),
                              kr_all.float())) * scale
         ok = k_positions[None, :] <= positions[:, None]
         sc = torch.where(ok, sc, NEG_INF)
-        w = torch.softmax(sc, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bhst,btr->bshr", w, ckv_all)
+        if seq_split:
+            ctx = shard.combine_seq_split(sc, ckv_all, "bhst,btr->bshr",
+                                          x.dtype)[:, :, t * hl:(t + 1) * hl]
+        else:
+            w = torch.softmax(sc, dim=-1).to(x.dtype)
+            ctx = torch.einsum("bhst,btr->bshr", w, ckv_all)
         out = torch.einsum("bshr,rhk->bshk", ctx, wuv)
     else:
         kvr = ckv_all.shape[-1]
-        k_nope = (ckv_all @ wuk.reshape(kvr, heads * nope)).unflatten(
-            -1, (heads, nope))
-        vfull = (ckv_all @ wuv.reshape(kvr, heads * vd)).unflatten(
-            -1, (heads, vd))
+        k_nope = (ckv_all @ wuk.reshape(kvr, hl * nope)).unflatten(
+            -1, (hl, nope))
+        vfull = (ckv_all @ wuv.reshape(kvr, hl * vd)).unflatten(
+            -1, (hl, vd))
         k_full = torch.cat(
-            [k_nope, kr_all[:, :, None, :].expand(-1, -1, heads, rope_d)],
+            [k_nope, kr_all[:, :, None, :].expand(-1, -1, hl, rope_d)],
             dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
-        qg = q_full.reshape(b, s, heads, 1, nope + rope_d)
+        qg = q_full.reshape(b, s, hl, 1, nope + rope_d)
         out = sdpa(qg, k_full, vfull, kind, cfg.local_window, cfg.chunk_size,
                    positions, k_positions)
-        out = out.reshape(b, s, heads, vd)
-    y = out.reshape(b, s, heads * vd) @ p["wo"].to(x.dtype).reshape(
-        heads * vd, d)
+        out = out.reshape(b, s, hl, vd)
+    y = out.reshape(b, s, hl * vd) @ p["wo"].to(x.dtype).reshape(
+        hl * vd, d)
     return y, cache
 
 

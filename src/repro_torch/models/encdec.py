@@ -7,6 +7,17 @@ are kind ``bidir``, which the reference's mask treats as causal; the port
 keeps that. Cross-attention has no RoPE and no mask. Decode caches: the
 decoder's self-attention K/V (written in place) and the per-layer cross
 K/V, projected once from the encoder's output at prefill and carried.
+
+Under a sharding context the encoder's and the decoder's residuals take
+the rules' ``act_btd`` layout, as ``transformer.apply_layer``'s do: the
+frames are split by sequence in a prefill (padded to a multiple of
+"model"), each sublayer's input is gathered whole and its row-parallel
+output reduced back. The encoder's output is gathered whole before the
+cross K/V are projected, and each rank keeps its block of the cross
+cache in the layout ``serve_step.cache_shardings`` gives it
+(:func:`cross_layout`): its KV heads, its encoder positions (when the KV
+heads do not divide "model"; the cross-attention then combines the
+ranks' positions as a sequence-split decode does), or all of it.
 """
 from __future__ import annotations
 
@@ -17,6 +28,10 @@ from repro_torch.models.layers import (ParamSpec, TensorStruct, apply_mlp,
                                        apply_norm, mlp_specs, norm_specs,
                                        tree_map)
 from repro_torch.models.transformer import _slice, _stack, with_remat
+from repro_torch.sharding import ctx as shard
+from repro_torch.sharding.rules import kv_cache_split
+
+CROSS_AXES = {k: attn.GQA_AXES[k] for k in ("wq", "wk", "wv", "wo")}
 
 
 def cross_specs(cfg, heads: int, kv_heads: int) -> dict:
@@ -59,61 +74,103 @@ def encdec_specs(cfg, heads: int, kv_heads: int) -> dict:
     }
 
 
+def cross_layout(cfg, kv_heads: int) -> str:
+    """How this rank holds the cross K/V (``serve_step.cache_shardings``'
+    rule for a KV cache): "heads" (its KV heads), "seq" (its encoder
+    positions), "whole", or "one" outside a context or on one rank."""
+    tp, _ = shard.model_axis()
+    if tp == 1:
+        return "one"
+    return kv_cache_split(shard.current_rules(), kv_heads, cfg.encoder_len,
+                          tp) or "whole"
+
+
 def _cross_attend(cfg, p, x, ck, cv, heads, kv_heads):
+    """Cross-attention of ``x`` over the encoder's K/V; under a sharding
+    context this rank's heads (its partial sum through ``wo``) over
+    ``ck`` / ``cv`` in :func:`cross_layout`'s layout."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     g = heads // kv_heads
-    qg = attn._project(x, p["wq"]).reshape(b, s, kv_heads, g, hd)
-    sc = attn._scores(qg, ck) * hd ** -0.5
-    w = torch.softmax(sc, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", w, cv).reshape(b, s, heads * hd)
-    return out @ p["wo"].to(x.dtype).reshape(heads * hd, -1)
+    p = shard.gathered(p, CROSS_AXES)
+    tp, t = shard.model_axis()
+    q = attn._project(x, p["wq"])
+    hl = q.shape[2]
+    if cross_layout(cfg, kv_heads) == "seq":
+        # every head over this rank's encoder positions, then combined
+        qa = shard.current_mesh().all_gather(q, "model", 2).reshape(
+            b, s, kv_heads, g, hd)
+        sc = attn._scores(qa, ck) * hd ** -0.5
+        out = shard.combine_seq_split(sc, cv, "bkgst,btkd->bskgd", x.dtype)
+        out = out.reshape(b, s, heads, hd)[:, :, t * hl:(t + 1) * hl]
+    else:
+        kl = ck.shape[2]
+        if kl * g == hl:                    # this rank's KV heads, or all
+            qg = q.reshape(b, s, kl, g, hd)
+        else:                               # all KV heads: each q head's
+            sel = (t * hl + torch.arange(hl, device=x.device)) // g
+            ck, cv = ck[:, :, sel], cv[:, :, sel]
+            qg = q.reshape(b, s, hl, 1, hd)
+        sc = attn._scores(qg, ck) * hd ** -0.5
+        w = torch.softmax(sc, dim=-1).to(x.dtype)
+        out = torch.einsum("bkgst,btkd->bskgd", w, cv)
+    out = out.reshape(b, s, hl * hd)
+    return out @ p["wo"].to(x.dtype).reshape(hl * hd, -1)
 
 
 def run_encoder(cfg, params, frames, heads, kv_heads):
-    """frames: (B, T_enc, D) precomputed embeddings (frontend stub)."""
-    x = frames
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    """frames: (B, T_enc, D) precomputed embeddings (frontend stub), whole
+    on every rank. Returns the encoder's output (B, T_enc, D), whole."""
+    n = frames.shape[1]
+    x = shard.split_seq(frames)
+    positions = torch.arange(n, dtype=torch.int32, device=x.device)
     for j in range(cfg.encoder_layers):
         lp = _slice(params["encoder"], j)
-        h = apply_norm(cfg, lp["norm1"], x)
+        h = shard.gather_seq(apply_norm(cfg, lp["norm1"], x), n)
         h, _ = attn.gqa_attention(cfg, lp["attn"], h, "bidir", positions,
                                   None, heads, kv_heads)
-        x = x + h
-        h = apply_norm(cfg, lp["norm2"], x)
-        x = x + apply_mlp(cfg, lp["mlp"], h)
-    return apply_norm(cfg, params["enc_norm"], x)
+        x = x + shard.reduce_seq(h)
+        h = shard.gather_seq(apply_norm(cfg, lp["norm2"], x), n)
+        x = x + shard.reduce_seq(apply_mlp(cfg, lp["mlp"], h))
+    return shard.gather_seq(apply_norm(cfg, params["enc_norm"], x), n)
 
 
 def project_cross_kv(cfg, params, enc_out, heads, kv_heads):
-    """Per-decoder-layer cross K/V, stacked: (L, B, T_enc, KV, hd) each."""
+    """Per-decoder-layer cross K/V, stacked: (L, B, T_enc, KV, hd) each;
+    under a sharding context this rank's block (:func:`cross_layout`)."""
+    if cross_layout(cfg, kv_heads) == "seq":
+        enc_out = shard.model_block(enc_out, 1)
     ck, cv = [], []
     for j in range(cfg.num_layers):
-        cross = _slice(params["decoder"], j)["cross"]
+        cross = shard.gathered(_slice(params["decoder"], j)["cross"],
+                               CROSS_AXES)
         ck.append(attn._project(enc_out, cross["wk"]))
         cv.append(attn._project(enc_out, cross["wv"]))
     return torch.stack(ck), torch.stack(cv)
 
 
 def run_decoder(cfg, params, x, positions, self_caches, cross_kv, heads,
-                kv_heads, train: bool = False):
-    """x: (B, S, D) token embeddings. self_caches: None or the stacked
-    self-attention caches (written in place); cross_kv: stacked (ck, cv).
-    With ``train`` each layer's body is recomputed in the backward pass
-    (the reference's nothing-saveable remat, whatever ``REPRO_REMAT``
-    says). Returns (x, self_caches)."""
+                kv_heads, train: bool = False, cache_len: int = 0):
+    """x: (B, S, D) token embeddings, in the residual's layout.
+    self_caches: None or the stacked self-attention caches (written in
+    place; ``cache_len`` their global length, for sharded runs); cross_kv:
+    stacked (ck, cv). With ``train`` each layer's body is recomputed in
+    the backward pass (the reference's nothing-saveable remat, whatever
+    ``REPRO_REMAT`` says). Returns (x, self_caches)."""
     ck, cv = cross_kv
+    s = positions.shape[0]
 
     def body(x, lp, ck_j, cv_j, cache):
-        h = apply_norm(cfg, lp["norm1"], x)
+        h = shard.gather_seq(apply_norm(cfg, lp["norm1"], x), s)
         h, _ = attn.gqa_attention(cfg, lp["self_attn"], h, "global",
-                                  positions, cache, heads, kv_heads)
-        x = x + h
-        h = apply_norm(cfg, lp["norm_x"], x)
-        x = x + _cross_attend(cfg, lp["cross"], h, ck_j, cv_j, heads,
-                              kv_heads)
-        h = apply_norm(cfg, lp["norm2"], x)
-        return x + apply_mlp(cfg, lp["mlp"], h)
+                                  positions, cache, heads, kv_heads,
+                                  cache_len)
+        x = x + shard.reduce_seq(h)
+        h = shard.gather_seq(apply_norm(cfg, lp["norm_x"], x), s)
+        x = x + shard.reduce_seq(_cross_attend(cfg, lp["cross"], h, ck_j,
+                                               cv_j, heads, kv_heads))
+        h = shard.gather_seq(apply_norm(cfg, lp["norm2"], x), s)
+        return x + shard.reduce_seq(apply_mlp(cfg, lp["mlp"], h))
 
     fn = with_remat(body) if train else body
     for j in range(cfg.num_layers):

@@ -18,10 +18,14 @@ of the seed on every mesh), and ``prefill`` / ``decode_step`` /
 (``serve.make_serve_fns(model, rules=...)``): they take this rank's batch
 rows (the rules' batch axes) and return this rank's block of the
 vocabulary (``logits_btv``) and caches laid out by
-``serve.serve_step.cache_shardings``. The GQA families (dense, vision,
-MoE) run on any mesh; MLA, the SSD, the RG-LRU and the encoder-decoder
-only on a mesh of one device, and training not under rules: both are
-ROADMAP item 15e.
+``serve.serve_step.cache_shardings``. Every family runs on any mesh:
+the GQA ones (dense, vision, MoE), MLA, the SSD, the RG-LRU hybrid and
+the encoder-decoder, whose frames (each rank's batch rows, every frame)
+go through the encoder in the residual's layout and whose cross K/V are
+held as ``cache_shardings`` lays them out (``models/encdec.py``). An
+RG-LRU width that "model" does not divide is refused (the reference
+does not pad it). Training under rules and the ``no_tp`` rules are not
+ported: ROADMAP item 15e.2.
 
 Parameters live in the module (``Model.params``, the JAX package's nested
 layout) on the model's device. The reference keeps float32 parameters and
@@ -56,6 +60,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec as encdec_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (TensorStruct, apply_norm, embed_specs,
                                        embed_tokens, init_tree, logits_out,
@@ -137,30 +142,30 @@ class Model(nn.Module):
 
     def check_rules(self, rules) -> None:
         """Raise unless this model can be laid out by ``rules``: ROADMAP
-        item 15e (``NotImplementedError``) for ``no_tp`` and for MLA, the
-        SSD, the RG-LRU and the encoder-decoder on a mesh of more than one
-        device; ``ValueError`` for a "model" axis other than ``tp``, KV
-        sharding other than the model's, or an "embed" dimension the
-        "data" axis does not divide."""
+        item 15e.2 (``NotImplementedError``) for ``no_tp``, and for an SSD
+        cache layout the layer does not read (``ssm.cache_layout``);
+        ``ValueError`` for a "model" axis other than ``tp``, KV sharding
+        other than the model's, an RG-LRU width or an "embed" dimension
+        its axis does not divide."""
         mesh = rules.mesh
         cfg = self.cfg
         if rules.no_tp:
             raise NotImplementedError(
-                "the no_tp rules are not ported yet (ROADMAP item 15e)")
-        unported = [name for name, hit in (
-            ("MLA", cfg.attention == "mla"),
-            ("the SSD", "ssm" in cfg.layer_kinds()),
-            ("the RG-LRU", "rec" in cfg.layer_kinds()),
-            ("the encoder-decoder", cfg.family == "audio")) if hit]
-        if unported and mesh.size > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(unported)} under sharding rules on "
-                f"a mesh of {mesh.size} devices is not ported yet (ROADMAP "
-                "item 15e)")
+                "the no_tp rules are not ported yet (ROADMAP item 15e.2)")
         msz = int(mesh.shape.get("model", 1))
         if msz != self.tp:
             raise ValueError(f"the model is padded for tp={self.tp}, the "
                              f"mesh's model axis has {msz} devices")
+        kinds = cfg.layer_kinds()
+        if msz > 1 and "rec" in kinds and cfg.rglru_width % msz:
+            raise ValueError(
+                f"{cfg.name}: the RG-LRU width {cfg.rglru_width} does not "
+                f"divide over tp={msz}; the reference's build_model pads the "
+                "heads, the KV heads, the SSD's inner dimension and the "
+                "vocabulary but not this width, so it has no layout of such "
+                "a model to hold a sharded one to")
+        if msz > 1 and "ssm" in kinds:
+            ssm_lib.cache_layout(cfg, msz)
         if self.tp > 1 and rules.kv_sharded != self.kv_sharded:
             raise ValueError(f"rules.kv_sharded={rules.kv_sharded}, the "
                              f"model's KV heads ({self.kv_heads}) are "
@@ -368,7 +373,7 @@ class Model(nn.Module):
         if self.cfg.family == "audio":
             x, caches = encdec_lib.run_decoder(
                 self.cfg, params["encdec"], x, positions, caches, cross_kv,
-                self.heads, self.kv_heads, train=train)
+                self.heads, self.kv_heads, train=train, cache_len=cache_len)
             return x, caches, 0.0
         return tf.apply_stack(self.cfg, params["stack"], x, positions,
                               caches, self.heads, self.kv_heads, train=train,
@@ -400,11 +405,11 @@ class Model(nn.Module):
         runs inside the differentiated function, the stack with
         ``train=True`` (remat per ``REPRO_REMAT``); the logsumexp and the
         label logit are float32. Not under sharding rules (ROADMAP item
-        15e)."""
+        15e.2)."""
         if shard.active():
             raise NotImplementedError(
                 "training under sharding rules is not ported yet (ROADMAP "
-                "item 15e)")
+                "item 15e.2)")
         params = self._params() if params is None else params
         x = self._embed(batch, params)
         cross = self._encode(batch, params) \
@@ -448,6 +453,23 @@ class Model(nn.Module):
         return tree_map(lambda _, st: TensorStruct(
             local_shape(next(leaves), st.shape, mesh), st.dtype), structs)
 
+    def _check_caches(self, caches, batch: int) -> None:
+        """Raise ``ValueError`` unless ``caches`` are this rank's blocks,
+        as ``cache_shardings`` lays them out, of the caches of ``batch``
+        sequences and the global length the last ``init_cache`` /
+        ``prefill`` recorded."""
+        from repro_torch.serve.serve_step import cache_shardings
+        structs = self.cache_structs(batch, self._cache_len)
+        specs = tree_leaves(cache_shardings(shard.current_rules(), structs))
+        paths, got = tree_paths(structs), tree_leaves(caches)
+        if len(got) != len(specs):
+            raise ValueError("the caches are not the tree init_cache / "
+                             "prefill made")
+        for path, st, spec, c in zip(paths, tree_leaves(structs), specs,
+                                     got):
+            shard.constrain_spec(c, spec, st.shape,
+                                 "cache " + "/".join(map(str, path)))
+
     def _zeros(self, structs):
         return tree_map(
             lambda _, s: torch.zeros(s.shape, dtype=s.dtype,
@@ -468,14 +490,20 @@ class Model(nn.Module):
         gb = self._global_batch(b) if layout else b
         if self.cfg.family == "audio":
             cross = self._encode(batch, params)
-            selfc = self._zeros(self.cache_structs(b, max_len)["self"])
+            structs = self.cache_structs(gb, max_len)
+            if layout:
+                self._cache_len = max_len
+                structs = self._local_cache_structs(structs, gb)
+            selfc = self._zeros(structs["self"])
             x, _, _ = self._stack(params, x, self._positions(s), selfc,
-                                  cross)
+                                  cross, cache_len=max_len)
             caches = {"self": selfc, "cross": cross}
         else:
             x, caches, _ = self._stack(params, x, self._positions(s),
                                        self.init_cache(gb, max_len),
                                        cache_len=max_len)
+        if layout:
+            self._check_caches(caches, gb)
         x = apply_norm(self.cfg, params["final_norm"],
                        shard.gather_seq(x, s)[:, -1:])
         logits = logits_out(self.cfg, params["embed"], x)
@@ -493,20 +521,13 @@ class Model(nn.Module):
         layout = self._layout()
         b = tokens.shape[0]
         if layout is not None:
-            gb = self._global_batch(b)
-            want = tree_leaves(self._local_cache_structs(
-                self.cache_structs(gb, self._cache_len), gb))
-            got = tree_leaves(caches)
-            if [tuple(w.shape) for w in want] != \
-                    [tuple(g.shape) for g in got]:
-                raise ValueError("the caches are not this rank's blocks of "
-                                 "the last ones init_cache / prefill made")
+            self._check_caches(caches, self._global_batch(b))
         x = self._embed({"tokens": tokens}, params)
         positions = torch.full((1,), pos, dtype=torch.int32,
                                device=self.device)
         if self.cfg.family == "audio":
             x, _, _ = self._stack(params, x, positions, caches["self"],
-                                  caches["cross"])
+                                  caches["cross"], cache_len=self._cache_len)
         else:
             x, caches, _ = self._stack(params, x, positions, caches,
                                        cache_len=self._cache_len)

@@ -16,6 +16,17 @@ steps (9 at 512 tokens) of three elementwise ops over (B, S, W), where a
 loop over time would issue S steps of a few small launches each and leave
 the card waiting on the host. Its tree differs from ``associative_scan``'s,
 so float32 sums agree to rounding, not bit for bit.
+
+Under a sharding context each rank holds its block of the width W over
+"model": ``in_x``, ``in_gate``, the conv and ``out``'s rows are its own,
+and so are the caches' channels (``serve_step.cache_shardings``). The
+gates' products ``xs @ wa`` and ``xs @ wx`` are row-parallel (``wa`` and
+``wx`` split by their input rows), so each is summed over "model" by one
+reduce-scatter that leaves every rank its block of the channels; the
+replicated ``ba``, ``bx`` and ``lam`` are sliced to that block. The
+recurrence is per channel, so it runs on the block alone, and ``out``'s
+product is the rank's partial sum (the caller reduces it). A width that
+"model" does not divide is refused by ``Model.check_rules``.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamSpec, TensorStruct, causal_conv1d
+from repro_torch.sharding import ctx as shard
 
 C_FACTOR = 8.0
 
@@ -43,12 +55,27 @@ def rglru_specs(cfg) -> dict:
     }
 
 
+RGLRU_AXES = {"in_x": ("embed", "inner"), "in_gate": ("embed", "inner"),
+              "out": ("inner", "embed")}
+
+
+def _gate(p, x, w: str, bias: str):
+    """sigmoid(x @ p[w] + p[bias]); under a sharding context ``x`` is this
+    rank's block of the channels and ``p[w]`` its rows, so the product is
+    reduce-scattered over "model" to this rank's block of the outputs."""
+    y = x @ p[w].to(x.dtype)
+    if shard.model_axis()[0] > 1:
+        y = shard.current_mesh().reduce_scatter(y, "model", y.dim() - 1)
+    return torch.sigmoid(y + shard.model_block(p[bias], 0).to(x.dtype))
+
+
 def _lru_gates(p, x):
     """x: (B, S, W) -> (a float32, b in x's dtype) with
-    h_t = a_t h_{t-1} + b_t."""
-    r = torch.sigmoid(x @ p["wa"].to(x.dtype) + p["ba"].to(x.dtype))
-    i = torch.sigmoid(x @ p["wx"].to(x.dtype) + p["bx"].to(x.dtype))
-    log_a = -C_FACTOR * F.softplus(p["lam"].float()) * r.float()
+    h_t = a_t h_{t-1} + b_t (this rank's channels under a context)."""
+    r = _gate(p, x, "wa", "ba")
+    i = _gate(p, x, "wx", "bx")
+    lam = shard.model_block(p["lam"], 0)
+    log_a = -C_FACTOR * F.softplus(lam.float()) * r.float()
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     b = mult.to(x.dtype) * (i * x)
@@ -69,7 +96,9 @@ def linear_scan(a, b):
 
 def apply_rglru(cfg, p, x, cache=None):
     """x: (B, S, D); cache: None | dict(conv, h), written in place.
-    Returns (y, cache)."""
+    Returns (y, cache); under a sharding context ``y`` is this rank's
+    partial sum and the cache its block of the channels."""
+    p = shard.gathered(p, RGLRU_AXES)
     gate = F.gelu(x @ p["in_gate"].to(x.dtype), approximate="tanh")
     xs = x @ p["in_x"].to(x.dtype)
     conv_state = cache["conv"] if cache is not None else None

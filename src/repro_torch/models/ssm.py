@@ -14,6 +14,29 @@ four-operand einsums are written as explicit pairwise products (torch
 contracts an einsum left to right unless ``opt_einsum`` is installed,
 which would materialise a (B, nc, Q, Q, H, P) intermediate): the
 elementwise factors first, then one batched matrix product.
+
+Under a sharding context the layer runs by heads: each rank holds its
+heads' block of ``wz``, ``wx``, ``wdt``, the x conv, ``a_log``,
+``dt_bias``, ``d_skip`` and the gated norm's scale, and its rows of
+``out_proj`` (a partial sum, which the caller reduces); ``wb`` and ``wc``
+are replicated, so B and C are computed whole. The gated norm's mean
+runs over the whole (padded) inner dimension: its sum of squares is
+all-reduced over "model". The caches are held as
+``serve_step.cache_shardings`` lays them out, which is not always by
+heads: the state ``h`` (H, P, N) splits its widest dimension, so by the
+state N at mamba2-130m's full width (128 > 64 > 24), by heads where H is
+widest, or whole where that dimension does not divide; ``conv_b`` and
+``conv_c`` split by N where it divides (:func:`cache_layout`). A conv
+split by N runs on this rank's N block (its cache keeps that block's
+last inputs) and B and C are gathered over "model" where the heads need
+them whole. A decode step into a state split by N, or held whole,
+gathers the step's x, dt and decay of every head over "model" (a few
+KB) and updates every head's state over the N it holds (elementwise,
+so as the heads layout would); C·h is summed over those N and
+reduce-scattered by heads (or, held whole, sliced). A prefill runs the
+chunked scan by heads: its initial state is brought to the heads layout
+(a reduce-scatter of the zero-padded N blocks) and its final state
+back to the cache's (an all-gather by heads, then this rank's slice).
 """
 from __future__ import annotations
 
@@ -23,6 +46,12 @@ import torch.nn.functional as F
 from repro_torch.models.attention import _pad_seq
 from repro_torch.models.layers import (ParamSpec, TensorStruct,
                                        causal_conv1d, rmsnorm)
+from repro_torch.sharding import ctx as shard
+from repro_torch.sharding.rules import channel_split_dim
+
+SSM_AXES = {"wz": ("embed", "inner"), "wx": ("embed", "inner"),
+            "wb": ("embed", None), "wc": ("embed", None),
+            "wdt": ("embed", "heads"), "out_proj": ("inner", "embed")}
 
 
 def ssm_dims(cfg):
@@ -30,6 +59,31 @@ def ssm_dims(cfg):
     d_inner = cfg.ssm_d_inner or cfg.ssm_expand * cfg.d_model
     heads = d_inner // cfg.ssm_headdim
     return d_inner, heads
+
+
+def cache_layout(cfg, tp: int) -> dict:
+    """How ``serve_step.cache_shardings`` splits the caches over a "model"
+    axis of ``tp`` > 1 ranks: ``h`` by "heads", by the "state" N or
+    "whole", ``conv_b`` / ``conv_c`` ("bc") by the "state" or "whole".
+    Raises ``NotImplementedError`` for a layout the layer does not read:
+    ``h`` split by its head dimension P (P the widest), a B/C conv split
+    by its taps, or ``conv_x`` not split by its channels."""
+    di, nh = ssm_dims(cfg)
+    n, k1 = cfg.ssm_state, cfg.ssm_conv - 1
+    h = {0: "heads", 2: "state", None: "whole"}.get(
+        channel_split_dim((nh, cfg.ssm_headdim, n), tp))
+    bc = {1: "state", None: "whole"}.get(channel_split_dim((k1, n), tp))
+    if h is None:
+        raise NotImplementedError(
+            f"{cfg.name}: the SSD state (heads {nh}, head dim "
+            f"{cfg.ssm_headdim}, state {n}) splits by its head dimension "
+            f"over tp={tp}; only a split by heads, by the state, or none "
+            "is read")
+    if bc is None or channel_split_dim((k1, di), tp) != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the SSD conv caches ({k1} taps, state {n}, inner "
+            f"{di}) do not split by channels over tp={tp}")
+    return {"h": h, "bc": bc}
 
 
 def ssm_specs(cfg) -> dict:
@@ -116,12 +170,53 @@ def _ssd_chunked(x, dt, a, b_in, c_in, chunk: int, h0=None):
     return y[:, :s], h_prev
 
 
+def _gated_norm(y, z, scale, width: int, eps: float = 1e-6):
+    """rmsnorm(y * silu(z), scale) over a dimension split over "model":
+    the sum of squares all-reduced and divided by the whole ``width``."""
+    g = y * F.silu(z)
+    xf = g.float()
+    ss = shard.current_mesh().all_reduce(
+        xf.square().sum(dim=-1, keepdim=True), "model")
+    out = xf * torch.rsqrt(ss / width + eps)
+    return (out * (1.0 + scale.float())).to(g.dtype)
+
+
+def _state_to_heads(h, layout: str, nh: int):
+    """A cache state in ``layout`` -> this rank's heads, every N."""
+    if layout == "heads":
+        return h
+    if layout == "whole":
+        return shard.model_block(h, 1)
+    n_all = h.shape[-1] * shard.model_axis()[0]
+    full = h.new_zeros(h.shape[:1] + (nh,) + h.shape[2:3] + (n_all,))
+    shard.model_block(full, 3).copy_(h)
+    return shard.current_mesh().reduce_scatter(full, "model", 1)
+
+
+def _state_from_heads(h, layout: str):
+    """This rank's heads' state -> the cache's ``layout``."""
+    if layout == "heads":
+        return h
+    h = shard.current_mesh().all_gather(h, "model", 1)
+    return h if layout == "whole" else shard.model_block(h, 3)
+
+
 def apply_ssm(cfg, p, x, cache=None):
     """x: (B, S, D). cache: None | dict(conv_x, conv_b, conv_c, h), written
-    in place. Returns (y (B, S, D), cache)."""
+    in place. Returns (y (B, S, D), cache); under a sharding context ``y``
+    is this rank's partial sum and the cache its blocks (see the
+    module)."""
     bsz, s, d = x.shape
     di, nh = ssm_dims(cfg)
     hp = cfg.ssm_headdim
+    p = shard.gathered(p, SSM_AXES)
+    tp, _ = shard.model_axis()
+    mesh = shard.current_mesh()
+    layout = cache_layout(cfg, tp) if tp > 1 else None
+    dil, nhl = p["wx"].shape[1], p["wdt"].shape[1]
+    decode = cache is not None and s == 1
+    # a decode step over the state of every head (split by N or whole)
+    all_heads = decode and layout is not None and layout["h"] != "heads"
 
     z = x @ p["wz"].to(x.dtype)
     xs = x @ p["wx"].to(x.dtype)
@@ -132,28 +227,63 @@ def apply_ssm(cfg, p, x, cache=None):
     cs = cache or {}
     xs, ncx = causal_conv1d(xs, p["conv_x"], cs.get("conv_x"))
     xs = F.silu(xs + p["conv_xb"].to(x.dtype))
-    b_in, ncb = causal_conv1d(b_in, p["conv_b"], cs.get("conv_b"))
-    b_in = F.silu(b_in + p["conv_bb"].to(x.dtype))
-    c_in, ncc = causal_conv1d(c_in, p["conv_c"], cs.get("conv_c"))
-    c_in = F.silu(c_in + p["conv_cb"].to(x.dtype))
+    bc_split = cache is not None and layout is not None and \
+        layout["bc"] == "state"
+    # the conv of this rank's N block where its cache holds that block
+    part = shard.model_block if bc_split else (lambda t, _: t)
+    b_in, ncb = causal_conv1d(part(b_in, 2), part(p["conv_b"], 1),
+                              cs.get("conv_b"))
+    b_in = F.silu(b_in + part(p["conv_bb"], 0).to(x.dtype))
+    c_in, ncc = causal_conv1d(part(c_in, 2), part(p["conv_c"], 1),
+                              cs.get("conv_c"))
+    c_in = F.silu(c_in + part(p["conv_cb"], 0).to(x.dtype))
+    state_split = all_heads and layout["h"] == "state"
+    if bc_split and not state_split:        # the heads read every N
+        bc = mesh.all_gather(torch.cat([b_in, c_in], dim=-1), "model", 2)
+        bc = bc.unflatten(-1, (tp, 2, -1))
+        b_in, c_in = bc[..., 0, :].flatten(-2), bc[..., 1, :].flatten(-2)
+    elif state_split and not bc_split:      # the state reads its N block
+        b_in, c_in = shard.model_block(b_in, 2), shard.model_block(c_in, 2)
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())   # (B,S,H)
     a = -torch.exp(p["a_log"].float())                       # (H,) negative
 
-    xh = xs.reshape(bsz, s, nh, hp)
+    xh = xs.reshape(bsz, s, nhl, hp)
     h0 = cache["h"] if cache is not None else None
-    if cache is not None and s == 1:
+    if all_heads:
+        # every head's x, dt and decay of this step, in one gather
+        da = torch.exp(dt[:, 0] * a[None])                   # (B,Hl)
+        g = mesh.all_gather(torch.cat([xs[:, 0].float(), dt[:, 0], da],
+                                      dim=-1), "model", 1)
+        g = g.unflatten(1, (tp, -1))
+        x_all = g[..., :dil].reshape(bsz, nh, hp).to(x.dtype)
+        dt_all = g[..., dil:dil + nhl].reshape(bsz, nh)
+        da_all = g[..., dil + nhl:].reshape(bsz, nh)
+        dbx = (dt_all.to(x.dtype)[:, :, None, None]
+               * b_in[:, 0][:, None, None, :]) * x_all[..., None]
+        h_last = h0 * da_all[:, :, None, None].to(x.dtype) + dbx
+        y_all = (h_last @ c_in[:, 0][:, None, :, None])[..., 0]
+        y = (mesh.reduce_scatter(y_all, "model", 1) if state_split
+             else shard.model_block(y_all, 1))[:, None]
+    elif decode:
         da = torch.exp(dt[:, 0] * a[None])                   # (B,H)
         dbx = (dt[:, 0].to(x.dtype)[:, :, None, None]
                * b_in[:, 0][:, None, None, :]) * xh[:, 0][..., None]
         h_last = h0 * da[:, :, None, None].to(x.dtype) + dbx
         y = (h_last @ c_in[:, 0][:, None, :, None])[..., 0][:, None]
     else:
+        if layout is not None and h0 is not None:
+            h0 = _state_to_heads(h0, layout["h"], nh)
         y, h_last = _ssd_chunked(xh, dt.to(x.dtype), a.to(x.dtype), b_in,
                                  c_in, cfg.ssm_chunk, h0)
+        if layout is not None and cache is not None:
+            h_last = _state_from_heads(h_last, layout["h"])
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, di)
-    y = rmsnorm(y * F.silu(z), p["norm"])
+    y = y.reshape(bsz, s, dil)
+    if layout is None:
+        y = rmsnorm(y * F.silu(z), p["norm"])
+    else:
+        y = _gated_norm(y, z, p["norm"], di)
     out = y @ p["out_proj"].to(x.dtype)
     if cache is not None:
         cache["conv_x"].copy_(ncx)

@@ -83,7 +83,8 @@ def apply_layer(cfg, p, kind: str, x, positions, cache, heads: int,
     if kind in ATTN_KINDS:
         if cfg.attention == "mla":
             h, new_cache = attn.mla_attention(cfg, p["mixer"], h, kind,
-                                              positions, cache, heads)
+                                              positions, cache, heads,
+                                              cache_len)
         else:
             h, new_cache = attn.gqa_attention(cfg, p["mixer"], h, kind,
                                               positions, cache, heads,

@@ -21,6 +21,7 @@ from repro_torch.models.layers import TensorStruct
 from repro_torch.models.model import Model
 from repro_torch.sharding.ctx import sharding_ctx
 from repro_torch.sharding.rules import PartitionSpec as P
+from repro_torch.sharding.rules import channel_split_dim, kv_cache_split
 
 
 def make_serve_fns(model: Model, rules=None, max_len: int = 0):
@@ -75,10 +76,9 @@ def cache_shardings(rules, cache_struct) -> Any:
         def kv(leaf):  # (L?, B, S, K, hd)
             s = leaf.shape
             parts = lead + [b, None, None, None]
-            if rules.kv_sharded and s[off + 2] % tp == 0:
-                parts[off + 2] = "model"
-            elif rules.seq_shard_cache and s[off + 1] % tp == 0:
-                parts[off + 1] = "model"
+            split = kv_cache_split(rules, s[off + 2], s[off + 1], tp)
+            if split is not None:
+                parts[off + (2 if split == "heads" else 1)] = "model"
             return P(*parts)
 
         def seqshard(leaf):  # (L?, B, S, R): MLA compressed
@@ -91,9 +91,9 @@ def cache_shardings(rules, cache_struct) -> Any:
         def chan_last(leaf):  # conv / recurrent states: channels last
             s = leaf.shape
             parts = lead + [b] + [None] * (len(s) - off - 1)
-            wide = max(range(off + 1, len(s)), key=lambda i: s[i])
-            if s[wide] % tp == 0 and s[wide] >= tp:
-                parts[wide] = "model"
+            wide = channel_split_dim(s[off + 1:], tp)
+            if wide is not None:
+                parts[off + 1 + wide] = "model"
             return P(*parts)
 
         keys = set(tree.keys())

@@ -14,7 +14,10 @@ map ``role``, and raises ``ValueError`` if not, so a wrong layout fails
 loudly instead of computing on the wrong slice. (The reference's
 ``constrain`` asks XLA for the layout; here the code makes it, and this
 checks it.) :func:`gather_weight` is the FSDP gather of a parameter's
-data-sharded dimensions at its use.
+data-sharded dimensions at its use. :func:`model_block` is this rank's
+block of a tensor every rank holds whole (a replicated bias sliced to
+the rank's channels), and :func:`combine_seq_split` the attention over
+positions split over "model" that GQA, MLA and the cross-attention share.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.sharding.rules import local_shape
+from repro_torch.sharding.rules import block_range, local_shape
 
 _state = threading.local()
 
@@ -60,14 +63,23 @@ def constrain(x, role: str, full_shape=None):
     outside a context, and for a role the rules leave unconstrained."""
     if not active():
         return x
-    rules, mesh = current_rules(), current_mesh()
-    spec = rules.activation_spec(role, x.dim())
+    spec = current_rules().activation_spec(role, x.dim())
     if spec is None:
         return x
+    return constrain_spec(x, spec, full_shape, role)
+
+
+def constrain_spec(x, spec, full_shape=None, name: str = "tensor"):
+    """``x``, checked (inside a context) to be this rank's block of a
+    tensor of ``full_shape`` laid out by the ``PartitionSpec`` ``spec``
+    (a cache's, from ``serve_step.cache_shardings``); raises
+    ``ValueError`` naming ``name`` otherwise."""
+    if not active():
+        return x
     full = tuple(x.shape if full_shape is None else full_shape)
-    want = local_shape(spec, full, mesh)
+    want = local_shape(spec, full, current_mesh())
     if tuple(x.shape) != want:
-        raise ValueError(f"{role}: this rank's block of {full} under "
+        raise ValueError(f"{name}: this rank's block of {full} under "
                          f"{spec} is {want}, the tensor is "
                          f"{tuple(x.shape)}")
     return x
@@ -80,6 +92,33 @@ def model_axis() -> tuple[int, int]:
         return 1, 0
     mesh = current_mesh()
     return mesh.axis_size("model"), mesh.axis_index("model")
+
+
+def model_block(x, dim: int):
+    """This rank's block along ``dim`` over "model" of ``x``, a tensor
+    every rank holds whole (``block_range``'s blocks, as a split cache's);
+    ``x`` itself on one rank or outside a context."""
+    tp, t = model_axis()
+    if tp == 1:
+        return x
+    lo, hi = block_range(x.shape[dim], tp, t)
+    return x.narrow(dim, lo, hi - lo)
+
+
+def combine_seq_split(scores, values, contract: str, dtype):
+    """Attention over positions split by sequence over "model":
+    ``scores`` (float32, masked, the positions last) and ``values`` are
+    this rank's positions'. The global max of the scores, the softmax's
+    sum, and the weighted values (``torch.einsum(contract, weights,
+    values)`` in float32) are each combined over "model"; returns the
+    last in ``dtype``. Every rank gets every row's result."""
+    mesh = current_mesh()
+    m = mesh.all_reduce(scores.amax(dim=-1), "model", "max")
+    e = torch.exp(scores - m[..., None])
+    l = mesh.all_reduce(e.sum(dim=-1), "model")
+    w = (e / l[..., None]).to(dtype)
+    o = torch.einsum(contract, w.float(), values.float())
+    return mesh.all_reduce(o, "model").to(dtype)
 
 
 def gather_weight(w, axes: tuple):
@@ -136,6 +175,19 @@ def gather_seq(x, s: int):
     if not seq_sharded():
         return x
     return current_mesh().all_gather(x, "model", 1)[:, :s]
+
+
+def split_seq(x):
+    """A (B, S, D) tensor every rank holds whole, in the residual's layout:
+    padded to :func:`padded_len` and this rank's block of positions when
+    the residual is split by sequence (the inverse of :func:`gather_seq`)."""
+    if not seq_sharded():
+        return x
+    s = x.shape[1]
+    pad = padded_len(s) - s
+    if pad:
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad, x.shape[2]))], 1)
+    return model_block(x, 1)
 
 
 def reduce_seq(y):

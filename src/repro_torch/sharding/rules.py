@@ -246,6 +246,29 @@ def local_slices(pspec: P, shape, mesh) -> tuple:
     return tuple(out)
 
 
+def kv_cache_split(rules: Rules, kv_heads: int, length: int,
+                   tp: int) -> Optional[str]:
+    """Which dimension of a KV cache (``length`` positions of ``kv_heads``
+    heads) ``serve_step.cache_shardings`` splits over "model": "heads"
+    where the rules shard the KV heads and ``tp`` divides them, else
+    "seq" where it divides the length, else None (held whole)."""
+    if rules.kv_sharded and kv_heads % tp == 0:
+        return "heads"
+    if rules.seq_shard_cache and length % tp == 0:
+        return "seq"
+    return None
+
+
+def channel_split_dim(dims, tp: int) -> Optional[int]:
+    """Which of a recurrent or conv state's channel dimensions ``dims``
+    (the batch and any layer axis left out) its cache splits over "model"
+    (``serve_step.cache_shardings``): the widest, the first of equals,
+    where ``tp`` divides it; None when that one does not divide (the state
+    is held whole)."""
+    wide = max(range(len(dims)), key=lambda i: dims[i])
+    return wide if dims[wide] % tp == 0 and dims[wide] >= tp else None
+
+
 def local_shape(pspec: P, shape, mesh) -> tuple:
     """The shape of this rank's block of ``shape`` under ``pspec``."""
     return tuple(s.stop - s.start for s in local_slices(pspec, shape, mesh))

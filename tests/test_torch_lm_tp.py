@@ -62,8 +62,10 @@ F32 = dict(rtol=1e-5, atol=1e-5)
 GQA_ARCHS = ("qwen1.5-0.5b", "stablelm-1.6b", "phi3-medium-14b",
              "phi-3-vision-4.2b", "llama4-scout-17b-a16e",
              "qwen3-moe-235b-a22b")
-UNPORTED = ("minicpm3-4b", "mamba2-130m", "recurrentgemma-2b",
-            "whisper-medium")
+# MLA, the SSD, the RG-LRU and the encoder-decoder: served sharded in
+# tests/test_torch_lm_tp_mixers.py, laid out under the rules here
+MIXER_ARCHS = ("minicpm3-4b", "mamba2-130m", "recurrentgemma-2b",
+               "whisper-medium")
 
 
 def _case(arch, mesh, over=None, batch=2, prompt=16, steps=8, max_len=0):
@@ -121,22 +123,29 @@ def _tree(case):
     return tree
 
 
-def _inputs(name, case, cfg):
-    rng = np.random.default_rng(sorted(CASES).index(name))
+def _inputs(name, case, cfg, cases=None):
+    """The case's tokens (B, prompt + steps) and extras (image embeddings,
+    an encoder's frames), drawn from the case's index in ``cases``
+    (default this file's CASES)."""
+    rng = np.random.default_rng(sorted(cases or CASES).index(name))
     b, s, n = case["batch"], case["prompt"], case["steps"]
     tokens = rng.integers(0, cfg.vocab_size, (b, s + n))
     extras = {}
     if cfg.num_patches:
         extras["image_embeds"] = rng.standard_normal(
             (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        extras["frames"] = rng.standard_normal(
+            (b, cfg.encoder_len, cfg.d_model)).astype(np.float32)
     return tokens, extras
 
 
 # --- the ranks' jobs ---------------------------------------------------------------
 
-def _serve(name, case, res):
-    """One case on this rank: its rows and vocabulary block of every
-    step's logits, and where they lie."""
+def _serve(name, case, res, cases=None):
+    """One case of ``cases`` (default CASES) on this rank: its rows and
+    vocabulary block of every step's logits, where they lie, and the
+    shapes of its caches."""
     cfg = _cfg(case)
     mesh = ProcessMesh(("data", "model"), case["mesh"], "cpu")
     model = build_model(cfg, tp=case["mesh"][1], compute_dtype=torch.float32,
@@ -147,7 +156,7 @@ def _serve(name, case, res):
     drules = trules.make_rules(mesh, "decode", b,
                                kv_sharded=model.kv_sharded)
     convert.params_from_numpy(model, _tree(case), rules=prules)
-    tokens, extras = _inputs(name, case, model.cfg)
+    tokens, extras = _inputs(name, case, model.cfg, cases)
     bax = prules.batch_axes
     lo, hi = trules.block_range(b, mesh.axis_size(bax), mesh.axis_index(bax)) \
         if bax else (0, b)
@@ -211,7 +220,7 @@ def _refusals(res):
     mesh = ProcessMesh(("data", "model"), (1, 4), "cpu")
     out = {"mesh_of_2_in_4": _message(
         lambda: ProcessMesh(("data", "model"), (1, 2), "cpu"))}
-    for arch in UNPORTED:
+    for arch in MIXER_ARCHS:
         model = build_model(get_config(arch).reduced(), tp=4, device="cpu")
         rules = trules.make_rules(mesh, "prefill", 2,
                                   kv_sharded=model.kv_sharded)
@@ -240,23 +249,25 @@ def _world(rank, world, res):
     return res
 
 
-def _rank_main(rank, world, init_file, out):
+def _rank_main(rank, world, init_file, out, job=None):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=90))
     try:
-        res = _world(rank, world, {})
+        res = (job or _world)(rank, world, {})
         np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(tmp_path, world: int) -> list:
+def spawn(tmp_path, world: int, job=None) -> list:
+    """``job(rank, world, res)`` (default this file's cases) on ``world``
+    gloo ranks; every rank's ``res``, in rank order."""
     out = tmp_path / f"world{world}"
     out.mkdir()
     ctx = mp.spawn(_rank_main, args=(world, str(tmp_path / f"{world}.rdzv"),
-                                     str(out)), nprocs=world, join=False)
+                                     str(out), job), nprocs=world, join=False)
     deadline = datetime.datetime.now() + datetime.timedelta(
         seconds=SPAWN_TIMEOUT_S)
     while not ctx.join(timeout=2):
@@ -280,13 +291,14 @@ def world4(tmp_path_factory):
 
 # --- the JAX package's side ----------------------------------------------------------
 
-def jax_steps(name, case) -> np.ndarray:
+def jax_steps(name, case, cases=None) -> np.ndarray:
     """(B, steps + 1, V) float32: the padded JAX model's prefill and decode
-    logits, unsharded, on the case's tree and inputs."""
+    logits, unsharded, on the case's tree and inputs (a case of ``cases``,
+    default CASES)."""
     jmodel = jbuild(_cfg(case, jget_config), tp=case["mesh"][1],
                     compute_dtype=jnp.float32)
     params = jax.tree_util.tree_map(jnp.asarray, _tree(case))
-    tokens, extras = _inputs(name, case, jmodel.cfg)
+    tokens, extras = _inputs(name, case, jmodel.cfg, cases)
     s = case["prompt"]
     # jitted: 4-6x faster than op-by-op on the CPU at these sizes
     prefill = jax.jit(lambda p, b: jmodel.prefill(p, b,
@@ -415,16 +427,18 @@ def test_expert_parallel_matches_grouped_manual_and_auto(arch, world4,
 # --- refusals ------------------------------------------------------------------------
 
 def test_sharded_runs_refuse(world4):
-    """Before any work: a mesh whose size is not the group's; MLA, the
-    SSD, the RG-LRU and the encoder-decoder under rules at tp 4, and the
-    no_tp rules (ROADMAP item 15e); a mesh "model" axis other than the
-    model's tp; a sharded model called outside its context."""
+    """Before any work: a mesh whose size is not the group's; the no_tp
+    rules (ROADMAP item 15e.2); a mesh "model" axis other than the
+    model's tp; a sharded model called outside its context. MLA, the
+    SSD, the RG-LRU and the encoder-decoder lay out under rules at tp 4
+    (tests/test_torch_lm_tp_mixers.py serves them)."""
     got = json.loads(str(world4[0]["refusals"]))
     assert got["mesh_of_2_in_4"].startswith("ValueError") and \
         "world size is 4" in got["mesh_of_2_in_4"]
-    for arch in UNPORTED + ("no_tp",):
-        assert got[arch].startswith("NotImplementedError") and \
-            "ROADMAP item 15e" in got[arch], got[arch]
+    for arch in MIXER_ARCHS:
+        assert got[arch] == "no error", got[arch]
+    assert got["no_tp"].startswith("NotImplementedError") and \
+        "ROADMAP item 15e" in got["no_tp"], got["no_tp"]
     assert got["tp_mismatch"].startswith("ValueError: the model is padded")
     assert got["outside_the_context"].startswith("ValueError") and \
         "sharding_ctx" in got["outside_the_context"]
@@ -451,7 +465,7 @@ def test_no_group_and_backend_refusals(tmp_path):
 
 
 def test_training_and_layouts_refuse_under_rules():
-    """Model.loss under a sharding context (ROADMAP item 15e), and
+    """Model.loss under a sharding context (ROADMAP item 15e.2), and
     constrain on a tensor that is not this rank's block of its role."""
     mesh = ProcessMesh(("data", "model"), (1, 1), "cpu")
     model = build_model(get_config("qwen1.5-0.5b").reduced(),
