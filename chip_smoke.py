@@ -182,7 +182,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     decode), bf16, 8 x 512 prompts and 32 greedy decode steps, run first
     unsharded and then under the prefill and decode rules on the same
     draws: every step's logits equal (torch.equal), so every token; no
-    kernel launched.
+    kernel launched. Then training under the rules on the same mesh
+    (LM_TP_TRAIN): qwen1.5-0.5b at full width cut to 2 layers, float32, 2
+    AdamW steps on the card's walk corpus, unsharded and then under the TP
+    and the no_tp rules (train.make_train_step(model, opt, rules)), under
+    deterministic algorithms: the loss, the grad norm and every updated
+    leaf equal bit for bit (a difference would be held to rtol 1e-6 and
+    reported); no kernel launched by the steps.
 11. the seconds from the start to each phase's end; the kernels line
     (with each kernel's launches in the distributed runs and in the
     training corpus's build; histogram's also in the analytics runs), then
@@ -994,6 +1000,19 @@ def profile_run(torch, api, spec, dev, kernel: str = "",
                       expect_calls, attempts)
 
 
+def union_us(spans) -> float:
+    """The length of the union of sorted (start, end) intervals: the
+    time some kernel ran."""
+    busy, cur = 0.0, None
+    for start, end in spans:
+        if cur is None or start > cur[1]:
+            busy += (cur[1] - cur[0]) if cur else 0.0
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    return busy + (cur[1] - cur[0] if cur else 0.0)
+
+
 def profile_fn(torch, run, kernel: str = "", expect_calls=None,
                attempts: int = 3) -> dict:
     """Device-time share and the top device ops of run(), a main-path run
@@ -1039,14 +1058,7 @@ def profile_fn(torch, run, kernel: str = "", expect_calls=None,
         return {**head, "kernels_busy_s": None, "kernel_device_s": None,
                 "first_to_last_kernel_s": None,
                 "device_idle_share_of_wall": None, "top_device_ops": []}
-    busy_us, cur = 0.0, None
-    for start, end in spans:          # union of kernel intervals
-        if cur is None or start > cur[1]:
-            busy_us += (cur[1] - cur[0]) if cur else 0.0
-            cur = [start, end]
-        else:
-            cur[1] = max(cur[1], end)
-    busy_us += cur[1] - cur[0]
+    busy_us = union_us(spans)
     top = sorted(kernels, key=device_us, reverse=True)[:14]
     busy_s = busy_us / 1e6 / runs
     if kernel:
@@ -3675,10 +3687,112 @@ def lm_sharded_phase(torch, np, dev) -> dict:
         if any(launches.values()):
             raise AssertionError(f"sharded serving launched a graph "
                                  f"kernel: {launches}")
+        rows["train"] = lm_sharded_train(torch, np, dev, mesh)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(rdzv, ignore_errors=True)
     emit({"phase": "lm_sharded_done", "wall_s": time.perf_counter() - t_phase})
+    return rows
+
+
+# Phase 10's training part: qwen1.5-0.5b at full width cut to
+# LM_TP_TRAIN["layers"] layers, float32 masters and compute (TF32 off),
+# LM_TP_TRAIN["steps"] AdamW steps (TRAIN_REF_OPT) on batches of the
+# card's walk corpus, unsharded and then under the TP rules and the no_tp
+# rules of the world-size-1 mesh (train.make_train_step(model, opt,
+# rules)), each from the same draws (the port's init seeded LM_SEED, each
+# stacked matrix at one layer's fan-in), under deterministic algorithms
+# (the embedding's backward adds with atomics on the card otherwise). On
+# one card every collective of the sharded step is the identity and its
+# arithmetic is the unsharded step's, so the loss, the grad norm and every
+# updated leaf must be equal, bit for bit; LM_TP_TRAIN_RTOL is what a
+# difference would be held to and reported against. The step launches no
+# kernel (the corpus does, before the counts are reset).
+LM_TP_TRAIN = {"arch": "qwen1.5-0.5b", "layers": 2, "batch": 8, "seq": 512,
+               "steps": 2}
+LM_TP_TRAIN_RTOL = 1e-6
+
+
+def lm_sharded_train(torch, np, dev, mesh) -> dict:
+    """Phase 10's training part (LM_TP_TRAIN) on ``mesh`` (the world-size-1
+    NCCL group's): one row per rule set, each against the unsharded run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.sharding import make_rules
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    c = LM_TP_TRAIN
+    cfg = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"])
+    batches = train_batches(np, train_corpus(dev, cfg.vocab_size), cfg,
+                            c["steps"], c["batch"], c["seq"])
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the float32 checks "
+                             "need them off")
+    ops.reset_launch_counts()
+
+    def run(rules):
+        model = build_model(cfg, compute_dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            params = lm_layer_fan_in(model, model.master_params(
+                generator=torch.Generator(dev).manual_seed(LM_SEED),
+                rules=rules))
+        state = init_opt_state(params)
+        step = make_train_step(model, AdamWConfig(**TRAIN_REF_OPT), rules)
+        metrics, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                     "lr")})
+        return metrics, tree_leaves(params), ms
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    rows = {}
+    try:
+        want, want_leaves, want_ms = run(None)
+        for label, no_tp in (("tp", False), ("no_tp", True)):
+            rules = make_rules(mesh, "train", c["batch"], no_tp=no_tp)
+            got, leaves, ms = run(rules)
+            worst = max(float((a - b).detach().abs().max()) /
+                        max(float(b.detach().abs().max()), 1e-30)
+                        for a, b in zip(leaves, want_leaves))
+            metric_rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
+                             zip(got, want) for k in ("loss", "grad_norm"))
+            row = {"phase": "lm_sharded_train_one_card", "rules": label,
+                   "arch": c["arch"], "mesh": dict(mesh.shape),
+                   "batch_axes": list(rules.batch_axes),
+                   "reduced": f"num_layers 24 -> {c['layers']}",
+                   **{k: c[k] for k in ("batch", "seq", "steps")},
+                   "dtype": "float32", "deterministic_algorithms": True,
+                   "metrics": got, "unsharded_metrics": want,
+                   "bit_equal": got == want and all(
+                       torch.equal(a, b) for a, b in zip(leaves,
+                                                         want_leaves)),
+                   "metrics_max_rel_diff": metric_rel,
+                   "leaf_max_diff_over_scale": worst,
+                   "rtol": LM_TP_TRAIN_RTOL, "step_ms": ms,
+                   "unsharded_step_ms": want_ms}
+            emit(row)
+            rows[label] = row
+            del leaves
+            if not row["bit_equal"] and max(worst, metric_rel) > \
+                    LM_TP_TRAIN_RTOL:
+                raise AssertionError(f"training under the {label} rules "
+                                     f"differs from the unsharded step: "
+                                     f"{row}")
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the sharded train step launched a graph "
+                             f"kernel: {launches}")
     return rows
 
 

@@ -237,7 +237,8 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=3,
                     help="timed runs of each case (the first includes "
                     "NCCL's setup of the case's communicators)")
-    ap.add_argument("--only", choices=("dp_sync", "lm_tp"), default=None,
+    ap.add_argument("--only", choices=("dp_sync", "lm_tp", "lm_train_tp"),
+                    default=None,
                     help="run this case alone")
     args = ap.parse_args()
     import numpy as np
@@ -289,6 +290,11 @@ def main() -> int:
         if rank == 0 and graphs else None
     lm_refs = lm_tp_references(torch, np, chip_smoke, device, args.cpu) \
         if rank == 0 and lm else None
+    lm_train = args.only in (None, "lm_train_tp")
+    corpora: dict = {}          # this card's walk corpora, by vocabulary
+    train_refs = lm_train_tp_references(torch, np, chip_smoke, device,
+                                        args.cpu, corpora) \
+        if rank == 0 and lm_train else None
     ref_s = time.perf_counter() - t0
     if gpu:
         dist.init_process_group(backend, device_id=device,
@@ -436,6 +442,17 @@ def main() -> int:
                                 rank, device, args.cpu, gathered, kept) \
                     and ok
         del lm_refs, kept
+
+    # Training under the sharding rules.
+    if lm_train:
+        if world != 4:
+            raise SystemExit(f"lm_train_tp runs on 4 processes, not {world}")
+        for run in LM_TRAIN_TP_RUNS:
+            for shape in run[4]:
+                ok = lm_train_tp_case(torch, np, chip_smoke, run, shape,
+                                      train_refs, rank, device, args.cpu,
+                                      gathered, corpora) and ok
+        del train_refs, corpora
 
     # The training path's DP gradient sync.
     mine = dp_sync_case(torch, rank, world, device, gpu, args.repeats,
@@ -699,6 +716,313 @@ def lm_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
                     [chip_smoke.lm_gap_parts(torch, full, other)])
         else:
             kept[name] = (shape, full)
+    out["ok"] = good
+    print(json.dumps(out), flush=True)
+    return good
+
+
+# --- lm_train_tp: training under the sharding rules -------------------------------
+
+# (name, arch, layers, dtype, meshes, steps, reference): the walk corpus's
+# batches of LM_TRAIN_TP_CELL on every card, weights drawn as phase 9 of
+# chip_smoke.py draws its cell (the port's init seeded LM_SEED, each
+# stacked matrix at one layer's fan-in), laid out on each mesh as
+# lm_train_tp_layout says (qwen: no_tp, accum 1; phi3: the TP rules, accum
+# 4 on (1, 4) and 2 on (2, 2)). "one_card": float32, every step's metrics
+# and parameter checksums against the same model on one card (rank 0,
+# before the group); None: timed (bf16 over float32 masters).
+LM_TRAIN_TP_RUNS = (
+    ("qwen_no_tp_float32", "qwen1.5-0.5b", 0, "float32", ((1, 4), (2, 2)),
+     3, "one_card"),
+    ("qwen_no_tp", "qwen1.5-0.5b", 0, "bfloat16", ((1, 4), (2, 2)), 10,
+     None),
+    ("phi3_float32_2_layers", "phi3-medium-14b", 2, "float32",
+     ((1, 4), (2, 2)), 3, "one_card"),
+    ("phi3_40_layers", "phi3-medium-14b", 0, "bfloat16", ((1, 4),), 5,
+     None),
+)
+# timed runs whose model one card holds: rank 0 times the unsharded step
+# too, before the group (phi3-medium-14b's training state does not fit)
+LM_TRAIN_TP_ONE_CARD_TIMED = ("qwen_no_tp",)
+LM_TRAIN_TP_CELL = {"batch": 8, "seq": 512}
+LM_TRAIN_TP_CPU_CELL = {"batch": 4, "seq": 32}
+LM_TRAIN_TP_OPT = {"lr": 1e-3, "warmup_steps": 2}
+# chip_smoke.train_mismatches' bounds against the one-card run: step 1's
+# loss and grad norm, the later steps', the checksums after the last step
+LM_TRAIN_TP_RTOL = 1e-5
+LM_TRAIN_TP_LATER_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
+LM_TRAIN_TP_CHECKSUM_RTOL = 1e-3
+
+
+def lm_train_tp_layout(arch, shape, cpu):
+    """launch.dryrun.train_layout of the run's deployment: the config at
+    its full depth (a run's cut depth keeps its layout) on the mesh
+    ``shape`` = (data, model), at the cell's global batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import train_layout
+    cell = LM_TRAIN_TP_CPU_CELL if cpu else LM_TRAIN_TP_CELL
+    return train_layout(get_config(arch), {"data": shape[0],
+                                           "model": shape[1]}, cell["batch"])
+
+
+def lm_train_tp_model(torch, chip_smoke, device, arch, layers, tp, dtype,
+                      cpu):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if cpu else cfg
+    if layers and not cpu:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return build_model(cfg, tp=tp, compute_dtype=getattr(torch, dtype),
+                       device=device)
+
+
+def lm_train_tp_batches(np, chip_smoke, corpora, model, device, steps,
+                        accum, cpu):
+    """``steps`` batches of the cell from this card's walk corpus for the
+    model's vocabulary (built once per card, its kernel launches
+    counted)."""
+    from repro_torch.kernels import ops
+    cell = LM_TRAIN_TP_CPU_CELL if cpu else LM_TRAIN_TP_CELL
+    vocab = model.cfg.vocab_size
+    if vocab not in corpora:
+        ops.reset_launch_counts()
+        corpus = chip_smoke.train_corpus(device, vocab)
+        corpora[vocab] = (corpus, ops.launch_counts())
+    corpus, _ = corpora[vocab]
+    corpus.restore({"cursor": 0, "seed": chip_smoke.TRAIN_CORPUS["seed"]})
+    return chip_smoke.train_batches(np, corpus, model.cfg, steps,
+                                    cell["batch"], cell["seq"], accum)
+
+
+def lm_train_tp_params(torch, chip_smoke, model, rules=None):
+    with torch.no_grad():
+        return chip_smoke.lm_layer_fan_in(model, model.master_params(
+            generator=torch.Generator(model.device).manual_seed(
+                chip_smoke.LM_SEED), rules=rules))
+
+
+def lm_train_tp_checksums(np, chip_smoke, model, params, rules=None):
+    """chip_smoke.train_checksums of ``params`` (this rank's blocks under
+    ``rules``: the three leaves gathered whole, every rank taking part)."""
+    from repro_torch.models.layers import tree_leaves, tree_paths
+    from repro_torch.train.checkpoint import whole_leaf
+    paths = ["/".join(map(str, p)) for p in tree_paths(params)]
+    keep = {"embed/tok", "final_norm/scale", sorted(paths)[-1]}
+    named = {}
+    for p, spec, t in zip(paths, tree_leaves(model.param_specs()),
+                          tree_leaves(params)):
+        if p in keep:
+            named[p] = whole_leaf(t, spec, rules) if rules is not None \
+                else t.detach().cpu().numpy()
+    return chip_smoke.train_checksums(np, named)
+
+
+def lm_train_tp_references(torch, np, chip_smoke, device, cpu: bool,
+                           corpora: dict) -> dict:
+    """Rank 0, before the group exists: each "one_card" run and each run
+    of LM_TRAIN_TP_ONE_CARD_TIMED unsharded on this card, keyed by the
+    run, the padded model's tp (1 under no_tp) and the accum of its
+    meshes' layouts (lm_train_tp_layout): every step's metrics and
+    wall, the checksums after the last, and the corpus digest."""
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    out = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" \
+        else (lambda: None)
+    for name, arch, layers, dtype, meshes, steps, ref in LM_TRAIN_TP_RUNS:
+        if ref != "one_card" and name not in LM_TRAIN_TP_ONE_CARD_TIMED:
+            continue
+        for tp, accum in sorted({(lay.tp, lay.accum) for lay in (
+                lm_train_tp_layout(arch, m, cpu) for m in meshes)}):
+            model = lm_train_tp_model(torch, chip_smoke, device, arch,
+                                      layers, tp, dtype, cpu)
+            batches = lm_train_tp_batches(np, chip_smoke, corpora, model,
+                                          device, steps, accum, cpu)
+            params = lm_train_tp_params(torch, chip_smoke, model)
+            state = init_opt_state(params)
+            step = make_train_step(model, AdamWConfig(**LM_TRAIN_TP_OPT))
+            rec = {"loss": [], "grad_norm": [], "lr": [], "step_ms": [],
+                   "corpus_sha256": chip_smoke.corpus_sha256(np, batches)}
+            for b in batches:
+                sync()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                sync()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                for k in ("loss", "grad_norm", "lr"):
+                    rec[k].append(float(m[k]))
+            rec["checksums"] = lm_train_tp_checksums(np, chip_smoke, model,
+                                                     params)
+            out[(name, tp, accum)] = rec
+            del model, params, state, step
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def device_idle_share(torch, chip_smoke, fn) -> dict:
+    """fn() once under torch.profiler's trace of the card: the union of
+    its device intervals against the wall (chip_smoke.profile_fn's
+    reading, one call and no retry, so every rank runs fn() once)."""
+    from torch.autograd import DeviceType
+    prof, wall = chip_smoke.profiled(torch, fn, 1)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.name != "Command Buffer Full")
+    if not spans:
+        return {"wall_s": wall, "kernels_busy_s": None,
+                "device_idle_share_of_wall": None}
+    busy = chip_smoke.union_us(spans) / 1e6
+    top = sorted((e for e in prof.key_averages()
+                  if chip_smoke.device_us(e) > 0),
+                 key=chip_smoke.device_us, reverse=True)[:8]
+    return {"wall_s": wall, "kernels_busy_s": busy,
+            "device_idle_share_of_wall": 1 - busy / wall,
+            "top_device_ops": [{"name": e.key[:90], "calls": e.count,
+                                "device_ms": chip_smoke.device_us(e) / 1e3}
+                               for e in top]}
+
+
+def lm_train_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
+                     device, cpu: bool, gathered, corpora: dict) -> bool:
+    """One run of LM_TRAIN_TP_RUNS on ``shape`` = (data, model): every rank
+    lays the run out by lm_train_tp_layout and builds the model (tp 1
+    under no_tp, else the mesh's "model" size),
+    draws its blocks of the float32 masters, takes its rows of each batch
+    of its own card's corpus and runs make_train_step(model, opt, rules);
+    held to the one-card run, or timed: ms per step, tokens/s, each
+    card's peak, the c10d calls of one more step (rank 0's host trace)
+    and rank 0's idle share over one more (its device trace). Returns the
+    verdict (rank 0)."""
+    import statistics
+    import torch.distributed as dist
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.runtime.mesh import ProcessMesh
+    from repro_torch.sharding import make_rules
+    from repro_torch.sharding.rules import block_range
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    name, arch, layers, dtype, _, steps, ref_kind = run
+    layout = lm_train_tp_layout(arch, shape, cpu)
+    no_tp, tp, accum = layout.no_tp, layout.tp, layout.accum
+    cell = LM_TRAIN_TP_CPU_CELL if cpu else LM_TRAIN_TP_CELL
+    gpu = device.type == "cuda"
+    sync = torch.cuda.synchronize if gpu else (lambda: None)
+    mesh = ProcessMesh(("data", "model"), shape, device)
+    model = lm_train_tp_model(torch, chip_smoke, device, arch, layers, tp,
+                              dtype, cpu)
+    timed = ref_kind is None
+    batches = lm_train_tp_batches(np, chip_smoke, corpora, model, device,
+                                  steps + 2 * timed, accum, cpu)
+    digest = chip_smoke.corpus_sha256(np, batches[:steps])
+    if gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    rules = make_rules(mesh, "train", cell["batch"],
+                       kv_sharded=model.kv_sharded, no_tp=no_tp)
+    bax = rules.batch_axes
+    mb = cell["batch"] // accum
+    lo, hi = block_range(mb, mesh.axis_size(bax), mesh.axis_index(bax)) \
+        if bax else (0, mb)
+    mine = [{k: v[:, lo:hi] for k, v in b.items()} for b in batches]
+    sync()
+    t0 = time.perf_counter()
+    params = lm_train_tp_params(torch, chip_smoke, model, rules)
+    state = init_opt_state(params)
+    step = make_train_step(model, AdamWConfig(**LM_TRAIN_TP_OPT), rules)
+    sync()
+    init_s = time.perf_counter() - t0
+    master_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
+    n_params = model.count_params()
+    rec = {"loss": [], "grad_norm": [], "lr": []}
+    ms = []
+    dist.barrier()
+    for b in mine[:steps]:
+        sync()
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        sync()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        for k in ("loss", "grad_norm", "lr"):
+            rec[k].append(float(m[k]))
+    peak = torch.cuda.max_memory_allocated(device) if gpu else None
+    calls = idle = None
+    if timed:
+        more = iter(mine[steps:])
+
+        def one():
+            nonlocal params, state
+            params, state, _ = step(params, state, next(more))
+        if rank == 0:
+            calls = chip_smoke.c10d_calls(torch, one)
+        else:
+            one()
+            sync()
+        if rank == 0 and gpu:
+            idle = device_idle_share(torch, chip_smoke, one)
+        else:
+            one()
+            sync()
+    row = {"init_s": init_s, "master_bytes": master_bytes,
+           "step_ms": ms, "peak_allocated_bytes": peak,
+           "corpus_sha256": digest,
+           "corpus_launches": corpora[model.cfg.vocab_size][1],
+           "metrics": {k: rec[k] for k in ("loss", "grad_norm", "lr")}}
+    if not timed:
+        rec["checksums"] = lm_train_tp_checksums(np, chip_smoke, model,
+                                                 params, rules)
+        row["mismatches"] = chip_smoke.train_mismatches(
+            rec, refs[(name, tp, accum)], LM_TRAIN_TP_RTOL,
+            LM_TRAIN_TP_LATER_RTOL, LM_TRAIN_TP_CHECKSUM_RTOL) \
+            if rank == 0 else None
+    del params, state, step, model
+    if gpu:
+        torch.cuda.empty_cache()
+    everyone = gathered(row)
+    if rank != 0:
+        return True
+    tokens = cell["batch"] * cell["seq"]
+    step_ms = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    out = {"phase": "distributed_cards", "case": "lm_train_tp", "run": name,
+           "arch": arch, "layers": layers or "all", "dtype": dtype,
+           "master_dtype": "float32", "no_tp": no_tp, "tp": tp,
+           "mesh": {"data": shape[0], "model": shape[1]},
+           "batch_axes": list(bax), **cell, "accum": accum, "steps": steps,
+           "params": n_params,
+           "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "c10d_calls_one_step": calls, "rank0_profile": idle,
+           "reference": ref_kind or "timed", "ranks": everyone}
+    metrics_equal = all(r["metrics"] == everyone[0]["metrics"]
+                        for r in everyone)
+    corpus_equal = len({r["corpus_sha256"] for r in everyone}) == 1
+    kernels = all(min(r["corpus_launches"].get(k, 0) for k in
+                      chip_smoke.TRAIN_CORPUS_KERNELS) >= 1
+                  for r in everyone) if gpu else True
+    finite = all(math.isfinite(x) for k in ("loss", "grad_norm")
+                 for x in everyone[0]["metrics"][k])
+    good = metrics_equal and corpus_equal and kernels and finite
+    out.update({"metrics_equal_on_every_rank": metrics_equal,
+                "corpus_equal_on_every_rank": corpus_equal,
+                "corpus_kernels_launched": kernels})
+    if timed and name in LM_TRAIN_TP_ONE_CARD_TIMED:
+        one = refs[(name, tp, accum)]
+        out["one_card"] = {"step_ms": one["step_ms"],
+                           "step_ms_median": statistics.median(
+                               one["step_ms"][1:])}
+    if not timed:
+        one = refs[(name, tp, accum)]
+        out["one_card"] = {k: one[k] for k in ("loss", "grad_norm")}
+        out["corpus_equal_to_one_card"] = \
+            everyone[0]["corpus_sha256"] == one["corpus_sha256"]
+        out["tolerance"] = {"step1_rtol": LM_TRAIN_TP_RTOL,
+                            "later_rtol": LM_TRAIN_TP_LATER_RTOL,
+                            "checksum_rtol": LM_TRAIN_TP_CHECKSUM_RTOL}
+        good = good and not everyone[0]["mismatches"] and \
+            out["corpus_equal_to_one_card"]
     out["ok"] = good
     print(json.dumps(out), flush=True)
     return good

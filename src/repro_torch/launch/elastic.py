@@ -68,5 +68,7 @@ def surviving_assignment(total: int, workers: int,
 
 def reshard_plan(param_specs, rules):
     """The layout (a ``PartitionSpec`` per leaf) for restoring a
-    mesh-agnostic checkpoint onto the mesh of ``rules``."""
+    mesh-agnostic checkpoint onto the mesh of ``rules``: each rank reads
+    its blocks of the whole leaves (``train.checkpoint.load_checkpoint``
+    with ``rules``), the optimizer's moments laid out as the parameters."""
     return rules.param_pspecs(param_specs)

@@ -24,8 +24,21 @@ the encoder-decoder, whose frames (each rank's batch rows, every frame)
 go through the encoder in the residual's layout and whose cross K/V are
 held as ``cache_shardings`` lays them out (``models/encdec.py``). An
 RG-LRU width that "model" does not divide is refused (the reference
-does not pad it). Training under rules and the ``no_tp`` rules are not
-ported: ROADMAP item 15e.2.
+does not pad it).
+
+Training under rules (``train.make_train_step(model, opt, rules)``):
+:meth:`Model.loss` runs under a context on this rank's blocks of the
+float32 masters (:meth:`Model.master_params` given ``rules``) and its
+batch rows, for the dense and vision GQA families under the TP rules
+(tensor parallelism over "model", the residual split by sequence, the
+"embed" dimension over "data") and under ``no_tp`` (ZeRO over both axes,
+the batch over "model" too; the model built at ``tp=1``, as the
+reference's ``build_model(cfg, tp=1 if no_tp else TP)``). The loss is
+vocab-parallel and its mean runs over the global batch, so every rank
+returns the same value. MoE, MLA, the SSD, the RG-LRU and the
+encoder-decoder train under rules in ROADMAP item 15e.2b; until then
+:meth:`Model.check_rules` refuses train rules for them with
+``NotImplementedError``.
 
 Parameters live in the module (``Model.params``, the JAX package's nested
 layout) on the model's device. The reference keeps float32 parameters and
@@ -116,6 +129,7 @@ class Model(nn.Module):
         self.params: Optional[ParamTree] = None
         self.param_rules = None             # the rules the tree is laid out by
         self._cache_len = 0                 # global length of sharded caches
+        self._loss_rules = None             # the rules Model.loss last checked
 
     # ---------------------------------------------------------- specs/init
 
@@ -141,19 +155,34 @@ class Model(nn.Module):
             else self.compute_dtype
 
     def check_rules(self, rules) -> None:
-        """Raise unless this model can be laid out by ``rules``: ROADMAP
-        item 15e.2 (``NotImplementedError``) for ``no_tp``, and for an SSD
-        cache layout the layer does not read (``ssm.cache_layout``);
-        ``ValueError`` for a "model" axis other than ``tp``, KV sharding
-        other than the model's, an RG-LRU width or an "embed" dimension
-        its axis does not divide."""
+        """Raise unless this model can be laid out by ``rules``:
+        ``NotImplementedError`` for train rules (mode "train" or
+        ``no_tp``) on a config outside the dense and vision GQA families
+        (MoE, MLA, the SSD, the RG-LRU and the encoder-decoder: ROADMAP
+        item 15e.2b) and for an SSD cache layout the layer does not read
+        (``ssm.cache_layout``); ``ValueError`` for a "model" axis other
+        than ``tp`` (under ``no_tp``: a model not built at ``tp=1``), KV
+        sharding other than the model's, an RG-LRU width or an "embed"
+        dimension its axis does not divide."""
         mesh = rules.mesh
         cfg = self.cfg
-        if rules.no_tp:
-            raise NotImplementedError(
-                "the no_tp rules are not ported yet (ROADMAP item 15e.2)")
         msz = int(mesh.shape.get("model", 1))
-        if msz != self.tp:
+        if (rules.mode == "train" or rules.no_tp) and not (
+                cfg.attention == "gqa" and not cfg.moe and
+                cfg.family != "audio" and
+                set(cfg.layer_kinds()) <= set(tf.ATTN_KINDS)):
+            raise NotImplementedError(
+                f"{cfg.name}: training under sharding rules is ported for "
+                "the dense and vision GQA families only; MoE, MLA, the SSD, "
+                "the RG-LRU and the encoder-decoder come in ROADMAP item "
+                "15e.2b")
+        if rules.no_tp:
+            if self.tp != 1:
+                raise ValueError(
+                    f"the model is padded for tp={self.tp}; the no_tp rules "
+                    "use the 'model' axis as data parallelism and take the "
+                    "model built at tp=1, as the reference does")
+        elif msz != self.tp:
             raise ValueError(f"the model is padded for tp={self.tp}, the "
                              f"mesh's model axis has {msz} devices")
         kinds = cfg.layer_kinds()
@@ -175,7 +204,8 @@ class Model(nn.Module):
                               tree_leaves(self.param_specs())):
             pspec = rules.param_pspec(spec)
             for dim, n in enumerate(spec.shape):
-                other = [a for a in pspec.axes_of(dim) if a != "model"]
+                other = [a for a in pspec.axes_of(dim)
+                         if a != "model" or rules.no_tp]
                 if other and n % mesh.axis_size(tuple(other)):
                     raise ValueError(
                         f"{'/'.join(map(str, path))}: dim {dim} ({n}) does "
@@ -293,33 +323,64 @@ class Model(nn.Module):
         return self.tree
 
     def master_params(self, tree: Optional[dict] = None,
-                      generator: Optional[torch.Generator] = None) -> dict:
+                      generator: Optional[torch.Generator] = None,
+                      rules=None) -> dict:
         """Float32 training parameters in the JAX layout, each a leaf on
         the model's device with ``requires_grad``: ``tree`` (numpy arrays
         or tensors, e.g. ``convert.numpy_params``) copied, or else drawn
-        by :meth:`init`'s rule from ``generator``. The reference trains
-        float32 masters and casts each to the compute dtype at use, as
-        every layer function here does (``.to(x.dtype)``); the serving
-        copy (:meth:`set_params`) is not touched."""
+        by :meth:`init`'s rule from ``generator``. With ``rules``, this
+        rank's block of each leaf (``Rules.param_pspec``): ``tree`` whole
+        and sliced before it is copied (or already this rank's blocks, as
+        ``train.checkpoint.load_checkpoint`` restores them), or each leaf
+        drawn whole and sliced, so every mesh holds blocks of the same
+        tree. The reference trains float32 masters and casts each to the
+        compute dtype at use, as every layer function here does
+        (``.to(x.dtype)``); the serving copy (:meth:`set_params`) is not
+        touched."""
         specs = self.param_specs()
-        if tree is None:
+        slices_of = None
+        if rules is not None:
+            self.check_rules(rules)
+            slices_of = self._slices_of(rules)
+        drawn = tree is None
+        if drawn:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
             tree = init_tree(generator, specs, self.device,
-                             lambda path, _: torch.float32)
+                             lambda path, _: torch.float32, slices_of)
         if tree_paths(tree) != tree_paths(specs):
             raise ValueError("parameter tree paths differ from the specs'")
 
         def leaf(path, t):
             t = t.detach() if torch.is_tensor(t) else torch.as_tensor(t)
-            if tuple(t.shape) != _at(specs, path).shape:
+            spec = _at(specs, path)
+            if drawn:
+                return t.requires_grad_(True)
+            block = slices_of(path, spec) if slices_of is not None else None
+            if tuple(t.shape) == spec.shape:
+                t = t if block is None else t[block]
+            elif block is None or tuple(t.shape) != tuple(
+                    sl.stop - sl.start for sl in block):
                 raise ValueError(f"{'/'.join(map(str, path))}: shape "
-                                 f"{tuple(t.shape)}, spec "
-                                 f"{_at(specs, path).shape}")
+                                 f"{tuple(t.shape)}, spec {spec.shape}")
             return t.to(self.device, torch.float32, copy=True) \
                 .requires_grad_(True)
 
         return tree_map(leaf, tree)
+
+    def check_blocks(self, params: dict, rules) -> None:
+        """Raise ``ValueError`` unless every leaf of ``params`` is this
+        rank's block of its spec under ``rules`` (a stacked leaf may be
+        held as ``transformer.Layers``, one tensor per layer)."""
+        specs = self.param_specs()
+        slices_of = self._slices_of(rules)
+        for path, leaf in zip(tree_paths(params), tree_leaves(params)):
+            want = tuple(sl.stop - sl.start for sl in
+                         slices_of(path, _at(specs, path)))
+            if tuple(leaf.shape) != want:
+                raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                                 f"{tuple(leaf.shape)}, this rank's block "
+                                 f"under the rules {want}")
 
     # ---------------------------------------------------------- forward
 
@@ -404,23 +465,57 @@ class Model(nn.Module):
         (:meth:`master_params`), default the serving copy. The encoder
         runs inside the differentiated function, the stack with
         ``train=True`` (remat per ``REPRO_REMAT``); the logsumexp and the
-        label logit are float32. Not under sharding rules (ROADMAP item
-        15e.2)."""
-        if shard.active():
-            raise NotImplementedError(
-                "training under sharding rules is not ported yet (ROADMAP "
-                "item 15e.2)")
+        label logit are float32.
+
+        Under a sharding context (train rules, which :meth:`check_rules`
+        takes for the dense and vision GQA families; checked once per
+        rules object): ``batch`` is this rank's rows, ``params`` this
+        rank's blocks (checked each call). Each
+        rank's logits are its block of the vocabulary (``logits_btv``), so
+        the logsumexp takes its max and its sum over "model" and the
+        label's logit from the rank that holds it; the mean runs over the
+        global batch's tokens (each rank's mean, weighted by its share of
+        the rows, summed over the batch axes). Every rank returns the same
+        value; its gradient on this rank is this rank's part
+        (``train_step`` sums the parts)."""
         params = self._params() if params is None else params
+        if shard.active():
+            rules = shard.current_rules()
+            if rules is not self._loss_rules:
+                if rules.mode != "train":
+                    raise ValueError(f"Model.loss under sharding rules "
+                                     f"takes train rules, not {rules.mode}")
+                self.check_rules(rules)
+                self._loss_rules = rules
+            self.check_blocks(params, rules)
+        b, s = batch["tokens"].shape
         x = self._embed(batch, params)
         cross = self._encode(batch, params) \
             if self.cfg.family == "audio" else None
-        x, _, aux = self._stack(params, x, self._positions(x.shape[1]),
-                                None, cross, train=True)
-        x = apply_norm(self.cfg, params["final_norm"], x)
+        x, _, aux = self._stack(params, x, self._positions(s), None, cross,
+                                train=True)
+        x = shard.gather_seq(apply_norm(self.cfg, params["final_norm"], x), s)
         logits = logits_out(self.cfg, params["embed"], x).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-        return (lse - tgt).mean() + 0.01 * aux
+        labels = batch["labels"].long()
+        mesh = shard.current_mesh()
+        tp, t = shard.model_axis()
+        if tp == 1:
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, labels[..., None])[..., 0]
+        else:
+            m = mesh.all_reduce(logits.detach().amax(dim=-1), "model", "max")
+            lse = torch.log(mesh.reduce_from(
+                torch.exp(logits - m[..., None]).sum(dim=-1), "model")) + m
+            lo, n = t * logits.shape[-1], logits.shape[-1]
+            local = (labels >= lo) & (labels < lo + n)
+            picked = logits.gather(-1, torch.where(local, labels - lo, 0)[
+                ..., None])[..., 0]
+            tgt = mesh.reduce_from(torch.where(local, picked, 0.0), "model")
+        ce = (lse - tgt).mean()
+        bax = shard.batch_axes()
+        if bax:
+            ce = mesh.reduce_from(ce * (b / self._global_batch(b)), bax)
+        return ce + 0.01 * aux
 
     # ---------------------------------------------------------- serving
 

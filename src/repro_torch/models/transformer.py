@@ -23,6 +23,13 @@ partial outputs reduce-scattered back; a sequence that "model" does not
 divide is padded at the end, and the mixer sees only the real positions),
 replicated over "model" in a decode step (the partial outputs
 all-reduced). The MoE layer reduces its own output (``models/moe.py``).
+
+Training under rules runs the same layers: every gather and reduce-
+scatter lies inside the group body, so remat re-issues them when the
+backward pass recomputes the body (in the same order on every rank: the
+graph is the same on each) and no gathered weight is kept from one
+layer to the next; the collectives' adjoints (``runtime/mesh.py``) carry
+the gradients back.
 """
 from __future__ import annotations
 
@@ -159,6 +166,24 @@ def cache_structs(cfg, batch: int, max_len: int, dtype, kv_heads: int) -> dict:
     return out
 
 
+class Layers:
+    """A stacked leaf held as one tensor per layer (``layers[j]`` is layer
+    ``j``), which the stack reads as it reads the stacked tensor: the
+    train step makes each layer's block its own autograd leaf, so one
+    layer's gradient is added into the stacked gradient as soon as it is
+    made, and no stacked-size gradient exists but the sum."""
+
+    def __init__(self, layers: list):
+        self.layers = layers
+
+    def __getitem__(self, j: int):
+        return self.layers[j]
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.layers),) + tuple(self.layers[0].shape)
+
+
 def _slice(tree, j: int):
     return tree_map(lambda _, t: t[j], tree)
 
@@ -182,15 +207,25 @@ def remat_policy() -> str:
 
 def with_remat(fn, policy: str = "nothing"):
     """``fn`` recomputed in the backward pass by ``policy``
-    (:func:`remat_policy`'s values)."""
+    (:func:`remat_policy`'s values). The recomputation runs in the
+    sharding context of the call (the backward pass of CUDA tensors runs
+    on autograd's device thread, which does not see the caller's
+    thread-local context)."""
     if policy == "none":
         return fn
     kwargs = {}
     if policy == "dots":
         kwargs["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
-                             **kwargs)
+
+    def call(*args):
+        rules, mesh = shard.current_rules(), shard.current_mesh()
+
+        def body(*a):
+            with shard.sharding_ctx(rules, mesh):
+                return fn(*a)
+        return ckpt.checkpoint(body, *args, use_reentrant=False, **kwargs)
+    return call
 
 
 def apply_stack(cfg, params, x, positions, caches, heads: int,

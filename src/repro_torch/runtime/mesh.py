@@ -19,6 +19,22 @@ a tuple of names in mesh order):
                              its block of ``dim``
   all_reduce(x, axis, op)    "sum" or "max" over the axis, in place
 
+Under autograd (grad mode on and ``x`` requiring grad) each is a
+``torch.autograd.Function`` with its adjoint, for the training path:
+``all_gather``'s is the reduce-scatter of the gradient (``grad="sum"``:
+the ranks along the axis computed on different rows, so their parts
+add) or this rank's block of it (``grad="slice"``: they computed the
+same thing, and every rank holds the whole gradient already);
+``reduce_scatter``'s is the all-gather. An all-reduce sum comes as
+Megatron's conjugate pair: :meth:`ProcessMesh.reduce_from` ("g": summed
+forward, the gradient passed through, for partial sums whose result every
+rank then uses alike) and :meth:`ProcessMesh.copy_to` ("f": the identity
+forward, the gradient summed, for a tensor every rank holds whole that
+feeds each rank's own part of a computation). ``all_reduce`` itself stays
+in place and refuses a tensor that requires grad. With grad mode off
+(the serving path runs under ``torch.inference_mode``) every call is the
+plain c10d call it was.
+
 Each is the identity on an axis of size 1, and only there: a mesh of more
 than one device needs a process group of exactly its size, with a backend
 that carries the mesh's device (NCCL for the card, gloo for the CPU), and
@@ -151,14 +167,22 @@ class ProcessMesh:
     def _group(self, axes: tuple):
         return self._groups[tuple(a for a in self.axis_names if a in axes)]
 
-    def all_gather(self, x: torch.Tensor, axes: Axes,
-                   dim: int = 0) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axes: Axes, dim: int = 0,
+                   grad: str = "sum") -> torch.Tensor:
         """The blocks ``x`` of the ranks along ``axes``, concatenated along
-        ``dim`` in axis order (every block the same shape)."""
+        ``dim`` in axis order (every block the same shape). Under autograd
+        the gradient comes back reduce-scattered (``grad="sum"``) or as
+        this rank's block (``grad="slice"``; see the module)."""
         axes = self._axes(axes)
         n = self.axis_size(axes)
         if n == 1:
             return x
+        if _tracked(x):
+            return _AllGather.apply(x, self, axes, dim, grad)
+        return self._gather(x, axes, dim)
+
+    def _gather(self, x, axes: tuple, dim: int) -> torch.Tensor:
+        n = self.axis_size(axes)
         x = x.contiguous()
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
         _gather_single(out, x, group=self._group(axes))
@@ -173,6 +197,12 @@ class ProcessMesh:
         n = self.axis_size(axes)
         if n == 1:
             return x
+        if _tracked(x):
+            return _ReduceScatter.apply(x, self, axes, dim)
+        return self._scatter(x, axes, dim)
+
+    def _scatter(self, x, axes: tuple, dim: int) -> torch.Tensor:
+        n = self.axis_size(axes)
         if x.shape[dim] % n:
             raise ValueError(f"reduce_scatter over {axes} ({n} ranks): dim "
                              f"{dim} of {tuple(x.shape)} does not divide")
@@ -188,14 +218,103 @@ class ProcessMesh:
         axes = self._axes(axes)
         if self.axis_size(axes) == 1:
             return x
+        if _tracked(x):
+            raise ValueError("all_reduce works in place and has no "
+                             "adjoint: use reduce_from or copy_to on a "
+                             "tensor that requires grad")
+        return self._reduce(x, axes, op)
+
+    def _reduce(self, x, axes: tuple, op: str = "sum") -> torch.Tensor:
         x = x.contiguous()
         dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX}[op],
                         group=self._group(axes))
         return x
 
+    def reduce_from(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """The sum of ``x`` over the ranks along ``axes`` (in place, as
+        :meth:`all_reduce`, unless ``x`` requires grad); its gradient
+        passes through unchanged (Megatron's "g": every rank uses the sum
+        alike, so each holds its whole gradient)."""
+        axes = self._axes(axes)
+        if self.axis_size(axes) == 1:
+            return x
+        if _tracked(x):
+            return _ReduceFrom.apply(x, self, axes)
+        return self._reduce(x, axes)
+
+    def copy_to(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``x`` itself, whose gradient is summed over the ranks along
+        ``axes`` (Megatron's "f": a tensor every rank holds whole, feeding
+        each rank's own part of a computation)."""
+        axes = self._axes(axes)
+        if self.axis_size(axes) == 1 or not _tracked(x):
+            return x
+        return _CopyTo.apply(x, self, axes)
+
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh gets here."""
+        if self.size > 1:
+            dist.barrier()
+
     def __repr__(self) -> str:
         return f"ProcessMesh({self.shape}, rank={self.rank})"
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records operations on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, grad):
+        if grad not in ("sum", "slice"):
+            raise ValueError(f"grad={grad!r}: 'sum' or 'slice'")
+        ctx.mesh, ctx.axes, ctx.dim, ctx.grad = mesh, axes, dim, grad
+        return mesh._gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.mesh, ctx.axes, ctx.dim
+        if ctx.grad == "sum":
+            out = mesh._scatter(g, axes, dim)
+        else:
+            n = g.shape[dim] // mesh.axis_size(axes)
+            out = g.narrow(dim, mesh.axis_index(axes) * n, n)
+        return out, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh._scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._gather(g, ctx.axes, ctx.dim), None, None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh._reduce(x.clone(), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._reduce(g.clone(), ctx.axes), None, None
 
 
 def build_mesh(axis_names: Sequence[str], axis_sizes: Sequence[int],

@@ -14,10 +14,20 @@ map ``role``, and raises ``ValueError`` if not, so a wrong layout fails
 loudly instead of computing on the wrong slice. (The reference's
 ``constrain`` asks XLA for the layout; here the code makes it, and this
 checks it.) :func:`gather_weight` is the FSDP gather of a parameter's
-data-sharded dimensions at its use. :func:`model_block` is this rank's
-block of a tensor every rank holds whole (a replicated bias sliced to
-the rank's channels), and :func:`combine_seq_split` the attention over
-positions split over "model" that GQA, MLA and the cross-attention share.
+data-sharded dimensions at its use (under ``no_tp`` its "embed"
+dimension's ZeRO block over ("data", "model")). :func:`model_block` is
+this rank's block of a tensor every rank holds whole (a replicated bias
+sliced to the rank's channels), and :func:`combine_seq_split` the
+attention over positions split over "model" that GQA, MLA and the
+cross-attention share.
+
+The layout changes are differentiable (``runtime/mesh.py``'s adjoints),
+so the training path runs through the same helpers: the sequence gather
+and the row-parallel reduce-scatter are each other's adjoints; without
+sequence parallelism the residual entering a layer's own heads is
+Megatron's "f" and the partial sums leaving it its "g". Under ``no_tp``
+the "model" axis carries batch rows, not tensor parallelism:
+:func:`model_axis` is (1, 0), and no helper reduces over it.
 """
 from __future__ import annotations
 
@@ -86,9 +96,10 @@ def constrain_spec(x, spec, full_shape=None, name: str = "tensor"):
 
 
 def model_axis() -> tuple[int, int]:
-    """(size, this rank's index) of the mesh's "model" axis; (1, 0)
-    outside a context."""
-    if not active():
+    """(size, this rank's index) of the mesh's "model" axis as a tensor-
+    parallel axis; (1, 0) outside a context and under the ``no_tp`` rules
+    (where "model" carries batch rows)."""
+    if not active() or current_rules().no_tp:
         return 1, 0
     mesh = current_mesh()
     return mesh.axis_size("model"), mesh.axis_index("model")
@@ -124,18 +135,31 @@ def combine_seq_split(scores, values, contract: str, dtype):
 def gather_weight(w, axes: tuple):
     """Parameter ``w`` (this rank's block; ``axes`` its logical axes, the
     unstacked ParamSpec's) with every dimension the rules shard over an
-    axis other than "model" gathered over that axis: the "embed"
-    dimension's ZeRO/FSDP block over "data", as XLA gathers it at each use.
-    The "model" blocks stay local (tensor and expert parallelism)."""
+    axis other than the tensor-parallel "model" gathered over that axis:
+    the "embed" dimension's ZeRO/FSDP block over "data" (under ``no_tp``
+    over ("data", "model")), as XLA gathers it at each use. The "model"
+    blocks of the TP rules stay local (tensor and expert parallelism).
+    Under autograd the gradient is reduce-scattered over the axes that
+    carry batch rows (each rank's rows add their part) and sliced over the
+    others (the ranks along them computed the same)."""
     if not active():
         return w
-    mesh = current_mesh()
-    pspec = current_rules().param_pspec(types.SimpleNamespace(
+    mesh, rules = current_mesh(), current_rules()
+    pspec = rules.param_pspec(types.SimpleNamespace(
         axes=tuple(axes), shape=tuple(w.shape)))
+    batch = set(rules.batch_axes)
     for dim in range(w.dim()):
-        other = tuple(a for a in pspec.axes_of(dim) if a != "model")
-        if other and mesh.axis_size(other) > 1:
-            w = mesh.all_gather(w, other, dim)
+        other = tuple(a for a in pspec.axes_of(dim)
+                      if a != "model" or rules.no_tp)
+        if not other or mesh.axis_size(other) == 1:
+            continue
+        kinds = {a in batch for a in other}
+        if len(kinds) == 1:
+            w = mesh.all_gather(w, other, dim,
+                                "sum" if kinds.pop() else "slice")
+            continue
+        for a in reversed(other):       # minor first: the same blocks
+            w = mesh.all_gather(w, a, dim, "sum" if a in batch else "slice")
     return w
 
 
@@ -171,9 +195,12 @@ def padded_len(s: int) -> int:
 
 def gather_seq(x, s: int):
     """The whole sequence (its ``s`` real positions) of a residual-layout
-    tensor: all-gathered over "model" when split by sequence."""
+    tensor: all-gathered over "model" when split by sequence. Held whole
+    on a tensor-parallel mesh, it is Megatron's "f" under autograd (each
+    rank's heads add their part of its gradient)."""
     if not seq_sharded():
-        return x
+        tp, _ = model_axis()
+        return current_mesh().copy_to(x, "model") if tp > 1 else x
     return current_mesh().all_gather(x, "model", 1)[:, :s]
 
 
@@ -193,12 +220,14 @@ def split_seq(x):
 def reduce_seq(y):
     """A row-parallel partial output (B, S, D) summed over "model" into the
     residual's layout: reduce-scattered by sequence (padded to
-    :func:`padded_len`) or all-reduced."""
-    if not active():
+    :func:`padded_len`) or all-reduced (Megatron's "g" under autograd);
+    ``y`` itself with no tensor-parallel axis."""
+    tp, _ = model_axis()
+    if tp == 1:
         return y
     mesh = current_mesh()
     if not seq_sharded():
-        return mesh.all_reduce(y, "model")
+        return mesh.reduce_from(y, "model")
     s = y.shape[1]
     pad = padded_len(s) - s
     if pad:

@@ -428,7 +428,8 @@ def test_expert_parallel_matches_grouped_manual_and_auto(arch, world4,
 
 def test_sharded_runs_refuse(world4):
     """Before any work: a mesh whose size is not the group's; the no_tp
-    rules (ROADMAP item 15e.2); a mesh "model" axis other than the
+    rules on a model padded for tp 4 (they take the model at tp 1, as the
+    reference builds it); a mesh "model" axis other than the
     model's tp; a sharded model called outside its context. MLA, the
     SSD, the RG-LRU and the encoder-decoder lay out under rules at tp 4
     (tests/test_torch_lm_tp_mixers.py serves them)."""
@@ -437,8 +438,8 @@ def test_sharded_runs_refuse(world4):
         "world size is 4" in got["mesh_of_2_in_4"]
     for arch in MIXER_ARCHS:
         assert got[arch] == "no error", got[arch]
-    assert got["no_tp"].startswith("NotImplementedError") and \
-        "ROADMAP item 15e" in got["no_tp"], got["no_tp"]
+    assert got["no_tp"].startswith("ValueError") and \
+        "model built at tp=1" in got["no_tp"], got["no_tp"]
     assert got["tp_mismatch"].startswith("ValueError: the model is padded")
     assert got["outside_the_context"].startswith("ValueError") and \
         "sharding_ctx" in got["outside_the_context"]
@@ -465,18 +466,37 @@ def test_no_group_and_backend_refusals(tmp_path):
 
 
 def test_training_and_layouts_refuse_under_rules():
-    """Model.loss under a sharding context (ROADMAP item 15e.2), and
-    constrain on a tensor that is not this rank's block of its role."""
+    """The train rules refuse the configs outside the dense and vision GQA
+    families (ROADMAP item 15e.2b): their layout and Model.loss under a
+    context of them; Model.loss takes no serving rules; for qwen on a
+    (1, 1) mesh Model.loss under the train rules is the unsharded loss bit
+    for bit (tests/test_torch_lm_train_tp.py holds it on 2 and 4 ranks);
+    constrain refuses a tensor that is not this rank's block of its
+    role."""
     mesh = ProcessMesh(("data", "model"), (1, 1), "cpu")
+    batch = {"tokens": torch.zeros((2, 4), dtype=torch.long),
+             "labels": torch.zeros((2, 4), dtype=torch.long)}
+    for arch in MIXER_ARCHS + ("llama4-scout-17b-a16e",):
+        model = build_model(get_config(arch).reduced(),
+                            compute_dtype=torch.float32, device="cpu")
+        rules = trules.make_rules(mesh, "train", 2,
+                                  kv_sharded=model.kv_sharded)
+        with pytest.raises(NotImplementedError, match="15e.2b"):
+            model.init(torch.Generator(), rules)
+        params = model.master_params(generator=torch.Generator())
+        with tctx.sharding_ctx(rules, mesh):
+            with pytest.raises(NotImplementedError, match="15e.2b"):
+                model.loss(batch, params)
     model = build_model(get_config("qwen1.5-0.5b").reduced(),
                         compute_dtype=torch.float32, device="cpu")
     rules = trules.make_rules(mesh, "train", 2)
-    model.init(torch.Generator(), rules)
-    batch = {"tokens": torch.zeros((2, 4), dtype=torch.long),
-             "labels": torch.zeros((2, 4), dtype=torch.long)}
+    params = model.master_params(generator=torch.Generator().manual_seed(3))
     with tctx.sharding_ctx(rules, mesh):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15e"):
-            model.loss(batch)
+        sharded = model.loss(batch, params)
+    assert torch.equal(sharded, model.loss(batch, params))
+    with tctx.sharding_ctx(trules.make_rules(mesh, "prefill", 2), mesh):
+        with pytest.raises(ValueError, match="train rules"):
+            model.loss(batch, params)
     fake = SimpleNamespace(shape={"data": 2, "model": 4},
                            axis_names=("data", "model"),
                            axis_size=lambda a: 2 if a in ("data", ("data",))

@@ -31,10 +31,12 @@ and add ``--full`` for qwen1.5-0.5b at its published widths (depth cut to
 import dataclasses
 import datetime
 import functools
+import gc
 import json
 import os
 import pathlib
 import sys
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +64,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_paths  # noqa: E402
+from repro_torch.runtime.mesh import ProcessMesh  # noqa: E402
+from repro_torch.sharding.rules import make_rules  # noqa: E402
 from repro_torch.train import checkpoint as tckpt  # noqa: E402
 from repro_torch.train import compress as tcompress  # noqa: E402
 from repro_torch.train import data as tdata  # noqa: E402
@@ -352,6 +356,28 @@ def test_grad_accum_equivalence():
                                    rtol=2e-4, atol=2e-6)
 
 
+def test_train_grads_leave_no_reference_cycle():
+    """With Python's cycle collector off, the gradient buffers of a step
+    (made by hooks on its autograd leaves) and those leaves die with the
+    step's last reference: no cycle keeps a step's gradients alive into
+    the next (on the card, a leak of one gradient tree a step)."""
+    cfg, model, tree = _tiny()
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 17))
+    batch = {"tokens": toks[:, :-1].reshape(2, 2, 16),
+             "labels": toks[:, 1:].reshape(2, 2, 16)}
+    params = model.master_params(tree)
+    gc.collect()
+    gc.disable()
+    try:
+        loss, grads = tstep.train_grads(model, params, batch)
+        alive = [weakref.ref(g) for g in tree_leaves(grads)]
+        assert all(float(g.abs().sum()) > 0 for g in tree_leaves(grads))
+        del loss, grads
+        assert not [r for r in alive if r() is not None]
+    finally:
+        gc.enable()
+
+
 def test_train_step_descends_and_counts():
     """The reference init (convert.numpy_params), accum 2, and a vocab of
     4096 over a 1024-vertex corpus: a quarter of the tokens occur, which
@@ -375,9 +401,21 @@ def test_train_step_descends_and_counts():
 
 
 def test_train_step_refuses_sharding_rules_and_builds_batch_structs():
-    cfg, model, _ = _tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15e"):
-        tstep.make_train_step(model, topt.AdamWConfig(), rules=object())
+    """Under sharding rules (TP or no_tp) make_train_step refuses the
+    configs outside the dense and vision GQA families (ROADMAP item
+    15e.2b; tests/test_torch_lm_train_tp.py trains those that it takes);
+    batch_struct is the JAX package's."""
+    mesh = ProcessMesh(("data", "model"), (1, 1), "cpu")
+    for arch in ("llama4-scout-17b-a16e", "qwen3-moe-235b-a22b",
+                 "minicpm3-4b", "mamba2-130m", "recurrentgemma-2b",
+                 "whisper-medium"):
+        model = build_model(get_config(arch).reduced(),
+                            compute_dtype=torch.float32, device="cpu")
+        for no_tp in (False, True):
+            rules = make_rules(mesh, "train", 2, kv_sharded=model.kv_sharded,
+                               no_tp=no_tp)
+            with pytest.raises(NotImplementedError, match="15e.2b"):
+                tstep.make_train_step(model, topt.AdamWConfig(), rules=rules)
     for arch in ("qwen1.5-0.5b", "phi-3-vision-4.2b", "whisper-medium"):
         for bf16 in (False, True):
             model = build_model(get_config(arch).reduced(), device="cpu",
