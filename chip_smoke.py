@@ -183,12 +183,14 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     unsharded and then under the prefill and decode rules on the same
     draws: every step's logits equal (torch.equal), so every token; no
     kernel launched. Then training under the rules on the same mesh
-    (LM_TP_TRAIN): qwen1.5-0.5b at full width cut to 2 layers, float32, 2
-    AdamW steps on the card's walk corpus, unsharded and then under the TP
-    and the no_tp rules (train.make_train_step(model, opt, rules)), under
-    deterministic algorithms: the loss, the grad norm and every updated
-    leaf equal bit for bit (a difference would be held to rtol 1e-6 and
-    reported); no kernel launched by the steps.
+    (LM_TP_TRAIN): qwen1.5-0.5b and minicpm3-4b (MLA) at full width cut to
+    2 layers and llama4-scout-17b-a16e (MoE) at full width cut to 1 layer,
+    float32, 2 AdamW steps on the card's walk corpus in train_layout's
+    microbatches, unsharded and then under the TP and the no_tp rules
+    (train.make_train_step(model, opt, rules)), under deterministic
+    algorithms: the loss, the grad norm and every updated leaf equal bit
+    for bit (a difference would be held to rtol 1e-6 and reported); no
+    kernel launched by the steps.
 11. the seconds from the start to each phase's end; the kernels line
     (with each kernel's launches in the distributed runs and in the
     training corpus's build; histogram's also in the analytics runs), then
@@ -3695,45 +3697,75 @@ def lm_sharded_phase(torch, np, dev) -> dict:
     return rows
 
 
-# Phase 10's training part: qwen1.5-0.5b at full width cut to
-# LM_TP_TRAIN["layers"] layers, float32 masters and compute (TF32 off),
-# LM_TP_TRAIN["steps"] AdamW steps (TRAIN_REF_OPT) on batches of the
-# card's walk corpus, unsharded and then under the TP rules and the no_tp
-# rules of the world-size-1 mesh (train.make_train_step(model, opt,
-# rules)), each from the same draws (the port's init seeded LM_SEED, each
-# stacked matrix at one layer's fan-in), under deterministic algorithms
-# (the embedding's backward adds with atomics on the card otherwise). On
-# one card every collective of the sharded step is the identity and its
-# arithmetic is the unsharded step's, so the loss, the grad norm and every
-# updated leaf must be equal, bit for bit; LM_TP_TRAIN_RTOL is what a
-# difference would be held to and reported against. The step launches no
-# kernel (the corpus does, before the counts are reset).
-LM_TP_TRAIN = {"arch": "qwen1.5-0.5b", "layers": 2, "batch": 8, "seq": 512,
-               "steps": 2}
+# Phase 10's training part: each cell of LM_TP_TRAIN at its published
+# widths with its depth cut (qwen1.5-0.5b and minicpm3-4b's MLA at 2
+# layers; llama4-scout-17b-a16e's MoE, top-1 of 16 experts with a shared
+# expert, at 1 layer: 4,271,073,280 values, 68.3 GB of float32 state),
+# float32 masters and compute (TF32 off), LM_TP_TRAIN_STEPS AdamW steps
+# (TRAIN_REF_OPT) on batches of the card's walk corpus split into
+# launch.dryrun.train_layout's microbatches (llama4: accum 4 of 2 x 512),
+# unsharded and then under the TP rules and the no_tp rules of the
+# world-size-1 mesh (train.make_train_step(model, opt, rules)), each from
+# the same draws (the port's init seeded LM_SEED, each stacked matrix at
+# one layer's fan-in), under deterministic algorithms (the embedding's
+# backward adds with atomics on the card otherwise, and the MoE's dispatch
+# scatters). The unsharded run's leaves wait on the host, so that one
+# run's training state is on the card at a time. On one card every
+# collective of the sharded step is the identity and its arithmetic is the
+# unsharded step's, so the loss, the grad norm and every updated leaf must
+# be equal, bit for bit; LM_TP_TRAIN_RTOL is what a difference would be
+# held to and reported against. The steps launch no kernel (the corpora
+# do, before the counts are reset).
+LM_TP_TRAIN = (
+    {"arch": "qwen1.5-0.5b", "layers": 2},
+    {"arch": "minicpm3-4b", "layers": 2},
+    {"arch": "llama4-scout-17b-a16e", "layers": 1},
+)
+LM_TP_TRAIN_CELL = {"batch": 8, "seq": 512}
+LM_TP_TRAIN_STEPS = 2
 LM_TP_TRAIN_RTOL = 1e-6
+
+
+def allocator_settings(torch, settings: str) -> None:
+    """Sets the CUDA caching allocator's ``settings`` (as
+    PYTORCH_CUDA_ALLOC_CONF spells them) at run time."""
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    if setter is None:
+        setter = torch.cuda.memory._set_allocator_settings
+    setter(settings)
 
 
 def lm_sharded_train(torch, np, dev, mesh) -> dict:
     """Phase 10's training part (LM_TP_TRAIN) on ``mesh`` (the world-size-1
-    NCCL group's): one row per rule set, each against the unsharded run."""
+    NCCL group's): for each cell, one row per rule set, each against the
+    unsharded run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import train_layout
     from repro_torch.models import build_model
     from repro_torch.models.layers import tree_leaves
     from repro_torch.sharding import make_rules
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
 
-    c = LM_TP_TRAIN
-    cfg = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"])
-    batches = train_batches(np, train_corpus(dev, cfg.vocab_size), cfg,
-                            c["steps"], c["batch"], c["seq"])
+    b_, s_ = LM_TP_TRAIN_CELL["batch"], LM_TP_TRAIN_CELL["seq"]
+    cells = []
+    for c in LM_TP_TRAIN:
+        full = get_config(c["arch"])
+        cfg = dataclasses.replace(full, num_layers=c["layers"])
+        accum = train_layout(full, dict(mesh.shape), b_).accum
+        cells.append((cfg, f"num_layers {full.num_layers} -> {c['layers']}",
+                      accum, train_batches(np, train_corpus(
+                          dev, cfg.vocab_size), cfg, LM_TP_TRAIN_STEPS, b_,
+                          s_, accum)))
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on: the float32 checks "
                              "need them off")
     ops.reset_launch_counts()
 
-    def run(rules):
+    def run(cfg, cell_batches, rules):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
         model = build_model(cfg, compute_dtype=torch.float32, device=dev)
         with torch.no_grad():
             params = lm_layer_fan_in(model, model.master_params(
@@ -3742,7 +3774,7 @@ def lm_sharded_train(torch, np, dev, mesh) -> dict:
         state = init_opt_state(params)
         step = make_train_step(model, AdamWConfig(**TRAIN_REF_OPT), rules)
         metrics, ms = [], []
-        for b in batches:
+        for b in cell_batches:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, state, m = step(params, state, b)
@@ -3750,44 +3782,61 @@ def lm_sharded_train(torch, np, dev, mesh) -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
             metrics.append({k: float(m[k]) for k in ("loss", "grad_norm",
                                                      "lr")})
-        return metrics, tree_leaves(params), ms
+        return metrics, [t.detach() for t in tree_leaves(params)], ms, \
+            torch.cuda.max_memory_allocated(dev)
 
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
+    # llama4's step peaks near 74 GB: the caching allocator's fixed-size
+    # segments can strand several GB beside it
+    allocator_settings(torch, "expandable_segments:True")
     rows = {}
     try:
-        want, want_leaves, want_ms = run(None)
-        for label, no_tp in (("tp", False), ("no_tp", True)):
-            rules = make_rules(mesh, "train", c["batch"], no_tp=no_tp)
-            got, leaves, ms = run(rules)
-            worst = max(float((a - b).detach().abs().max()) /
-                        max(float(b.detach().abs().max()), 1e-30)
-                        for a, b in zip(leaves, want_leaves))
-            metric_rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
-                             zip(got, want) for k in ("loss", "grad_norm"))
-            row = {"phase": "lm_sharded_train_one_card", "rules": label,
-                   "arch": c["arch"], "mesh": dict(mesh.shape),
-                   "batch_axes": list(rules.batch_axes),
-                   "reduced": f"num_layers 24 -> {c['layers']}",
-                   **{k: c[k] for k in ("batch", "seq", "steps")},
-                   "dtype": "float32", "deterministic_algorithms": True,
-                   "metrics": got, "unsharded_metrics": want,
-                   "bit_equal": got == want and all(
-                       torch.equal(a, b) for a, b in zip(leaves,
-                                                         want_leaves)),
-                   "metrics_max_rel_diff": metric_rel,
-                   "leaf_max_diff_over_scale": worst,
-                   "rtol": LM_TP_TRAIN_RTOL, "step_ms": ms,
-                   "unsharded_step_ms": want_ms}
-            emit(row)
-            rows[label] = row
-            del leaves
-            if not row["bit_equal"] and max(worst, metric_rel) > \
-                    LM_TP_TRAIN_RTOL:
-                raise AssertionError(f"training under the {label} rules "
-                                     f"differs from the unsharded step: "
-                                     f"{row}")
+        for c, (cfg, cut, accum, cell_batches) in zip(LM_TP_TRAIN, cells):
+            t_cell = time.perf_counter()
+            want, want_leaves, want_ms, want_peak = run(cfg, cell_batches,
+                                                        None)
+            want_leaves = [t.cpu() for t in want_leaves]
+            for label, no_tp in (("tp", False), ("no_tp", True)):
+                rules = make_rules(mesh, "train", b_, no_tp=no_tp)
+                got, leaves, ms, peak = run(cfg, cell_batches, rules)
+                equal, worst = got == want, 0.0
+                for i, w in enumerate(want_leaves):
+                    a, w = leaves[i], w.to(dev)
+                    equal = equal and bool(torch.equal(a, w))
+                    worst = max(worst, float((a - w).abs().max()) /
+                                max(float(w.abs().max()), 1e-30))
+                del leaves, a, w
+                metric_rel = max(abs(g[k] - w[k]) / abs(w[k])
+                                 for g, w in zip(got, want)
+                                 for k in ("loss", "grad_norm"))
+                row = {"phase": "lm_sharded_train_one_card", "rules": label,
+                       "arch": c["arch"], "mesh": dict(mesh.shape),
+                       "batch_axes": list(rules.batch_axes),
+                       "reduced": cut, "params": sum(
+                           t.numel() for t in want_leaves),
+                       **LM_TP_TRAIN_CELL, "accum": accum,
+                       "steps": LM_TP_TRAIN_STEPS, "dtype": "float32",
+                       "deterministic_algorithms": True,
+                       "metrics": got, "unsharded_metrics": want,
+                       "bit_equal": equal,
+                       "metrics_max_rel_diff": metric_rel,
+                       "leaf_max_diff_over_scale": worst,
+                       "rtol": LM_TP_TRAIN_RTOL, "step_ms": ms,
+                       "unsharded_step_ms": want_ms,
+                       "peak_allocated_bytes": peak,
+                       "unsharded_peak_allocated_bytes": want_peak,
+                       "cell_wall_s": time.perf_counter() - t_cell}
+                emit(row)
+                rows[f"{c['arch']}-{label}"] = row
+                if not row["bit_equal"] and max(worst, metric_rel) > \
+                        LM_TP_TRAIN_RTOL:
+                    raise AssertionError(
+                        f"{c['arch']}: training under the {label} rules "
+                        f"differs from the unsharded step: {row}")
+            del want_leaves
     finally:
+        allocator_settings(torch, "expandable_segments:False")
         torch.use_deterministic_algorithms(deterministic)
     launches = ops.launch_counts()
     if any(launches.values()):

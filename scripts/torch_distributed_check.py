@@ -50,6 +50,20 @@ with --cpu) and runs, through the front door with no device given:
       Each run prints every rank's init, prefill and decode walls, weight
       bytes and peak device memory, and the c10d calls of one decode
       step (rank 0's host trace). ``--only lm_tp`` runs this case alone.
+  lm_train_tp         training under the sharding rules
+      (train.make_train_step(model, opt, rules)) on four processes, the
+      runs of LM_TRAIN_TP_RUNS (qwen1.5-0.5b, phi3-medium-14b, the MoE
+      llama4-scout-17b-a16e and qwen3-moe-235b-a22b, the MLA minicpm3-4b)
+      laid out by launch/dryrun.train_layout, batch 8 x 512 of each
+      card's walk corpus: float32 runs against rank 0's one-card run of
+      the same model, bf16 runs' step 1 against the float32 run's on the
+      same mesh (phase 9's bounds; the MoE routing assignments whose
+      expert differs counted), timed bf16 runs (ms a step, tokens/s, state
+      and peak a card, c10d calls a step, rank 0's idle share). A last
+      line names the failures: those of LM_TRAIN_TP_KNOWN_FLIP_FAILURES
+      (the value bounds alone, with flips) apart from any new one.
+      ``--only lm_train_tp`` runs this case alone, ``--runs a,b`` those
+      runs of it (with the float32 runs their bf16 runs are held to).
   dp_sync             the training path's int8 data-parallel gradient
       sync (repro_torch.train.compress.dp_sync) on a gradient tree of
       qwen1.5-0.5b's full-width shapes (463,987,712 float32 values per
@@ -79,6 +93,7 @@ every case matched on every rank.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import math
@@ -240,7 +255,15 @@ def main() -> int:
     ap.add_argument("--only", choices=("dp_sync", "lm_tp", "lm_train_tp"),
                     default=None,
                     help="run this case alone")
+    ap.add_argument("--runs", default=None,
+                    help="lm_train_tp: these runs of LM_TRAIN_TP_RUNS "
+                    "alone (names, comma-separated)")
     args = ap.parse_args()
+    train_runs = lm_train_tp_runs(args.runs)
+    # rank 0's one-card float32 llama4 reference holds 68.3 GB of state;
+    # the caching allocator's fixed segments strand 6.5 GiB beside it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -293,7 +316,7 @@ def main() -> int:
     lm_train = args.only in (None, "lm_train_tp")
     corpora: dict = {}          # this card's walk corpora, by vocabulary
     train_refs = lm_train_tp_references(torch, np, chip_smoke, device,
-                                        args.cpu, corpora) \
+                                        args.cpu, corpora, train_runs) \
         if rank == 0 and lm_train else None
     ref_s = time.perf_counter() - t0
     if gpu:
@@ -447,12 +470,22 @@ def main() -> int:
     if lm_train:
         if world != 4:
             raise SystemExit(f"lm_train_tp runs on 4 processes, not {world}")
-        for run in LM_TRAIN_TP_RUNS:
+        kept: dict = {}
+        failed: list = []       # rank 0: (run, mesh, known flip failure)
+        for run in train_runs:
             for shape in run[4]:
                 ok = lm_train_tp_case(torch, np, chip_smoke, run, shape,
                                       train_refs, rank, device, args.cpu,
-                                      gathered, corpora) and ok
-        del train_refs, corpora
+                                      gathered, corpora, kept, failed) \
+                    and ok
+        if rank == 0:
+            print(json.dumps({
+                "phase": "distributed_cards", "case": "lm_train_tp_failures",
+                "known_routing_flip_failures": [
+                    [n, list(m)] for n, m, known in failed if known],
+                "new_failures": [[n, list(m)] for n, m, known in failed
+                                 if not known]}), flush=True)
+        del train_refs, corpora, kept
 
     # The training path's DP gradient sync.
     mine = dp_sync_case(torch, rank, world, device, gpu, args.repeats,
@@ -728,9 +761,15 @@ def lm_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
 # chip_smoke.py draws its cell (the port's init seeded LM_SEED, each
 # stacked matrix at one layer's fan-in), laid out on each mesh as
 # lm_train_tp_layout says (qwen: no_tp, accum 1; phi3: the TP rules, accum
-# 4 on (1, 4) and 2 on (2, 2)). "one_card": float32, every step's metrics
-# and parameter checksums against the same model on one card (rank 0,
-# before the group); None: timed (bf16 over float32 masters).
+# 4 on (1, 4) and 2 on (2, 2); the MoE configs: the TP rules with expert
+# parallelism, accum 4 and 2; minicpm3: the TP rules, accum 1). "one_card":
+# float32, every step's metrics and parameter checksums against the same
+# model on one card (rank 0, before the group); "float32:<run>": bf16,
+# step 1's loss and grad norm against that float32 run's step 1 on the
+# same mesh in this call (LM_TRAIN_TP_BF16_RTOL), with the routing
+# assignments whose expert differs counted; None: timed (bf16 over
+# float32 masters).
+QWEN3_MOE, MINICPM3 = "qwen3-moe-235b-a22b", "minicpm3-4b"
 LM_TRAIN_TP_RUNS = (
     ("qwen_no_tp_float32", "qwen1.5-0.5b", 0, "float32", ((1, 4), (2, 2)),
      3, "one_card"),
@@ -738,11 +777,31 @@ LM_TRAIN_TP_RUNS = (
      None),
     ("phi3_float32_2_layers", "phi3-medium-14b", 2, "float32",
      ((1, 4), (2, 2)), 3, "one_card"),
+    ("phi3_bf16_2_layers", "phi3-medium-14b", 2, "bfloat16",
+     ((1, 4), (2, 2)), 1, "float32:phi3_float32_2_layers"),
     ("phi3_40_layers", "phi3-medium-14b", 0, "bfloat16", ((1, 4),), 5,
      None),
+    ("llama4_float32_1_layer", LLAMA4, 1, "float32", ((1, 4), (2, 2)), 3,
+     "one_card"),
+    ("llama4_bf16_1_layer", LLAMA4, 1, "bfloat16", ((1, 4), (2, 2)), 1,
+     "float32:llama4_float32_1_layer"),
+    ("qwen3_moe_float32_1_layer", QWEN3_MOE, 1, "float32", ((1, 4), (2, 2)),
+     3, "one_card"),
+    ("qwen3_moe_bf16_1_layer", QWEN3_MOE, 1, "bfloat16", ((1, 4), (2, 2)),
+     1, "float32:qwen3_moe_float32_1_layer"),
+    ("minicpm3_float32_2_layers", MINICPM3, 2, "float32", ((1, 4), (2, 2)),
+     3, "one_card"),
+    ("minicpm3_bf16_2_layers", MINICPM3, 2, "bfloat16", ((1, 4), (2, 2)), 1,
+     "float32:minicpm3_float32_2_layers"),
+    # one iRoPE period of llama4 (3 chunked layers, 1 global), 4 layers of
+    # qwen3-moe: neither trains at full depth on four cards (1.72 TB and
+    # 3.76 TB of state); minicpm3 at its full 62 layers (68.2 GB)
+    ("llama4_4_layers", LLAMA4, 4, "bfloat16", ((1, 4),), 5, None),
+    ("qwen3_moe_4_layers", QWEN3_MOE, 4, "bfloat16", ((1, 4),), 5, None),
+    ("minicpm3_62_layers", MINICPM3, 0, "bfloat16", ((1, 4),), 10, None),
 )
 # timed runs whose model one card holds: rank 0 times the unsharded step
-# too, before the group (phi3-medium-14b's training state does not fit)
+# too, before the group (the other timed runs' training state does not fit)
 LM_TRAIN_TP_ONE_CARD_TIMED = ("qwen_no_tp",)
 LM_TRAIN_TP_CELL = {"batch": 8, "seq": 512}
 LM_TRAIN_TP_CPU_CELL = {"batch": 4, "seq": 32}
@@ -752,6 +811,63 @@ LM_TRAIN_TP_OPT = {"lr": 1e-3, "warmup_steps": 2}
 LM_TRAIN_TP_RTOL = 1e-5
 LM_TRAIN_TP_LATER_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
 LM_TRAIN_TP_CHECKSUM_RTOL = 1e-3
+# bf16 against float32 at step 1 on the same cards: phase 9's bounds
+# (chip_smoke.TRAIN_BF16_LOSS_RTOL and TRAIN_BF16_GRAD_NORM_RTOL)
+LM_TRAIN_TP_BF16_RTOL = {"loss": 2.0 ** -14, "grad_norm": 2.0 ** -8}
+# (run, mesh) whose failure on four H100s routing flips were shown to
+# cause: routed as its reference routed (scripts/lm_train_tp_pinned.py),
+# each passed its bounds. Such a failure with flips is still a failure
+# (the bounds stay, and the exit code is 1); the summary line names it
+# apart from any other, which is new.
+LM_TRAIN_TP_KNOWN_FLIP_FAILURES = frozenset({
+    ("llama4_float32_1_layer", (2, 2)),
+    ("llama4_bf16_1_layer", (1, 4)), ("llama4_bf16_1_layer", (2, 2)),
+    ("qwen3_moe_bf16_1_layer", (1, 4)),
+})
+
+
+def lm_train_tp_runs(names):
+    """The runs of LM_TRAIN_TP_RUNS named in ``names`` (comma-separated;
+    None: all), each bf16 gate with its float32 run."""
+    if names is None:
+        return LM_TRAIN_TP_RUNS
+    want = set(names.split(","))
+    unknown = want - {r[0] for r in LM_TRAIN_TP_RUNS}
+    if unknown:
+        raise SystemExit(f"no lm_train_tp run {sorted(unknown)}")
+    want |= {r[6].split(":", 1)[1] for r in LM_TRAIN_TP_RUNS
+             if r[0] in want and (r[6] or "").startswith("float32:")}
+    return tuple(r for r in LM_TRAIN_TP_RUNS if r[0] in want)
+
+
+@contextlib.contextmanager
+def routing_recorded(torch, out: list):
+    """A context in which the MoE's route records the expert ids (on the
+    host) of each call of the forward pass, not those of remat's
+    recompute in the backward pass (run by autograd's engine)."""
+    from repro_torch.models import moe
+    plain = moe.route
+
+    def route(cfg, p, x):
+        probs, gates, ids = plain(cfg, p, x)
+        if torch._C._current_graph_task_id() == -1:
+            out.append(ids.detach().cpu())
+        return probs, gates, ids
+    moe.route = route
+    try:
+        yield out
+    finally:
+        moe.route = plain
+
+
+def flips_by_step(routes: list, want: list, steps: int) -> list:
+    """[assignments whose expert differs, assignments] of each step, from
+    two runs' routing records (the same calls in the same order)."""
+    per = len(routes) // steps
+    return [[sum(int((a != w).sum()) for a, w in zip(
+        routes[i * per:(i + 1) * per], want[i * per:(i + 1) * per])),
+             sum(a.numel() for a in routes[i * per:(i + 1) * per])]
+            for i in range(steps)]
 
 
 def lm_train_tp_layout(arch, shape, cpu):
@@ -820,18 +936,19 @@ def lm_train_tp_checksums(np, chip_smoke, model, params, rules=None):
 
 
 def lm_train_tp_references(torch, np, chip_smoke, device, cpu: bool,
-                           corpora: dict) -> dict:
+                           corpora: dict, runs=LM_TRAIN_TP_RUNS) -> dict:
     """Rank 0, before the group exists: each "one_card" run and each run
     of LM_TRAIN_TP_ONE_CARD_TIMED unsharded on this card, keyed by the
     run, the padded model's tp (1 under no_tp) and the accum of its
     meshes' layouts (lm_train_tp_layout): every step's metrics and
-    wall, the checksums after the last, and the corpus digest."""
+    wall, the checksums after the last, the corpus digest, and an MoE
+    run's routing (routing_recorded, every step)."""
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
     out = {}
     sync = torch.cuda.synchronize if device.type == "cuda" \
         else (lambda: None)
-    for name, arch, layers, dtype, meshes, steps, ref in LM_TRAIN_TP_RUNS:
+    for name, arch, layers, dtype, meshes, steps, ref in runs:
         if ref != "one_card" and name not in LM_TRAIN_TP_ONE_CARD_TIMED:
             continue
         for tp, accum in sorted({(lay.tp, lay.accum) for lay in (
@@ -845,16 +962,24 @@ def lm_train_tp_references(torch, np, chip_smoke, device, cpu: bool,
             step = make_train_step(model, AdamWConfig(**LM_TRAIN_TP_OPT))
             rec = {"loss": [], "grad_norm": [], "lr": [], "step_ms": [],
                    "corpus_sha256": chip_smoke.corpus_sha256(np, batches)}
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            routes: list = []
             for b in batches:
                 sync()
                 t0 = time.perf_counter()
-                params, state, m = step(params, state, b)
+                with routing_recorded(torch, routes) if model.cfg.moe \
+                        and ref == "one_card" else contextlib.nullcontext():
+                    params, state, m = step(params, state, b)
                 sync()
                 rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
                 for k in ("loss", "grad_norm", "lr"):
                     rec[k].append(float(m[k]))
+            rec["routes"] = [r.numpy() for r in routes]
             rec["checksums"] = lm_train_tp_checksums(np, chip_smoke, model,
                                                      params)
+            rec["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(
+                device) if device.type == "cuda" else None
             out[(name, tp, accum)] = rec
             del model, params, state, step
             if device.type == "cuda":
@@ -887,18 +1012,23 @@ def device_idle_share(torch, chip_smoke, fn) -> dict:
 
 
 def lm_train_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
-                     device, cpu: bool, gathered, corpora: dict) -> bool:
+                     device, cpu: bool, gathered, corpora: dict,
+                     kept: dict, failed: list) -> bool:
     """One run of LM_TRAIN_TP_RUNS on ``shape`` = (data, model): every rank
     lays the run out by lm_train_tp_layout and builds the model (tp 1
     under no_tp, else the mesh's "model" size),
     draws its blocks of the float32 masters, takes its rows of each batch
     of its own card's corpus and runs make_train_step(model, opt, rules);
-    held to the one-card run, or timed: ms per step, tokens/s, each
-    card's peak, the c10d calls of one more step (rank 0's host trace)
-    and rank 0's idle share over one more (its device trace). Returns the
-    verdict (rank 0)."""
+    held to the one-card run, or (bf16) its step 1 to the float32 run's
+    on this mesh (``kept``: each float32 run's step 1 and each rank's
+    routing), or timed: ms per step, tokens/s, each card's peak, the c10d
+    calls of one more step (rank 0's host trace) and rank 0's idle share
+    over one more (its device trace). Returns the verdict (rank 0), and
+    appends a failure to ``failed`` with whether it is one of
+    LM_TRAIN_TP_KNOWN_FLIP_FAILURES with flips."""
     import statistics
     import torch.distributed as dist
+    from repro_torch.configs import get_config
     from repro_torch.models.layers import tree_leaves
     from repro_torch.runtime.mesh import ProcessMesh
     from repro_torch.sharding import make_rules
@@ -916,6 +1046,11 @@ def lm_train_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
     model = lm_train_tp_model(torch, chip_smoke, device, arch, layers, tp,
                               dtype, cpu)
     timed = ref_kind is None
+    gate = (ref_kind or "").startswith("float32:")
+    one_card = ref_kind == "one_card"
+    referenced = any(r[6] == f"float32:{name}" for r in LM_TRAIN_TP_RUNS)
+    record = model.cfg.moe and (gate or referenced or one_card)
+    routes: list = []
     batches = lm_train_tp_batches(np, chip_smoke, corpora, model, device,
                                   steps + 2 * timed, accum, cpu)
     digest = chip_smoke.corpus_sha256(np, batches[:steps])
@@ -929,6 +1064,12 @@ def lm_train_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
     lo, hi = block_range(mb, mesh.axis_size(bax), mesh.axis_index(bax)) \
         if bax else (0, mb)
     mine = [{k: v[:, lo:hi] for k, v in b.items()} for b in batches]
+    counting = mesh.coords["model"] == 0 or no_tp    # ranks of other rows
+    ref_routes = None
+    if one_card and model.cfg.moe:
+        objs = [refs[(name, tp, accum)]["routes"] if rank == 0 else None]
+        dist.broadcast_object_list(objs, src=0)
+        ref_routes = [torch.from_numpy(r[lo:hi]) for r in objs[0]]
     sync()
     t0 = time.perf_counter()
     params = lm_train_tp_params(torch, chip_smoke, model, rules)
@@ -937,14 +1078,16 @@ def lm_train_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
     sync()
     init_s = time.perf_counter() - t0
     master_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
-    n_params = model.count_params()
+    n_params, raw = model.count_params(), model.raw_cfg
     rec = {"loss": [], "grad_norm": [], "lr": []}
     ms = []
     dist.barrier()
-    for b in mine[:steps]:
+    for i, b in enumerate(mine[:steps]):
         sync()
         t1 = time.perf_counter()
-        params, state, m = step(params, state, b)
+        with routing_recorded(torch, routes) if record and (
+                i == 0 or one_card) else contextlib.nullcontext():
+            params, state, m = step(params, state, b)
         sync()
         ms.append((time.perf_counter() - t1) * 1e3)
         for k in ("loss", "grad_norm", "lr"):
@@ -972,13 +1115,24 @@ def lm_train_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
            "corpus_sha256": digest,
            "corpus_launches": corpora[model.cfg.vocab_size][1],
            "metrics": {k: rec[k] for k in ("loss", "grad_norm", "lr")}}
-    if not timed:
+    if one_card:
         rec["checksums"] = lm_train_tp_checksums(np, chip_smoke, model,
                                                  params, rules)
         row["mismatches"] = chip_smoke.train_mismatches(
             rec, refs[(name, tp, accum)], LM_TRAIN_TP_RTOL,
             LM_TRAIN_TP_LATER_RTOL, LM_TRAIN_TP_CHECKSUM_RTOL) \
             if rank == 0 else None
+    want = kept[(ref_kind.split(":", 1)[1], shape)] if gate else None
+    if referenced:
+        kept[(name, shape)] = {"loss": rec["loss"][0],
+                               "grad_norm": rec["grad_norm"][0],
+                               "routes": routes[:len(routes) // steps]}
+    if ref_routes is not None or (gate and model.cfg.moe):
+        # assignments routed to another expert than the run held against
+        # (the one card; the float32 run) routed them
+        pin = ref_routes if ref_routes is not None else want["routes"]
+        row["flips"] = flips_by_step(routes, pin, 1 if gate else steps) \
+            if counting else None
     del params, state, step, model
     if gpu:
         torch.cuda.empty_cache()
@@ -988,11 +1142,16 @@ def lm_train_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
     tokens = cell["batch"] * cell["seq"]
     step_ms = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
     out = {"phase": "distributed_cards", "case": "lm_train_tp", "run": name,
-           "arch": arch, "layers": layers or "all", "dtype": dtype,
+           "arch": arch, "layers": layers or "all",
+           "reduced": "reduced()" if cpu else f"num_layers "
+           f"{get_config(arch).num_layers} -> {layers}" if layers else None,
+           "dtype": dtype,
            "master_dtype": "float32", "no_tp": no_tp, "tp": tp,
            "mesh": {"data": shape[0], "model": shape[1]},
            "batch_axes": list(bax), **cell, "accum": accum, "steps": steps,
-           "params": n_params,
+           "params": n_params, "params_unpadded": raw.num_params(),
+           "state_bytes_unpadded": 16 * raw.num_params(),
+           "state_bytes_a_card": [4 * r["master_bytes"] for r in everyone],
            "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
            "c10d_calls_one_step": calls, "rank0_profile": idle,
            "reference": ref_kind or "timed", "ranks": everyone}
@@ -1013,19 +1172,55 @@ def lm_train_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
         out["one_card"] = {"step_ms": one["step_ms"],
                            "step_ms_median": statistics.median(
                                one["step_ms"][1:])}
-    if not timed:
+    if gate:
+        rel = {k: abs(everyone[0]["metrics"][k][0] - want[k]) / abs(want[k])
+               for k in ("loss", "grad_norm")}
+        out["against_float32"] = {
+            "run": ref_kind.split(":", 1)[1],
+            "float32_step1": {k: want[k] for k in ("loss", "grad_norm")},
+            "rel": rel, "bound": LM_TRAIN_TP_BF16_RTOL}
+        if "flips" in everyone[0]:
+            out["against_float32"]["flipped_assignments"] = \
+                routing_flips(everyone)[0]
+        within = all(rel[k] <= LM_TRAIN_TP_BF16_RTOL[k] for k in rel)
+        flipped = out["against_float32"].get("flipped_assignments", [0])[0]
+    elif not timed:
         one = refs[(name, tp, accum)]
         out["one_card"] = {k: one[k] for k in ("loss", "grad_norm")}
+        out["one_card_peak_allocated_bytes"] = one["peak_allocated_bytes"]
         out["corpus_equal_to_one_card"] = \
             everyone[0]["corpus_sha256"] == one["corpus_sha256"]
         out["tolerance"] = {"step1_rtol": LM_TRAIN_TP_RTOL,
                             "later_rtol": LM_TRAIN_TP_LATER_RTOL,
                             "checksum_rtol": LM_TRAIN_TP_CHECKSUM_RTOL}
-        good = good and not everyone[0]["mismatches"] and \
-            out["corpus_equal_to_one_card"]
+        if "flips" in everyone[0]:
+            out["flipped_assignments_by_step"] = routing_flips(everyone)
+        good = good and out["corpus_equal_to_one_card"]
+        within = not everyone[0]["mismatches"]
+        flipped = sum(f[0] for f in out.get("flipped_assignments_by_step",
+                                            []))
+    if not timed:
+        # a failure of the value bounds alone, of a known (run, mesh), with
+        # assignments flipped, is the known one; any other failure is new
+        if good and not within:
+            out["known_routing_flip_failure"] = bool(
+                (name, tuple(shape)) in LM_TRAIN_TP_KNOWN_FLIP_FAILURES
+                and flipped)
+        good = good and within
     out["ok"] = good
+    if not good:
+        failed.append((name, tuple(shape),
+                       out.get("known_routing_flip_failure", False)))
     print(json.dumps(out), flush=True)
     return good
+
+
+def routing_flips(everyone: list) -> list:
+    """[flipped, assignments] of each step, summed over the ranks that
+    route rows of their own (the rows' first "model" rank)."""
+    counted = [r["flips"] for r in everyone if r["flips"] is not None]
+    return [[sum(f[i][j] for f in counted) for j in (0, 1)]
+            for i in range(len(counted[0]))]
 
 
 def shard_sink_case(api, storage, edge_digest, hub, ref, rank, world, gpu,

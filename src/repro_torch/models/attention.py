@@ -63,13 +63,15 @@ def mla_specs(cfg, heads: int) -> dict:
     d = cfg.d_model
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    # the latent projections and norms are held whole on "model", and each
+    # rank's heads give part of their gradient
     return {
-        "wdq": ParamSpec((d, qr), ("embed", None)),
-        "q_norm": ParamSpec((qr,), (None,), "zeros"),
+        "wdq": ParamSpec((d, qr), ("embed", None), partial_grad=True),
+        "q_norm": ParamSpec((qr,), (None,), "zeros", partial_grad=True),
         "wuq": ParamSpec((qr, heads, nope + rope_d), (None, "heads", None)),
-        "wdkv": ParamSpec((d, kvr), ("embed", None)),
-        "kv_norm": ParamSpec((kvr,), (None,), "zeros"),
-        "wkr": ParamSpec((d, rope_d), ("embed", None)),
+        "wdkv": ParamSpec((d, kvr), ("embed", None), partial_grad=True),
+        "kv_norm": ParamSpec((kvr,), (None,), "zeros", partial_grad=True),
+        "wkr": ParamSpec((d, rope_d), ("embed", None), partial_grad=True),
         "wuk": ParamSpec((kvr, heads, nope), (None, "heads", None)),
         "wuv": ParamSpec((kvr, heads, vd), (None, "heads", None)),
         "wo": ParamSpec((heads, vd, d), ("heads", None, "embed")),
@@ -383,7 +385,13 @@ def mla_attention(cfg, p, x, kind: str, positions, cache=None,
     owns and a decode step writes its position on the rank that owns it;
     the step's ``q_abs`` and ``q_rope`` are gathered over "model", each
     rank scores every head over its own positions, and the latent context
-    is combined over "model" (:func:`shard.combine_seq_split`)."""
+    is combined over "model" (:func:`shard.combine_seq_split`).
+
+    Training takes the prefill path with no cache under autograd, under
+    the TP rules (this rank's heads; the latent's gradient is partial on
+    each rank, the leaves of ``partial_grad`` in :func:`mla_specs`) and
+    under ``no_tp`` (every head). It
+    reaches no collective but the weights' gathers."""
     b, s, d = x.shape
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     p = shard.gathered(p, MLA_AXES)

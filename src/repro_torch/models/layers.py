@@ -40,6 +40,9 @@ class ParamSpec:
     axes: tuple[Optional[str], ...]
     init: str = "fan_in"             # fan_in | zeros | ones | normal | small
     dtype: Any = torch.float32
+    # held whole on a tensor-parallel "model" axis while each rank computes
+    # part of its gradient (train_step.grad_reduce_axes sums it there)
+    partial_grad: bool = False
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):

@@ -29,16 +29,17 @@ does not pad it).
 Training under rules (``train.make_train_step(model, opt, rules)``):
 :meth:`Model.loss` runs under a context on this rank's blocks of the
 float32 masters (:meth:`Model.master_params` given ``rules``) and its
-batch rows, for the dense and vision GQA families under the TP rules
-(tensor parallelism over "model", the residual split by sequence, the
-"embed" dimension over "data") and under ``no_tp`` (ZeRO over both axes,
-the batch over "model" too; the model built at ``tp=1``, as the
-reference's ``build_model(cfg, tp=1 if no_tp else TP)``). The loss is
-vocab-parallel and its mean runs over the global batch, so every rank
-returns the same value. MoE, MLA, the SSD, the RG-LRU and the
-encoder-decoder train under rules in ROADMAP item 15e.2b; until then
-:meth:`Model.check_rules` refuses train rules for them with
-``NotImplementedError``.
+batch rows, for the dense and vision GQA families, MoE (expert parallel
+over "model") and MLA under the TP rules (tensor parallelism over
+"model", the residual split by sequence, the "embed" dimension over
+"data") and under ``no_tp`` (ZeRO over both axes, the batch over "model"
+too; the model built at ``tp=1``, as the reference's ``build_model(cfg,
+tp=1 if no_tp else TP)``). The loss is vocab-parallel and its mean runs
+over the global batch, and the MoE load-balancing loss is taken from
+each microbatch's global routing, so every rank returns the same value.
+The SSD, the RG-LRU and the encoder-decoder train under rules in ROADMAP
+item 15e.2b part 2; until then :meth:`Model.check_rules` refuses train
+rules for them with ``NotImplementedError``.
 
 Parameters live in the module (``Model.params``, the JAX package's nested
 layout) on the model's device. The reference keeps float32 parameters and
@@ -157,9 +158,10 @@ class Model(nn.Module):
     def check_rules(self, rules) -> None:
         """Raise unless this model can be laid out by ``rules``:
         ``NotImplementedError`` for train rules (mode "train" or
-        ``no_tp``) on a config outside the dense and vision GQA families
-        (MoE, MLA, the SSD, the RG-LRU and the encoder-decoder: ROADMAP
-        item 15e.2b) and for an SSD cache layout the layer does not read
+        ``no_tp``) on a config with a layer that is not attention (GQA or
+        MLA, with a dense or MoE MLP) or on the encoder-decoder (the SSD,
+        the RG-LRU and the encoder-decoder: ROADMAP item 15e.2b part 2)
+        and for an SSD cache layout the layer does not read
         (``ssm.cache_layout``); ``ValueError`` for a "model" axis other
         than ``tp`` (under ``no_tp``: a model not built at ``tp=1``), KV
         sharding other than the model's, an RG-LRU width or an "embed"
@@ -167,15 +169,13 @@ class Model(nn.Module):
         mesh = rules.mesh
         cfg = self.cfg
         msz = int(mesh.shape.get("model", 1))
-        if (rules.mode == "train" or rules.no_tp) and not (
-                cfg.attention == "gqa" and not cfg.moe and
-                cfg.family != "audio" and
-                set(cfg.layer_kinds()) <= set(tf.ATTN_KINDS)):
+        if (rules.mode == "train" or rules.no_tp) and (
+                cfg.family == "audio" or
+                not set(cfg.layer_kinds()) <= set(tf.ATTN_KINDS)):
             raise NotImplementedError(
                 f"{cfg.name}: training under sharding rules is ported for "
-                "the dense and vision GQA families only; MoE, MLA, the SSD, "
-                "the RG-LRU and the encoder-decoder come in ROADMAP item "
-                "15e.2b")
+                "the GQA, MoE and MLA families; the SSD, the RG-LRU and the "
+                "encoder-decoder come in ROADMAP item 15e.2b part 2")
         if rules.no_tp:
             if self.tp != 1:
                 raise ValueError(
@@ -468,16 +468,18 @@ class Model(nn.Module):
         label logit are float32.
 
         Under a sharding context (train rules, which :meth:`check_rules`
-        takes for the dense and vision GQA families; checked once per
-        rules object): ``batch`` is this rank's rows, ``params`` this
-        rank's blocks (checked each call). Each
+        takes for the GQA, MoE and MLA families; checked once per rules
+        object): ``batch`` is this rank's rows, ``params`` this rank's
+        blocks (checked each call). Each
         rank's logits are its block of the vocabulary (``logits_btv``), so
         the logsumexp takes its max and its sum over "model" and the
         label's logit from the rank that holds it; the mean runs over the
         global batch's tokens (each rank's mean, weighted by its share of
-        the rows, summed over the batch axes). Every rank returns the same
-        value; its gradient on this rank is this rank's part
-        (``train_step`` sums the parts)."""
+        the rows, summed over the batch axes), and each MoE layer's
+        load-balancing loss over the microbatch's global routing
+        (``models/moe.py``). Every rank returns the same value; its
+        gradient on this rank is this rank's part (``train_step`` sums the
+        parts)."""
         params = self._params() if params is None else params
         if shard.active():
             rules = shard.current_rules()

@@ -40,7 +40,24 @@ it), and its output is in the residual's layout:
 
 The shared expert is column- then row-parallel (its partial sum reduced
 in the activations' dtype), and the load-balancing loss is taken from the
-global routing (its two (E,) sums all-reduced over the batch axes).
+global routing. In a prefill under grad mode (training) each rank sums
+the probabilities and the assignment counts of the positions it owns
+(its ``model_block`` of the sequence), and the two (E,) sums are reduced
+over the batch axes and "model" (``reduce_from``), so every rank's loss is
+the global one and the probabilities' gradient is counted once over
+"model". Without grad (serving) every "model" rank sums the whole routed
+sequence, and the sums are reduced over the batch axes alone.
+
+Training (``Model.loss`` under train rules) runs the prefill path under
+autograd. Each rank's combine covers only its own experts' gates and its
+load-balancing sums only its own positions, so the router's gradient is
+partial on each "model" rank; the train step sums it over "model"
+(its ParamSpec's ``partial_grad``, read by
+``train_step.grad_reduce_axes``). A rank
+with no experts returns zeros that stay in its input's graph, so it joins
+the adjoint of every reduction the other ranks join. Under ``no_tp`` the
+experts are whole on every rank (ZeRO'd over ("data", "model")) and the
+sums are reduced over the batch axes, which include "model".
 """
 from __future__ import annotations
 
@@ -64,7 +81,10 @@ def moe_specs(cfg) -> dict:
     e = cfg.num_experts
     f = cfg.moe_d_ff or cfg.d_ff
     specs = {
-        "router": ParamSpec((d, e), ("embed", None), "small"),
+        # held whole on "model"; each rank's experts' gates and positions'
+        # load-balancing sums give part of its gradient
+        "router": ParamSpec((d, e), ("embed", None), "small",
+                            partial_grad=True),
         "wi": ParamSpec((e, d, f), ("experts", "embed", "moe_mlp")),
         "wg": ParamSpec((e, d, f), ("experts", "embed", "moe_mlp")),
         "wo": ParamSpec((e, f, d), ("experts", "moe_mlp", "embed")),
@@ -178,7 +198,7 @@ def apply_moe(cfg, p, x):
     if shard.active():
         return _apply_moe_sharded(cfg, p, x)
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.top_k
+    k = cfg.top_k
     probs, gate_vals, expert_ids = route(cfg, p, x)
     t = b * s
     if s > 1:
@@ -201,13 +221,25 @@ def apply_moe(cfg, p, x):
             x @ p["shared_wg"].to(x.dtype))
         y = y + hs @ p["shared_wo"].to(x.dtype)
 
-    # Switch-style load-balancing aux loss.
-    me = probs.reshape(t, e).mean(dim=0)                     # (E,)
-    ce = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
-        0, expert_ids.reshape(-1), torch.ones(t * k, device=x.device)) / (
-        t * k)
-    aux = e * torch.sum(me * ce)
-    return y, aux
+    return y, _load_balance(cfg, _routing_sums(probs, expert_ids), t)
+
+
+def _routing_sums(probs, expert_ids):
+    """(2, E) float32: the sum of ``probs`` (..., E) over its positions and
+    the count of ``expert_ids`` (..., k) per expert."""
+    e = probs.shape[-1]
+    ids = expert_ids.reshape(-1)
+    return torch.stack([probs.reshape(-1, e).sum(0), torch.zeros(
+        e, device=probs.device).index_add_(
+            0, ids, torch.ones(ids.shape[0], device=probs.device))])
+
+
+def _load_balance(cfg, sums, tokens: int):
+    """The Switch-style load-balancing loss of ``tokens`` tokens from their
+    :func:`_routing_sums`: E x sum(mean probability x share of the
+    assignments), as the reference takes it over the flat (t, E)."""
+    me, ce = sums[0] / tokens, sums[1] / (tokens * cfg.top_k)
+    return cfg.num_experts * torch.sum(me * ce)
 
 
 def _grouped_local(cfg, p, x, gate_vals, ids_r, pos_r, keep, cap: int,
@@ -218,7 +250,10 @@ def _grouped_local(cfg, p, x, gate_vals, ids_r, pos_r, keep, cap: int,
     b, s, d = x.shape
     k, el = cfg.top_k, e1 - e0
     if el == 0:
-        return x.new_zeros((b, s, d))
+        # zeros in x's graph (a sum over no channels), so that the
+        # reduction of this part is an autograd node here too and this
+        # rank joins its adjoint collective in the backward pass
+        return x.new_zeros((b, s, d)) + x[..., :0].sum(-1, keepdim=True)
     ok = keep & (ids_r >= e0) & (ids_r < e1)
     ids_l = torch.where(ok, ids_r - e0, 0)
     pos_l = torch.where(ok, pos_r, cap)                       # trash column
@@ -267,21 +302,26 @@ def _apply_moe_sharded(cfg, p, x):
     tp, ti = shard.model_axis()
     e0, e1 = block_range(cfg.num_experts, tp, ti)
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.top_k
     if s > 1:
         probs, gate_vals, expert_ids = route(cfg, p, x)
         cap = capacity(cfg, s)
-        ids_r = expert_ids.reshape(b, s * k)
+        ids_r = expert_ids.reshape(b, s * cfg.top_k)
         pos_r = _position_in_expert(ids_r)
         y = _grouped_local(cfg, p, x, gate_vals, ids_r, pos_r, pos_r < cap,
                            cap, e0, e1)
         y = shard.reduce_seq(y.float()).to(x.dtype)
-        stats = torch.stack([probs.reshape(-1, e).sum(0), torch.zeros(
-            e, device=x.device).index_add_(0, expert_ids.reshape(-1),
-                                           torch.ones(b * s * k,
-                                                      device=x.device))])
-        if bax:
-            stats = mesh.all_reduce(stats, bax)
+        if torch.is_grad_enabled():
+            # training: each rank sums its own positions, so the sums over
+            # the batch axes and "model" count every token once, and so
+            # does their gradient
+            sums = _routing_sums(shard.model_block(probs, 1),
+                                 shard.model_block(expert_ids, 1))
+            axes = set(bax or ()) | ({"model"} if tp > 1 else set())
+        else:
+            # serving: every "model" rank routed the whole sequence alike
+            sums, axes = _routing_sums(probs, expert_ids), set(bax or ())
+        sums = mesh.reduce_from(sums, tuple(
+            a for a in mesh.axis_names if a in axes))
         tokens = b * s * (mesh.axis_size(bax) if bax else 1)
     else:
         xg = mesh.all_gather(x, bax, 0) if bax else x
@@ -295,14 +335,12 @@ def _apply_moe_sharded(cfg, p, x):
         r0 = mesh.axis_index(bax) * b if bax else 0
         y = y[r0:r0 + b].reshape(b, s, d)
         y = shard.reduce_seq(y.float()).to(x.dtype)
-        stats = torch.stack([probs.reshape(-1, e).sum(0), torch.zeros(
-            e, device=x.device).index_add_(0, flat_ids,
-                                           torch.ones(tokens * k,
-                                                      device=x.device))])
+        sums = _routing_sums(probs, expert_ids)
     if cfg.shared_expert_d_ff:
         hs = F.silu(x @ p["shared_wi"].to(x.dtype)) * (
             x @ p["shared_wg"].to(x.dtype))
         y = y + shard.reduce_seq(hs @ p["shared_wo"].to(x.dtype))
-    # Switch-style load-balancing aux loss, from the global routing.
-    me, ce = stats[0] / tokens, stats[1] / (tokens * k)
-    return y, e * torch.sum(me * ce)
+    # Switch-style load-balancing aux loss, from the global routing (taken
+    # last: remat's recompute stops at its last saved tensor, and so runs
+    # through every collective above on every rank)
+    return y, _load_balance(cfg, sums, tokens)

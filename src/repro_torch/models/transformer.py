@@ -33,6 +33,7 @@ the gradients back.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 from typing import Any
@@ -44,9 +45,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (ParamSpec, TensorStruct, apply_mlp,
-                                       apply_norm, mlp_specs, norm_specs,
-                                       tree_map)
+from repro_torch.models.layers import (TensorStruct, apply_mlp, apply_norm,
+                                       mlp_specs, norm_specs, tree_map)
 from repro_torch.sharding import ctx as shard
 
 ATTN_KINDS = ("global", "local", "chunked", "bidir")
@@ -113,9 +113,8 @@ def apply_layer(cfg, p, kind: str, x, positions, cache, heads: int,
 
 
 def _stack(specs, n: int):
-    return tree_map(lambda _, s: ParamSpec((n,) + s.shape,
-                                           ("layers",) + s.axes, s.init,
-                                           s.dtype), specs)
+    return tree_map(lambda _, s: dataclasses.replace(
+        s, shape=(n,) + s.shape, axes=("layers",) + s.axes), specs)
 
 
 def stack_specs(cfg, heads: int, kv_heads: int) -> dict:

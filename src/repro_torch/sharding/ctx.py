@@ -122,7 +122,13 @@ def combine_seq_split(scores, values, contract: str, dtype):
     this rank's positions'. The global max of the scores, the softmax's
     sum, and the weighted values (``torch.einsum(contract, weights,
     values)`` in float32) are each combined over "model"; returns the
-    last in ``dtype``. Every rank gets every row's result."""
+    last in ``dtype``. Every rank gets every row's result. It serves the
+    split decode cache only: its all-reduces have no adjoint, and it
+    raises ``RuntimeError`` on inputs that require grad."""
+    if torch.is_grad_enabled() and (scores.requires_grad
+                                    or values.requires_grad):
+        raise RuntimeError("combine_seq_split serves the split decode "
+                           "cache; training never reads a cache")
     mesh = current_mesh()
     m = mesh.all_reduce(scores.amax(dim=-1), "model", "max")
     e = torch.exp(scores - m[..., None])

@@ -45,15 +45,25 @@ def whole_leaf(t: torch.Tensor, spec, rules) -> np.ndarray:
     """The whole leaf (on the host) of which ``t`` is this rank's block
     under ``rules`` (``spec`` its ParamSpec): gathered over each split
     dimension's axes, a leaf whose leading dimension is not split one
-    index of it at a time. Every rank of the mesh must call it, in the
-    same order."""
+    index of it at a time. A dimension its axes do not divide (MoE
+    experts over "model": ``block_range``'s short or empty last blocks)
+    is padded to the full block before the gather and cut after it. Every
+    rank of the mesh must call it, in the same order."""
     pspec, mesh = rules.param_pspec(spec), rules.mesh
 
     def gather(x, dims):
         for d in dims:
             axes = pspec.axes_of(d)
-            if mesh.axis_size(axes) > 1:
-                x = mesh.all_gather(x, axes, d - (len(pspec) - x.dim()))
+            n = mesh.axis_size(axes)
+            if n > 1:
+                at = d - (len(pspec) - x.dim())
+                size = -(-spec.shape[d] // n)
+                if x.shape[at] < size:
+                    pad = list(x.shape)
+                    pad[at] = size - x.shape[at]
+                    x = torch.cat([x, x.new_zeros(pad)], at)
+                x = mesh.all_gather(x, axes, at).narrow(
+                    at, 0, spec.shape[d])
         return x
     split = [d for d in range(len(pspec)) if pspec.axes_of(d)]
     if t.dim() > 1 and split and 0 not in split:

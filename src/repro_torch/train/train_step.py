@@ -20,7 +20,7 @@ checks that every ``.grad`` is still its block of the buffer. Peak
 memory is the masters, the moments, the gradient buffers made so far
 and one microbatch's activations.
 
-Under ``rules`` (the dense and vision GQA families; ``Model.loss``) the
+Under ``rules`` (the GQA, MoE and MLA families; ``Model.loss``) the
 step runs inside ``sharding_ctx(rules, rules.mesh)`` on this rank's
 blocks of the masters and moments (``Rules.param_pspec``; the
 reference's ``o_sh = {"m": p_sh, "v": p_sh}``) and its rows of the batch
@@ -30,9 +30,9 @@ reduce-scatter); after the last microbatch :func:`reduce_grads` sums, per
 :func:`grad_reduce_axes`, the rest: the batch axes a leaf is not split
 over, and "model" for a leaf held whole on a tensor-parallel mesh whose
 uses there are each rank's own (the norms on a residual split by
-sequence, KV projections held whole and used by each rank's heads). The
-metrics come out the same on every rank, and so do the leaves every rank
-holds whole.
+sequence, KV projections held whole and used by each rank's heads, the
+MoE router and MLA's latent projections and norms). The metrics come out
+the same on every rank, and so do the leaves every rank holds whole.
 
 :func:`batch_shardings` is the reference's batch layout (a
 ``PartitionSpec`` per leaf).
@@ -65,10 +65,13 @@ def grad_reduce_axes(spec, rules) -> tuple:
     batch axes the leaf is not split over (a split axis is summed by its
     gather's adjoint), and, on a tensor-parallel "model" axis the leaf is
     held whole on, "model" where each rank's use of it is its own: a KV
-    projection held whole (each rank's heads read their KV heads), and any
-    leaf of a residual split by sequence (the norms run on each rank's
-    positions). Without sequence parallelism a norm runs on the whole
-    residual on every rank, the same on each, and is not summed."""
+    projection held whole (each rank's heads read their KV heads), a leaf
+    its mixer marks ``partial_grad`` (the MoE router, which each rank's
+    experts' gates and positions read; MLA's latent projections and norms,
+    which each rank's heads read), and any leaf of a residual split by
+    sequence (the norms run on each rank's positions). Without sequence
+    parallelism a norm runs on the whole residual on every rank, the same
+    on each, and is not summed."""
     mesh = rules.mesh
     pspec = rules.param_pspec(spec)
     split = {a for d in range(len(spec.shape)) for a in pspec.axes_of(d)}
@@ -76,8 +79,8 @@ def grad_reduce_axes(spec, rules) -> tuple:
     if not rules.no_tp and mesh.shape.get("model", 1) > 1 and \
             "model" not in split:
         seq = rules.activation_spec("act_btd", 3)
-        if "kv" in spec.axes or (seq is not None
-                                 and "model" in seq.axes_of(1)):
+        if "kv" in spec.axes or spec.partial_grad or (
+                seq is not None and "model" in seq.axes_of(1)):
             out.add("model")
     return tuple(a for a in mesh.axis_names
                  if a in out and mesh.shape[a] > 1)
