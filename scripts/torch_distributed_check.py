@@ -53,8 +53,11 @@ with --cpu) and runs, through the front door with no device given:
   lm_train_tp         training under the sharding rules
       (train.make_train_step(model, opt, rules)) on four processes, the
       runs of LM_TRAIN_TP_RUNS (qwen1.5-0.5b, phi3-medium-14b, the MoE
-      llama4-scout-17b-a16e and qwen3-moe-235b-a22b, the MLA minicpm3-4b)
-      laid out by launch/dryrun.train_layout, batch 8 x 512 of each
+      llama4-scout-17b-a16e and qwen3-moe-235b-a22b, the MLA minicpm3-4b,
+      the SSD mamba2-130m, the RG-LRU recurrentgemma-2b and the
+      encoder-decoder whisper-medium with its 1500 frames drawn as
+      launch/train.py draws them) laid out by
+      launch/dryrun.train_layout, batch 8 x 512 of each
       card's walk corpus: float32 runs against rank 0's one-card run of
       the same model, bf16 runs' step 1 against the float32 run's on the
       same mesh (phase 9's bounds; the MoE routing assignments whose
@@ -770,6 +773,8 @@ def lm_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
 # assignments whose expert differs counted; None: timed (bf16 over
 # float32 masters).
 QWEN3_MOE, MINICPM3 = "qwen3-moe-235b-a22b", "minicpm3-4b"
+MAMBA2, RGEMMA, WHISPER = ("mamba2-130m", "recurrentgemma-2b",
+                           "whisper-medium")
 LM_TRAIN_TP_RUNS = (
     ("qwen_no_tp_float32", "qwen1.5-0.5b", 0, "float32", ((1, 4), (2, 2)),
      3, "one_card"),
@@ -799,10 +804,30 @@ LM_TRAIN_TP_RUNS = (
     ("llama4_4_layers", LLAMA4, 4, "bfloat16", ((1, 4),), 5, None),
     ("qwen3_moe_4_layers", QWEN3_MOE, 4, "bfloat16", ((1, 4),), 5, None),
     ("minicpm3_62_layers", MINICPM3, 0, "bfloat16", ((1, 4),), 10, None),
+    # the SSD, the RG-LRU and the encoder-decoder: mamba2 at 2 layers,
+    # recurrentgemma at one (rec, rec, local) period, whisper at 2 encoder
+    # and 2 decoder layers over its 1500 frames against one card, then
+    # each at its full depth (24, 26, 24 + 24), which one card holds too
+    ("mamba2_float32_2_layers", MAMBA2, 2, "float32", ((1, 4), (2, 2)), 3,
+     "one_card"),
+    ("mamba2_bf16_2_layers", MAMBA2, 2, "bfloat16", ((1, 4), (2, 2)), 1,
+     "float32:mamba2_float32_2_layers"),
+    ("recurrentgemma_float32_3_layers", RGEMMA, 3, "float32",
+     ((1, 4), (2, 2)), 3, "one_card"),
+    ("recurrentgemma_bf16_3_layers", RGEMMA, 3, "bfloat16",
+     ((1, 4), (2, 2)), 1, "float32:recurrentgemma_float32_3_layers"),
+    ("whisper_float32_2_layers", WHISPER, 2, "float32", ((1, 4), (2, 2)), 3,
+     "one_card"),
+    ("whisper_bf16_2_layers", WHISPER, 2, "bfloat16", ((1, 4), (2, 2)), 1,
+     "float32:whisper_float32_2_layers"),
+    ("mamba2_24_layers", MAMBA2, 0, "bfloat16", ((1, 4),), 10, None),
+    ("recurrentgemma_26_layers", RGEMMA, 0, "bfloat16", ((1, 4),), 5, None),
+    ("whisper_24_layers", WHISPER, 0, "bfloat16", ((1, 4),), 5, None),
 )
 # timed runs whose model one card holds: rank 0 times the unsharded step
 # too, before the group (the other timed runs' training state does not fit)
-LM_TRAIN_TP_ONE_CARD_TIMED = ("qwen_no_tp",)
+LM_TRAIN_TP_ONE_CARD_TIMED = ("qwen_no_tp", "mamba2_24_layers",
+                              "recurrentgemma_26_layers", "whisper_24_layers")
 LM_TRAIN_TP_CELL = {"batch": 8, "seq": 512}
 LM_TRAIN_TP_CPU_CELL = {"batch": 4, "seq": 32}
 LM_TRAIN_TP_OPT = {"lr": 1e-3, "warmup_steps": 2}
@@ -889,7 +914,8 @@ def lm_train_tp_model(torch, chip_smoke, device, arch, layers, tp, dtype,
     cfg = get_config(arch)
     cfg = cfg.reduced() if cpu else cfg
     if layers and not cpu:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = dataclasses.replace(cfg, num_layers=layers, encoder_layers=(
+            layers if cfg.encoder_layers else 0))
     return build_model(cfg, tp=tp, compute_dtype=getattr(torch, dtype),
                        device=device)
 
@@ -1144,7 +1170,10 @@ def lm_train_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
     out = {"phase": "distributed_cards", "case": "lm_train_tp", "run": name,
            "arch": arch, "layers": layers or "all",
            "reduced": "reduced()" if cpu else f"num_layers "
-           f"{get_config(arch).num_layers} -> {layers}" if layers else None,
+           f"{get_config(arch).num_layers} -> {layers}" + (
+               f", encoder_layers {get_config(arch).encoder_layers} -> "
+               f"{layers}" if get_config(arch).encoder_layers else "")
+           if layers else None,
            "dtype": dtype,
            "master_dtype": "float32", "no_tp": no_tp, "tp": tp,
            "mesh": {"data": shape[0], "model": shape[1]},

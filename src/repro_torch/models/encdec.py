@@ -18,6 +18,16 @@ cache in the layout ``serve_step.cache_shardings`` gives it
 (:func:`cross_layout`): its KV heads, its encoder positions (when the KV
 heads do not divide "model"; the cross-attention then combines the
 ranks' positions as a sequence-split decode does), or all of it.
+
+Training under rules reads no cache: the cross K/V take the reference's
+training layout (``act_bskd``: this rank's KV heads, or every head where
+they do not divide "model"), never the encoder positions, so the
+combine over "model", which has no adjoint, is never reached. The
+encoder's output is gathered whole by the gather whose adjoint sums
+over "model" (``shard.gather_seq``: every rank's cross K/V projection
+reads all of it for its own heads). As in the reference only the
+decoder's layers are recomputed in the backward pass; the encoder's are
+not.
 """
 from __future__ import annotations
 
@@ -75,14 +85,18 @@ def encdec_specs(cfg, heads: int, kv_heads: int) -> dict:
 
 
 def cross_layout(cfg, kv_heads: int) -> str:
-    """How this rank holds the cross K/V (``serve_step.cache_shardings``'
-    rule for a KV cache): "heads" (its KV heads), "seq" (its encoder
-    positions), "whole", or "one" outside a context or on one rank."""
+    """How this rank holds the cross K/V: "heads" (its KV heads), "seq"
+    (its encoder positions), "whole", or "one" outside a context or on
+    one rank. Serving follows ``serve_step.cache_shardings``' rule for a
+    KV cache; the train rules follow the reference's ``act_bskd`` (by
+    heads where the rules shard them, else whole)."""
     tp, _ = shard.model_axis()
     if tp == 1:
         return "one"
-    return kv_cache_split(shard.current_rules(), kv_heads, cfg.encoder_len,
-                          tp) or "whole"
+    rules = shard.current_rules()
+    if rules.mode == "train":
+        return "heads" if rules.kv_sharded else "whole"
+    return kv_cache_split(rules, kv_heads, cfg.encoder_len, tp) or "whole"
 
 
 def _cross_attend(cfg, p, x, ck, cv, heads, kv_heads):

@@ -29,17 +29,18 @@ does not pad it).
 Training under rules (``train.make_train_step(model, opt, rules)``):
 :meth:`Model.loss` runs under a context on this rank's blocks of the
 float32 masters (:meth:`Model.master_params` given ``rules``) and its
-batch rows, for the dense and vision GQA families, MoE (expert parallel
-over "model") and MLA under the TP rules (tensor parallelism over
-"model", the residual split by sequence, the "embed" dimension over
-"data") and under ``no_tp`` (ZeRO over both axes, the batch over "model"
-too; the model built at ``tp=1``, as the reference's ``build_model(cfg,
-tp=1 if no_tp else TP)``). The loss is vocab-parallel and its mean runs
-over the global batch, and the MoE load-balancing loss is taken from
-each microbatch's global routing, so every rank returns the same value.
-The SSD, the RG-LRU and the encoder-decoder train under rules in ROADMAP
-item 15e.2b part 2; until then :meth:`Model.check_rules` refuses train
-rules for them with ``NotImplementedError``.
+batch rows, for every family: under the TP rules (tensor parallelism
+over "model", MoE's experts over "model", the residual split by
+sequence, the "embed" dimension over "data") and under ``no_tp`` (ZeRO
+over both axes, the batch over "model" too; the model built at
+``tp=1``, as the reference's ``build_model(cfg, tp=1 if no_tp else
+TP)``). The loss is vocab-parallel and its mean runs over the global
+batch, and the MoE load-balancing loss is taken from each microbatch's
+global routing, so every rank returns the same value. The SSD, the
+RG-LRU and the encoder-decoder train through the same mixers as they
+serve: a train step reads no cache, so the SSD's and the cross
+attention's cache layouts never apply (``models/ssm.py``,
+``models/encdec.py``).
 
 Parameters live in the module (``Model.params``, the JAX package's nested
 layout) on the model's device. The reference keeps float32 parameters and
@@ -157,25 +158,16 @@ class Model(nn.Module):
 
     def check_rules(self, rules) -> None:
         """Raise unless this model can be laid out by ``rules``:
-        ``NotImplementedError`` for train rules (mode "train" or
-        ``no_tp``) on a config with a layer that is not attention (GQA or
-        MLA, with a dense or MoE MLP) or on the encoder-decoder (the SSD,
-        the RG-LRU and the encoder-decoder: ROADMAP item 15e.2b part 2)
-        and for an SSD cache layout the layer does not read
-        (``ssm.cache_layout``); ``ValueError`` for a "model" axis other
-        than ``tp`` (under ``no_tp``: a model not built at ``tp=1``), KV
-        sharding other than the model's, an RG-LRU width or an "embed"
-        dimension its axis does not divide."""
+        ``NotImplementedError`` for an SSD cache layout the layer does
+        not read (``ssm.cache_layout``; serving rules only: a train step
+        builds no cache); ``ValueError`` for a "model" axis other than
+        ``tp`` (under ``no_tp``: a model not built at ``tp=1``), KV
+        sharding other than the model's, an RG-LRU width its tensor-
+        parallel axis does not divide, or an "embed" dimension its axes
+        do not divide."""
         mesh = rules.mesh
         cfg = self.cfg
         msz = int(mesh.shape.get("model", 1))
-        if (rules.mode == "train" or rules.no_tp) and (
-                cfg.family == "audio" or
-                not set(cfg.layer_kinds()) <= set(tf.ATTN_KINDS)):
-            raise NotImplementedError(
-                f"{cfg.name}: training under sharding rules is ported for "
-                "the GQA, MoE and MLA families; the SSD, the RG-LRU and the "
-                "encoder-decoder come in ROADMAP item 15e.2b part 2")
         if rules.no_tp:
             if self.tp != 1:
                 raise ValueError(
@@ -186,15 +178,15 @@ class Model(nn.Module):
             raise ValueError(f"the model is padded for tp={self.tp}, the "
                              f"mesh's model axis has {msz} devices")
         kinds = cfg.layer_kinds()
-        if msz > 1 and "rec" in kinds and cfg.rglru_width % msz:
+        if self.tp > 1 and "rec" in kinds and cfg.rglru_width % self.tp:
             raise ValueError(
                 f"{cfg.name}: the RG-LRU width {cfg.rglru_width} does not "
-                f"divide over tp={msz}; the reference's build_model pads the "
-                "heads, the KV heads, the SSD's inner dimension and the "
+                f"divide over tp={self.tp}; the reference's build_model pads "
+                "the heads, the KV heads, the SSD's inner dimension and the "
                 "vocabulary but not this width, so it has no layout of such "
                 "a model to hold a sharded one to")
-        if msz > 1 and "ssm" in kinds:
-            ssm_lib.cache_layout(cfg, msz)
+        if self.tp > 1 and "ssm" in kinds and rules.mode != "train":
+            ssm_lib.cache_layout(cfg, self.tp)
         if self.tp > 1 and rules.kv_sharded != self.kv_sharded:
             raise ValueError(f"rules.kv_sharded={rules.kv_sharded}, the "
                              f"model's KV heads ({self.kv_heads}) are "
@@ -467,10 +459,10 @@ class Model(nn.Module):
         ``train=True`` (remat per ``REPRO_REMAT``); the logsumexp and the
         label logit are float32.
 
-        Under a sharding context (train rules, which :meth:`check_rules`
-        takes for the GQA, MoE and MLA families; checked once per rules
-        object): ``batch`` is this rank's rows, ``params`` this rank's
-        blocks (checked each call). Each
+        Under a sharding context (train rules, checked by
+        :meth:`check_rules` once per rules object): ``batch`` is this
+        rank's rows (the encoder-decoder's frames too), ``params`` this
+        rank's blocks (checked each call). Each
         rank's logits are its block of the vocabulary (``logits_btv``), so
         the logsumexp takes its max and its sum over "model" and the
         label's logit from the rank that holds it; the mean runs over the

@@ -27,6 +27,14 @@ replicated ``ba``, ``bx`` and ``lam`` are sliced to that block. The
 recurrence is per channel, so it runs on the block alone, and ``out``'s
 product is the rank's partial sum (the caller reduces it). A width that
 "model" does not divide is refused by ``Model.check_rules``.
+
+Training under rules runs the same layer: the gates' reduce-scatters
+carry the gradient back as all-gathers (``runtime/mesh.py``), and the
+replicated ``ba``, ``bx`` and ``lam``, read in part by each rank, are
+each rank's part of their gradient (``partial_grad``, summed over
+"model" by the train step). The scan is differentiable as written; the
+in-place fold of ``h0`` into ``b`` runs only with a cache, which a train
+step never passes.
 """
 from __future__ import annotations
 
@@ -47,10 +55,10 @@ def rglru_specs(cfg) -> dict:
         "conv_w": ParamSpec((cfg.rglru_conv, w), (None, "inner")),
         "conv_b": ParamSpec((w,), ("inner",), "zeros"),
         "wa": ParamSpec((w, w), ("inner", None)),
-        "ba": ParamSpec((w,), (None,), "zeros"),
+        "ba": ParamSpec((w,), (None,), "zeros", partial_grad=True),
         "wx": ParamSpec((w, w), ("inner", None)),
-        "bx": ParamSpec((w,), (None,), "zeros"),
-        "lam": ParamSpec((w,), (None,), "normal"),
+        "bx": ParamSpec((w,), (None,), "zeros", partial_grad=True),
+        "lam": ParamSpec((w,), (None,), "normal", partial_grad=True),
         "out": ParamSpec((w, d), ("inner", "embed")),
     }
 

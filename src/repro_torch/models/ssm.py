@@ -18,10 +18,11 @@ elementwise factors first, then one batched matrix product.
 Under a sharding context the layer runs by heads: each rank holds its
 heads' block of ``wz``, ``wx``, ``wdt``, the x conv, ``a_log``,
 ``dt_bias``, ``d_skip`` and the gated norm's scale, and its rows of
-``out_proj`` (a partial sum, which the caller reduces); ``wb`` and ``wc``
-are replicated, so B and C are computed whole. The gated norm's mean
+``out_proj`` (a partial sum, which the caller reduces); ``wb``, ``wc``
+and the B and C convs are replicated, so B and C are computed whole,
+and each rank reads them for its own heads only. The gated norm's mean
 runs over the whole (padded) inner dimension: its sum of squares is
-all-reduced over "model". The caches are held as
+summed over "model". The caches are held as
 ``serve_step.cache_shardings`` lays them out, which is not always by
 heads: the state ``h`` (H, P, N) splits its widest dimension, so by the
 state N at mamba2-130m's full width (128 > 64 > 24), by heads where H is
@@ -37,6 +38,17 @@ reduce-scattered by heads (or, held whole, sliced). A prefill runs the
 chunked scan by heads: its initial state is brought to the heads layout
 (a reduce-scatter of the zero-padded N blocks) and its final state
 back to the cache's (an all-gather by heads, then this rank's slice).
+
+Training under rules reads no cache, so none of the cache's layouts
+applies and the branches that serve them (a conv split by N, a decode
+step over every head's state, :func:`_state_to_heads` and
+:func:`_state_from_heads`) are never taken: the layer runs by heads from
+a zero state. Its backward pass: the gated norm's sum of squares is
+summed over "model" forward and its gradient summed over "model" too
+(``copy_to(reduce_from(.))``), since every rank's block of the norm's
+output reads the whole sum; the replicated leaves of the B/C path are
+each rank's part of the gradient (``partial_grad``: each rank's heads
+read B and C), summed by the train step.
 """
 from __future__ import annotations
 
@@ -94,15 +106,15 @@ def ssm_specs(cfg) -> dict:
     return {
         "wz": ParamSpec((d, di), ("embed", "inner")),
         "wx": ParamSpec((d, di), ("embed", "inner")),
-        "wb": ParamSpec((d, n), ("embed", None)),
-        "wc": ParamSpec((d, n), ("embed", None)),
+        "wb": ParamSpec((d, n), ("embed", None), partial_grad=True),
+        "wc": ParamSpec((d, n), ("embed", None), partial_grad=True),
         "wdt": ParamSpec((d, nh), ("embed", "heads")),
         "conv_x": ParamSpec((k, di), (None, "inner")),
         "conv_xb": ParamSpec((di,), ("inner",), "zeros"),
-        "conv_b": ParamSpec((k, n), (None, None)),
-        "conv_bb": ParamSpec((n,), (None,), "zeros"),
-        "conv_c": ParamSpec((k, n), (None, None)),
-        "conv_cb": ParamSpec((n,), (None,), "zeros"),
+        "conv_b": ParamSpec((k, n), (None, None), partial_grad=True),
+        "conv_bb": ParamSpec((n,), (None,), "zeros", partial_grad=True),
+        "conv_c": ParamSpec((k, n), (None, None), partial_grad=True),
+        "conv_cb": ParamSpec((n,), (None,), "zeros", partial_grad=True),
         "a_log": ParamSpec((nh,), ("heads",), "zeros"),
         "dt_bias": ParamSpec((nh,), ("heads",), "zeros"),
         "d_skip": ParamSpec((nh,), ("heads",), "ones"),
@@ -172,11 +184,16 @@ def _ssd_chunked(x, dt, a, b_in, c_in, chunk: int, h0=None):
 
 def _gated_norm(y, z, scale, width: int, eps: float = 1e-6):
     """rmsnorm(y * silu(z), scale) over a dimension split over "model":
-    the sum of squares all-reduced and divided by the whole ``width``."""
+    the sum of squares summed over "model" and divided by the whole
+    ``width``. Under autograd its gradient is summed over "model" too
+    (Megatron's "g" then "f"): each rank normalises its own block by the
+    whole sum, so each holds only its block's part of the sum's
+    gradient."""
     g = y * F.silu(z)
     xf = g.float()
-    ss = shard.current_mesh().all_reduce(
-        xf.square().sum(dim=-1, keepdim=True), "model")
+    mesh = shard.current_mesh()
+    ss = mesh.copy_to(mesh.reduce_from(
+        xf.square().sum(dim=-1, keepdim=True), "model"), "model")
     out = xf * torch.rsqrt(ss / width + eps)
     return (out * (1.0 + scale.float())).to(g.dtype)
 
@@ -205,14 +222,16 @@ def apply_ssm(cfg, p, x, cache=None):
     """x: (B, S, D). cache: None | dict(conv_x, conv_b, conv_c, h), written
     in place. Returns (y (B, S, D), cache); under a sharding context ``y``
     is this rank's partial sum and the cache its blocks (see the
-    module)."""
+    module). Without a cache (training, the teacher-forced pass) the
+    cache's layout is not read."""
     bsz, s, d = x.shape
     di, nh = ssm_dims(cfg)
     hp = cfg.ssm_headdim
     p = shard.gathered(p, SSM_AXES)
     tp, _ = shard.model_axis()
     mesh = shard.current_mesh()
-    layout = cache_layout(cfg, tp) if tp > 1 else None
+    layout = cache_layout(cfg, tp) if tp > 1 and cache is not None \
+        else None
     dil, nhl = p["wx"].shape[1], p["wdt"].shape[1]
     decode = cache is not None and s == 1
     # a decode step over the state of every head (split by N or whole)
@@ -280,7 +299,7 @@ def apply_ssm(cfg, p, x, cache=None):
             h_last = _state_from_heads(h_last, layout["h"])
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, dil)
-    if layout is None:
+    if tp == 1:
         y = rmsnorm(y * F.silu(z), p["norm"])
     else:
         y = _gated_norm(y, z, p["norm"], di)

@@ -20,22 +20,25 @@ checks that every ``.grad`` is still its block of the buffer. Peak
 memory is the masters, the moments, the gradient buffers made so far
 and one microbatch's activations.
 
-Under ``rules`` (the GQA, MoE and MLA families; ``Model.loss``) the
-step runs inside ``sharding_ctx(rules, rules.mesh)`` on this rank's
-blocks of the masters and moments (``Rules.param_pspec``; the
-reference's ``o_sh = {"m": p_sh, "v": p_sh}``) and its rows of the batch
-(:func:`batch_shardings`). Autograd sums each leaf's gradient over the
-axes its FSDP gather runs over (the gather's adjoint is a
-reduce-scatter); after the last microbatch :func:`reduce_grads` sums, per
+Under ``rules`` (every family; ``Model.loss``) the step runs inside
+``sharding_ctx(rules, rules.mesh)`` on this rank's blocks of the masters
+and moments (``Rules.param_pspec``; the reference's ``o_sh = {"m": p_sh,
+"v": p_sh}``) and its rows of the batch (:func:`batch_shardings`).
+Autograd sums each leaf's gradient over the axes its FSDP gather runs
+over (the gather's adjoint is a reduce-scatter); after the last
+microbatch :func:`reduce_grads` sums, per
 :func:`grad_reduce_axes`, the rest: the batch axes a leaf is not split
 over, and "model" for a leaf held whole on a tensor-parallel mesh whose
 uses there are each rank's own (the norms on a residual split by
 sequence, KV projections held whole and used by each rank's heads, the
-MoE router and MLA's latent projections and norms). The metrics come out
-the same on every rank, and so do the leaves every rank holds whole.
+MoE router, MLA's latent projections and norms, the SSD's B/C path and
+the RG-LRU's gate biases and decay). The metrics come out the same on
+every rank, and so do the leaves every rank holds whole.
 
 :func:`batch_shardings` is the reference's batch layout (a
-``PartitionSpec`` per leaf).
+``PartitionSpec`` per leaf: the tokens, the labels and the
+encoder-decoder's frames or a vision config's image embeddings split
+by rows alike).
 """
 from __future__ import annotations
 
@@ -67,8 +70,10 @@ def grad_reduce_axes(spec, rules) -> tuple:
     held whole on, "model" where each rank's use of it is its own: a KV
     projection held whole (each rank's heads read their KV heads), a leaf
     its mixer marks ``partial_grad`` (the MoE router, which each rank's
-    experts' gates and positions read; MLA's latent projections and norms,
-    which each rank's heads read), and any leaf of a residual split by
+    experts' gates and positions read; MLA's latent projections and norms
+    and the SSD's B and C projections and convs, which each rank's heads
+    read; the RG-LRU's gate biases and decay, sliced to each rank's
+    channels), and any leaf of a residual split by
     sequence (the norms run on each rank's positions). Without sequence
     parallelism a norm runs on the whole residual on every rank, the same
     on each, and is not summed."""

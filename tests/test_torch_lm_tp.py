@@ -466,37 +466,32 @@ def test_no_group_and_backend_refusals(tmp_path):
 
 
 def test_training_and_layouts_refuse_under_rules():
-    """The train rules refuse the SSD, the RG-LRU and the encoder-decoder
-    (ROADMAP item 15e.2b part 2): their layout and Model.loss under a
-    context of them; Model.loss takes no serving rules; for qwen, llama4
-    (MoE) and minicpm3 (MLA) on a (1, 1) mesh Model.loss under the train
-    rules is the unsharded loss bit for bit
-    (tests/test_torch_lm_train_tp.py and test_torch_lm_train_tp_mixers.py
-    hold them on 2 and 4 ranks); constrain refuses a tensor that is not
-    this rank's block of its role."""
+    """Model.loss takes no serving rules; for every family (qwen, llama4's
+    MoE, minicpm3's MLA, mamba2's SSD, recurrentgemma's RG-LRU and
+    whisper's encoder-decoder) on a (1, 1) mesh Model.loss under the
+    train rules is the unsharded loss bit for bit
+    (tests/test_torch_lm_train_tp*.py hold them on 2 and 4 ranks);
+    constrain refuses a tensor that is not this rank's block of its
+    role."""
     mesh = ProcessMesh(("data", "model"), (1, 1), "cpu")
     batch = {"tokens": torch.zeros((2, 4), dtype=torch.long),
              "labels": torch.zeros((2, 4), dtype=torch.long)}
-    for arch in ("mamba2-130m", "recurrentgemma-2b", "whisper-medium"):
-        model = build_model(get_config(arch).reduced(),
-                            compute_dtype=torch.float32, device="cpu")
+    for arch in ("qwen1.5-0.5b", "llama4-scout-17b-a16e", "minicpm3-4b",
+                 "mamba2-130m", "recurrentgemma-2b", "whisper-medium"):
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg, compute_dtype=torch.float32, device="cpu")
         rules = trules.make_rules(mesh, "train", 2,
                                   kv_sharded=model.kv_sharded)
-        with pytest.raises(NotImplementedError, match="15e.2b part 2"):
-            model.init(torch.Generator(), rules)
-        params = model.master_params(generator=torch.Generator())
-        with tctx.sharding_ctx(rules, mesh):
-            with pytest.raises(NotImplementedError, match="15e.2b part 2"):
-                model.loss(batch, params)
-    for arch in ("qwen1.5-0.5b", "llama4-scout-17b-a16e", "minicpm3-4b"):
-        model = build_model(get_config(arch).reduced(),
-                            compute_dtype=torch.float32, device="cpu")
-        rules = trules.make_rules(mesh, "train", 2)
         params = model.master_params(
             generator=torch.Generator().manual_seed(3))
+        b = dict(batch)
+        if cfg.family == "audio":
+            b["frames"] = torch.randn(
+                (2, cfg.encoder_len, cfg.d_model),
+                generator=torch.Generator().manual_seed(4))
         with tctx.sharding_ctx(rules, mesh):
-            sharded = model.loss(batch, params)
-        assert torch.equal(sharded, model.loss(batch, params)), arch
+            sharded = model.loss(b, params)
+        assert torch.equal(sharded, model.loss(b, params)), arch
     with tctx.sharding_ctx(trules.make_rules(mesh, "prefill", 2), mesh):
         with pytest.raises(ValueError, match="train rules"):
             model.loss(batch, params)

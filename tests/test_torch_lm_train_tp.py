@@ -34,7 +34,8 @@ vocabulary padded for tp, and the TP rules without sequence parallelism
 ``make_train_step(model, opt, rules)`` on a 4-device host mesh. A
 checkpoint written on (1, 4) continues there bit for bit, restores on
 (2, 2) under both rule sets leaf for leaf, and reads back in the JAX
-package. Then the refusals (ROADMAP item 15e.2b part 2).
+package. Then one step of the SSD, the RG-LRU and the encoder-decoder
+under both rule sets on (1, 4), the same on every rank.
 """
 import contextlib
 import dataclasses
@@ -72,8 +73,9 @@ pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 SPAWN_TIMEOUT_S = 300
 ARCHS = ("qwen1.5-0.5b", "stablelm-1.6b", "phi3-medium-14b",
          "phi-3-vision-4.2b")
-# trained under the rules in tests/test_torch_lm_train_tp_mixers.py: MoE
-# and MLA; refused: the SSD, the RG-LRU and the encoder-decoder
+# trained under the rules, against the JAX package, in
+# tests/test_torch_lm_train_tp_mixers.py (MoE, MLA) and
+# tests/test_torch_lm_train_tp_recurrent.py (these three)
 MIXER_ARCHS = ("mamba2-130m", "recurrentgemma-2b", "whisper-medium")
 MESHES = ((1, 2), (1, 4), (2, 2))
 OPT = {"lr": 1e-3, "warmup_steps": 2}
@@ -299,28 +301,37 @@ def _checkpoint(rank, res, ckpt_dir):
     res["ckpt__path"] = np.array(path)
 
 
-def _message(fn) -> str:
-    try:
-        fn()
-    except (NotImplementedError, ValueError) as e:
-        return f"{type(e).__name__}: {e}"
-    return "no error"
-
-
-def _refusals(res):
+def _other_mixers(res):
+    """The SSD, the RG-LRU and the encoder-decoder, reduced, one step on
+    (1, 4) under the TP rules (at tp 4) and under no_tp (at tp 1), each
+    rank on its rows of one batch: the step's metrics."""
     mesh = ProcessMesh(("data", "model"), (1, 4), "cpu")
     out = {}
     for arch in MIXER_ARCHS:
+        cfg = get_config(arch).reduced()
+        rng = np.random.default_rng(13)
+        batch = {k: rng.integers(0, cfg.vocab_size, (1, 4, 16)).astype(
+            np.int32) for k in ("tokens", "labels")}
+        if cfg.family == "audio":
+            batch["frames"] = rng.standard_normal(
+                (1, 4, cfg.encoder_len, cfg.d_model)).astype(np.float32)
         for no_tp in (False, True):
-            model = build_model(get_config(arch).reduced(),
-                                tp=1 if no_tp else 4, device="cpu")
+            model = build_model(cfg, tp=1 if no_tp else 4,
+                                compute_dtype=torch.float32, device="cpu")
             rules = trules.make_rules(mesh, "train", 4,
                                       kv_sharded=model.kv_sharded,
                                       no_tp=no_tp)
-            out[f"{arch}-{no_tp}"] = _message(
-                lambda: tstep.make_train_step(model, topt.AdamWConfig(),
-                                              rules))
-    res["refusals"] = np.array(json.dumps(out))
+            bax = rules.batch_axes
+            lo, hi = trules.block_range(4, mesh.axis_size(bax),
+                                        mesh.axis_index(bax))
+            params = model.master_params(
+                generator=torch.Generator().manual_seed(3), rules=rules)
+            step = tstep.make_train_step(model, topt.AdamWConfig(), rules)
+            _, _, m = step(params, topt.init_opt_state(params),
+                           {k: v[:, lo:hi] for k, v in batch.items()})
+            out[f"{arch}-{no_tp}"] = [float(m[k]) for k in
+                                      ("loss", "grad_norm", "lr")]
+    res["other_mixers"] = np.array(json.dumps(out))
 
 
 def _world(rank, world, res, out):
@@ -329,7 +340,7 @@ def _world(rank, world, res, out):
             _train(name, case, res)
     if world == 4:
         _checkpoint(rank, res, os.path.join(out, "ckpt"))
-        _refusals(res)
+        _other_mixers(res)
     return res
 
 
@@ -634,13 +645,15 @@ def test_sharded_checkpoint_round_trips(runs):
         assert np.array_equal(x.numpy(), saved[p]), p
 
 
-def test_sharded_training_refuses_the_other_mixers(runs):
-    """The SSD, the RG-LRU and the encoder-decoder under the TP rules (at
-    tp 4) and under no_tp (at tp 1) on a (1, 4) mesh: ROADMAP item 15e.2b
-    part 2 (MoE and MLA train: tests/test_torch_lm_train_tp_mixers.py)."""
-    got = json.loads(str(runs["ranks"][4][0]["refusals"]))
-    assert sorted(got) == sorted(f"{a}-{n}" for a in MIXER_ARCHS
-                                 for n in (False, True))
-    for key, msg in got.items():
-        assert msg.startswith("NotImplementedError") and \
-            "15e.2b part 2" in msg, (key, msg)
+def test_sharded_training_takes_the_other_mixers(runs):
+    """The SSD, the RG-LRU and the encoder-decoder train under the TP rules
+    (at tp 4) and under no_tp (at tp 1) on a (1, 4) mesh: one step, its
+    metrics finite and the same on every rank
+    (tests/test_torch_lm_train_tp_recurrent.py holds them to the JAX
+    package)."""
+    ranks = [json.loads(str(r["other_mixers"])) for r in runs["ranks"][4]]
+    assert sorted(ranks[0]) == sorted(f"{a}-{n}" for a in MIXER_ARCHS
+                                      for n in (False, True))
+    for key, metrics in ranks[0].items():
+        assert all(np.isfinite(metrics)), (key, metrics)
+        assert all(r[key] == metrics for r in ranks), key

@@ -560,14 +560,18 @@ def test_partial_grad_leaves_are_their_mixers_own(arch):
     computes part of their gradient (``ParamSpec.partial_grad``, read by
     ``grad_reduce_axes``) are marked by their own mixer and kept through
     the layer stack: the MoE router and MLA's latent projections and norms,
-    and no other leaf of any config, whatever its name (the SSD's gated
-    norm is a "norm" too)."""
+    the SSD's B and C projections and convs (each rank's heads read B and
+    C whole), the RG-LRU's gate biases and decay (sliced to each rank's
+    channels), and no other leaf of any config, whatever its name (the
+    SSD's gated norm is a "norm" too; the encoder-decoder marks none)."""
     model = build_model(get_config(arch).reduced(), tp=4, device="cpu")
     specs = model.param_specs()
     marked = {p[-2:] for p, s in zip(tree_paths(specs), tree_leaves(specs))
               if s.partial_grad}
     want = {("mlp", "router")} if model.cfg.moe else set()
-    if arch == MINICPM3:
-        want |= {("mixer", n) for n in ("wdq", "wdkv", "wkr", "q_norm",
-                                        "kv_norm")}
+    mixer = {MINICPM3: ("wdq", "wdkv", "wkr", "q_norm", "kv_norm"),
+             "mamba2-130m": ("wb", "wc", "conv_b", "conv_bb", "conv_c",
+                             "conv_cb"),
+             "recurrentgemma-2b": ("ba", "bx", "lam")}.get(arch, ())
+    want |= {("mixer", n) for n in mixer}
     assert marked == want

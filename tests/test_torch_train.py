@@ -65,6 +65,7 @@ from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_paths  # noqa: E402
 from repro_torch.runtime.mesh import ProcessMesh  # noqa: E402
+from repro_torch.sharding.ctx import sharding_ctx  # noqa: E402
 from repro_torch.sharding.rules import make_rules  # noqa: E402
 from repro_torch.train import checkpoint as tckpt  # noqa: E402
 from repro_torch.train import compress as tcompress  # noqa: E402
@@ -401,20 +402,32 @@ def test_train_step_descends_and_counts():
 
 
 def test_train_step_refuses_sharding_rules_and_builds_batch_structs():
-    """Under sharding rules (TP or no_tp) make_train_step refuses the SSD,
-    the RG-LRU and the encoder-decoder (ROADMAP item 15e.2b part 2;
-    tests/test_torch_lm_train_tp.py and test_torch_lm_train_tp_mixers.py
-    train the GQA, MoE and MLA configs it takes); batch_struct is the JAX
-    package's."""
+    """Under sharding rules (TP or no_tp) of a (1, 1) mesh make_train_step
+    builds for the SSD, the RG-LRU and the encoder-decoder, and the loss
+    under each rule set is the unsharded loss bit for bit
+    (tests/test_torch_lm_train_tp*.py train every family on 2 and 4
+    ranks); batch_struct is the JAX package's."""
     mesh = ProcessMesh(("data", "model"), (1, 1), "cpu")
     for arch in ("mamba2-130m", "recurrentgemma-2b", "whisper-medium"):
-        model = build_model(get_config(arch).reduced(),
-                            compute_dtype=torch.float32, device="cpu")
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+        params = model.master_params(generator=torch.Generator()
+                                     .manual_seed(3))
+        gen = torch.Generator().manual_seed(4)
+        batch = {k: torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+                 for k in ("tokens", "labels")}
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((2, cfg.encoder_len, cfg.d_model),
+                                          generator=gen)
+        plain = model.loss(batch, params)
         for no_tp in (False, True):
             rules = make_rules(mesh, "train", 2, kv_sharded=model.kv_sharded,
                                no_tp=no_tp)
-            with pytest.raises(NotImplementedError, match="15e.2b part 2"):
-                tstep.make_train_step(model, topt.AdamWConfig(), rules=rules)
+            assert callable(tstep.make_train_step(model, topt.AdamWConfig(),
+                                                  rules=rules))
+            with sharding_ctx(rules, mesh):
+                sharded = model.loss(batch, params)
+            assert torch.equal(sharded, plain), (arch, no_tp)
     for arch in ("qwen1.5-0.5b", "phi-3-vision-4.2b", "whisper-medium"):
         for bf16 in (False, True):
             model = build_model(get_config(arch).reduced(), device="cpu",
