@@ -100,14 +100,16 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     here); the shard sink at reduced depth (preset hub_stress on flat(1):
     rank 0 gathers and writes each block), read back and resumed. Each
     run has its launch counts set to 0 just before it and read just
-    after, then a profiled run (the card's idle share) and a run with its
-    host ops traced, which must show c10d::alltoall_base_ once for
-    exchange 1 plus once per exchange round (twice that on pods(1, 1);
-    none for PK and R-MAT); each prints its wall, peak device memory (and
-    its excess over phase 4's) and idle share. The sharded analytics
-    (degree_counts_sharded, edge_count_sharded, max_degree_sharded) of a
-    flat(1) run must equal phase 4's degree counts, the run's emitted
-    edges and their max. The group is destroyed at the end of the phase.
+    after, then a profiled run (the card's idle share) and a run under
+    the collective auditor's recorder (analysis/audit.py), which must
+    show c10d::alltoall_base_ once for exchange 1 plus once per exchange
+    round (twice that on pods(1, 1); none for PK and R-MAT:
+    audit.expected_all_to_alls); each prints its wall, peak device
+    memory (and its excess over phase 4's) and idle share. The sharded
+    analytics (degree_counts_sharded, edge_count_sharded,
+    max_degree_sharded) of a flat(1) run must equal phase 4's degree
+    counts, the run's emitted edges and their max. The group is destroyed
+    at the end of the phase.
  8. lm_serve: the LM serving path (repro_torch.configs / models / serve)
     of all ten configs, which launches none of the port's kernels (their
     counts must stay 0). Every case of src/repro_torch/reference_lm.json
@@ -194,10 +196,20 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     algorithms: the loss, the grad norm and every updated leaf equal bit
     for bit (a difference would be held to rtol 1e-6 and reported); no
     kernel launched by the steps.
-11. the seconds from the start to each phase's end; the kernels line
-    (with each kernel's launches in the distributed runs and in the
-    training corpus's build; histogram's also in the analytics runs), then
-    {"ok": true, "device": {...}} as the last line.
+11. analysis: the kernel checker over the registry on the card
+    (analysis/kernelcheck.py): every registry case through its kernel,
+    bit for bit against its plain version over a sentinel-filled
+    allocator (KC006), one launch of its own kernel (KC000), and every
+    launch within the device's own limits and the compiled attributes
+    (KC004), each kernel's compiled attributes (registers, static shared
+    memory, the launch bound, local memory) printed; phase 7's collective
+    audits printed. (The sanitizer pass, KC001 and KC003, is
+    scripts/torch_kernel_sanitize.py: compute-sanitizer refuses this
+    machine's card, PERF.md.) Then the seconds from the start to each
+    phase's end; the kernels line (with each kernel's launches in the
+    distributed runs and in the training corpus's build; histogram's also
+    in the analytics runs), then {"ok": true, "device": {...}} as the last
+    line.
 
 Exits with a non-zero code and prints no result when CUDA is not
 available or the repository's src/ is not beside this file.
@@ -976,26 +988,6 @@ def stage_times(torch, api, pl) -> dict:
     timed("exchange2_with_pool_s", lambda: pba._streamed_exchange2(
         a, occ, counts, recv, ranks, cfg, pl.pair_capacity, p, topo))
     return out
-
-
-def host_op_calls(torch, fn, names: tuple) -> dict:
-    """Calls of each host-side op in ``names`` (e.g. a collective's
-    dispatcher op, ``c10d::alltoall_base_``) during one fn(), from
-    torch.profiler's trace of the host's ops. The trace's raw events are
-    scanned: building its event tree would take ~0.3 ms per event, and
-    a PBA run records hundreds of thousands."""
-    from torch.profiler import ProfilerActivity, profile
-    sync = torch.cuda.synchronize if torch.cuda.is_available() \
-        else (lambda: None)       # a gloo rehearsal on the CPU
-    sync()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        fn()
-        sync()
-    calls = dict.fromkeys(names, 0)
-    for e in prof.profiler.kineto_results.events():
-        if e.name() in calls:
-            calls[e.name()] += 1
-    return calls
 
 
 def profile_run(torch, api, spec, dev, kernel: str = "",
@@ -1948,6 +1940,7 @@ def pk_self_similarity(torch, api, ops, dev) -> tuple[dict, list]:
 # --- phase 7: the torch.distributed path -------------------------------------------
 
 A2A_OP = "c10d::alltoall_base_"     # all_to_all_single's dispatcher op
+AUDITS: list = []                   # phase 7's collective audits
 DIST_PK_LEVELS = 9                  # L=10's 3.49B edges pass int32 only
                                     # split over several ranks
 
@@ -2018,11 +2011,12 @@ def distributed_phases(torch, np, api, ops, edge_digest, dev,
 def distributed_run(torch, api, ops, edge_digest, dev, label: str, spec,
                     want: str, executor: str, hops: int, keep: bool = False):
     """One run through the group: launch counts set to 0 just before and
-    read just after, the digest against ``want``, then a profiled run
-    whose all-to-all count must be ``hops`` x (exchange 1 + one per
-    exchange round) (0: no all-to-all at all), counted in one more run
-    whose host ops are traced. Returns the row, the launch counts and,
-    with ``keep``, the first run's result (else None)."""
+    read just after, the digest against ``want``, then a profiled run,
+    then one more run under the collective auditor's recorder
+    (``analysis/audit.py``), whose all-to-all count must be ``hops`` x
+    (exchange 1 + one per exchange round) (0: no all-to-all at all).
+    Returns the row, the launch counts and, with ``keep``, the first
+    run's result (else None)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
@@ -2046,17 +2040,27 @@ def distributed_run(torch, api, ops, edge_digest, dev, label: str, spec,
            "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
            "sha256": got, "matches_one_device_path": got == want}
     kept = res if keep else None
+    topo = res.plan.topology
     del res
     torch.cuda.empty_cache()
-    rounds = st.exchange_rounds
-    expect = hops * (1 + rounds)
     prof = profile_run(torch, api, spec, dev)
     row["profile"] = {k: prof[k] for k in (
         "wall_s", "profiled_runs", "complete", "kernels_busy_s",
         "device_idle_share_of_wall")}
-    row["op_calls"] = host_op_calls(
-        torch, lambda: api.generate(spec, device=dev), (A2A_OP,))
+    # The collective auditor's record of one more run: all_to_all
+    # calls hops x (exchange 1 + one per exchange round), none without
+    # an exchange (audit.expected_all_to_alls), the same on every rank.
+    from repro_torch.analysis import audit
+    _, calls = audit.record(lambda: api.generate(spec, device=dev))
+    checked = audit.check_calls(
+        [calls], topo, label, "exchange_streamed" if hops else "cfree",
+        st.exchange_rounds)
+    AUDITS.append(checked.to_json())
+    expect = checked.expected_all_to_alls
+    row["op_calls"] = {A2A_OP: checked.all_to_alls,
+                       **checked.to_json()["opcodes"]}
     row["expected_all_to_all_per_run"] = expect
+    row["audit_problems"] = checked.problems
     kernels = {"generate_pk": ("pk_expand",),
                "generate_cfree": ("cfree_expand",)}.get(
         executor, STREAM_PATH_KERNELS if executor == "pba_stream_sharded"
@@ -2064,7 +2068,7 @@ def distributed_run(torch, api, ops, edge_digest, dev, label: str, spec,
     if row["executor"] != executor or not row["matches_one_device_path"] \
             or st.dropped_edges or st.fallback_counts != {} \
             or min(launches[k] for k in kernels) < 1 \
-            or row["op_calls"][A2A_OP] != expect:
+            or row["op_calls"][A2A_OP] != expect or not checked.ok:
         emit(row)
         raise AssertionError(f"{label}: the distributed path differs from "
                              "the one-device path, or took another route")
@@ -3494,25 +3498,13 @@ LM_TP_SMOKE_LAYERS = {"llama4-scout-17b-a16e": 2, "minicpm3-4b": 2,
 LM_TP_FULL_LAYERS = {"llama4-scout-17b-a16e": 48, "minicpm3-4b": 62,
                      "mamba2-130m": 24, "recurrentgemma-2b": 26,
                      "whisper-medium": 24}
-C10D_PREFIX = "c10d::"      # the collectives' dispatcher ops
-
-
 def c10d_calls(torch, fn) -> dict:
     """Calls of each c10d dispatcher op (the collectives) during one
-    fn(), by name, from torch.profiler's trace of the host's ops (raw
-    events, as host_op_calls scans them)."""
-    from torch.profiler import ProfilerActivity, profile
-    sync = torch.cuda.synchronize if torch.cuda.is_available() \
-        else (lambda: None)
-    sync()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        fn()
-        sync()
-    calls: dict = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.name().startswith(C10D_PREFIX):
-            calls[e.name()] = calls.get(e.name(), 0) + 1
-    return dict(sorted(calls.items()))
+    fn(), by name (``c10d::<op>``), as the collective auditor's recorder
+    (``repro_torch.analysis.audit``) sees them on this rank."""
+    from repro_torch.analysis import audit
+    from repro_torch.launch import op_stats
+    return op_stats.collect_opcode_stats(audit.record(fn)[1])
 
 
 def lm_tp_model(torch, dev, arch: str, layers: int = 0, tp: int = 1,
@@ -3867,6 +3859,39 @@ def lm_sharded_train(torch, np, dev, mesh) -> dict:
     return rows
 
 
+# --- phase 11: the analysis tools on the card --------------------------------------
+
+def analysis_phase(torch, dev) -> None:
+    """The kernel checker over the registry on the card (every case
+    through its kernel against its plain version, the launch counts, the
+    launches against the device's limits and compiled attributes) and
+    phase 7's collective audits. Raises on any finding."""
+    from repro_torch.analysis import kernelcheck
+    t0 = time.perf_counter()
+    findings, inv = kernelcheck.run_registry(device=dev, execute=True)
+    cases = [c for e in inv["kernels"].values()
+             for c in e["cases"].values()]
+    emit({"phase": "analysis_kernels", "wall_s": time.perf_counter() - t0,
+          "cases": len(cases),
+          "equal_to_plain": sum(c["differential"] == "equal"
+                                for c in cases),
+          "limits": inv["limits"], "compiled": inv["compiled"],
+          "findings": [f.to_json() for f in findings]})
+    for kernel, attrs in sorted(inv["compiled"].items()):
+        print(f"compiled {kernel}: registers {attrs['numRegs']}, static "
+              f"shared {attrs['sharedSizeBytes']} B, at most "
+              f"{attrs['maxThreadsPerBlock']} threads, local "
+              f"{attrs['localSizeBytes']} B", flush=True)
+    emit({"phase": "analysis_audit", "programs": AUDITS})
+    if findings or len(cases) != sum(c["differential"] == "equal"
+                                     for c in cases):
+        raise AssertionError(f"the kernel checker found "
+                             f"{[f.format() for f in findings]}")
+    if len(AUDITS) != 5 or any(a["problems"] for a in AUDITS):
+        raise AssertionError("phase 7's collective audits are missing or "
+                             "failed")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4106,9 +4131,12 @@ def main() -> int:
     # 10. sharded LM serving on one card: no kernel lies on it either
     lm_sharded_phase(torch, np, dev)
     phase_done("10_lm_sharded")
+
+    # 11. the analysis tools on the card, then the kernels line
+    analysis_phase(torch, dev)
+    phase_done("11_analysis")
     emit({"phase": "phase_ends", "seconds_from_start": phase_ends})
 
-    # 11. the kernels line and the last line
     table = {
         "resolve_roots": ("src/repro/kernels/edge_resolve.py:87",
                           "src/repro_torch/kernels/csrc/resolve.cu",

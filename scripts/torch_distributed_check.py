@@ -407,10 +407,11 @@ def main() -> int:
         calls = None
         if name.startswith("pba_sharded"):
             if rank == 0:
-                calls = chip_smoke.host_op_calls(
-                    torch, lambda: api.generate(
-                        spec, device=None if gpu else device),
-                    (chip_smoke.A2A_OP,))[chip_smoke.A2A_OP]
+                from repro_torch.analysis import audit
+                _, recorded = audit.record(lambda: api.generate(
+                    spec, device=None if gpu else device))
+                sync()
+                calls = sum(c.kind == "all-to-all" for c in recorded)
             else:
                 api.generate(spec, device=None if gpu else device)
                 sync()
@@ -684,7 +685,8 @@ def lm_tp_case(torch, np, chip_smoke, run, shape, refs, rank: int,
         row["parts"] = chip_smoke.lm_gap_parts(torch, got, want)
         del full, want
     else:
-        with sharding_ctx(prules, mesh), chip_smoke.lm_moe_calls(
+        with sharding_ctx(prules, mesh, model.cfg.d_model), \
+                chip_smoke.lm_moe_calls(
                 moe.dropped_assignments) as tdrops:
             full = model({"tokens": mine, **extras})
         row["teacher_dropped"] = sum(tdrops)

@@ -9,6 +9,10 @@ layout), so the same spec draws the same graph on either package:
   bits32(k, n)[i] = x0 ^ x1 of threefry2x32(k, (i >> 32, i & 0xFFFFFFFF))
   uniform(k, n)   = bitcast_f32((bits >> 9) | 0x3F800000) - 1
 
+:func:`tapped` lets a caller watch every key derivation and draw in a
+scope (``analysis/flowcheck.py``'s FC001 records each draw's stream,
+rank, offset and count); with no tap the hooks cost one list test.
+
 Unsigned 32-bit words are held in int64 tensors and masked after every
 add and shift, since torch's uint32 coverage is thin. A draw of n words
 holds a few (n,) int64 temporaries, so callers draw per rank (or per chunk
@@ -17,7 +21,8 @@ ints: keys are derived on the host, words on the tensor's device.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+import contextlib
+from typing import Callable, Iterator, Sequence, Union
 
 import torch
 
@@ -40,6 +45,27 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 Key = tuple[int, int]
+
+_TAPS: list = []
+
+
+@contextlib.contextmanager
+def tapped(fn: Callable) -> Iterator[None]:
+    """Call ``fn(event, *details)`` for each keyed derivation and draw in
+    the scope: ("device_key", out, seed, stream, rank) and ("bits", key,
+    offset, count). Every draw (``uniform``, ``coin``, ``uniform_slots``,
+    ``uniform_ints``) goes through :func:`bits`, so a draw whose key no
+    ``device_key`` made shows as one of an unknown key."""
+    _TAPS.append(fn)
+    try:
+        yield
+    finally:
+        _TAPS.remove(fn)
+
+
+def _tap(*event) -> None:
+    for fn in tuple(_TAPS):
+        fn(*event)
 
 
 def _rotl(x, r: int):
@@ -81,7 +107,11 @@ def fold_in(k: Key, data: int) -> Key:
 def device_key(seed: Union[int, Key], stream: int, rank: int) -> Key:
     """Key for ``rank``'s draws in ``stream``."""
     k = key(seed) if isinstance(seed, int) else seed
-    return fold_in(fold_in(k, stream), rank)
+    out = fold_in(fold_in(k, stream), rank)
+    if _TAPS:
+        _tap("device_key", out, seed if isinstance(seed, int) else None,
+             int(stream), int(rank))
+    return out
 
 
 def bits(k: Key, shape: Union[int, Sequence[int]], device=None,
@@ -100,6 +130,8 @@ def bits(k: Key, shape: Union[int, Sequence[int]], device=None,
     offset = int(offset)
     if offset < 0:
         raise ValueError(f"offset must be >= 0, got {offset}")
+    if _TAPS:
+        _tap("bits", tuple(k), offset, n)
     i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     x0, x1 = threefry2x32(k, i >> 32, i & MASK32)
     return (x0 ^ x1).reshape(shape)

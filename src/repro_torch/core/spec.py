@@ -27,6 +27,14 @@ CFREE_MODELS = ("ba_cfree", "rmat", "er")
 EXECUTIONS = ("auto", "host", "sharded", "streamed")
 SINKS = ("memory", "shards")
 
+#: Declared determinism roots (``analysis/flowcheck.py``, pass FC001; a
+#: copy of the JAX package's ``core/spec.py`` tuple): every draw of a
+#: generation program derives from these alone: the config ``seed``, the
+#: device/rank identity and static budget shapes. Runtime data (faction
+#: tables, counts, demand, carried state) never reaches a key or a draw's
+#: size: the phase-2 pool contract (pool = f(seed, rank, budget)).
+DETERMINISM_ROOTS = ("seed", "rank", "static_budgets")
+
 
 @dataclasses.dataclass(frozen=True)
 class SeedGraph:
@@ -139,6 +147,34 @@ class GraphSpec:
     # Execution details, not graph identity: they route the same bits.
     _NON_IDENTITY_FIELDS = ("out_dir", "execution", "sink", "num_shards",
                             "topology", "overlap")
+
+    # The classes of the non-identity fields (``analysis/flowcheck.py``,
+    # pass FC003; the JAX package's tables): a routing field may change
+    # the program a plan runs but never the digest or the edges; a sink
+    # field changes none of them. Together they partition
+    # _NON_IDENTITY_FIELDS.
+    _ROUTING_FIELDS = ("topology", "execution", "overlap")
+    _SINK_FIELDS = ("sink", "out_dir", "num_shards")
+
+    # Identity fields whose effect binds only at run time (demand-derived
+    # sizing): the digest covers them, the edges of a given plan need not
+    # move.
+    _RUNTIME_ONLY_FIELDS = ("auto_capacity",)
+
+    # Identity fields owned by one model: perturbing them moves the digest
+    # and only that model's graphs.
+    _MODEL_OWNED_FIELDS = {
+        "pba": ("procs", "vertices_per_proc", "edges_per_vertex",
+                "factions", "interfaction_prob", "pair_capacity",
+                "exchange_rounds", "total_capacity_factor",
+                "auto_capacity"),
+        "pk": ("levels", "seed_graph", "noise", "delete_prob",
+               "slab_edges"),
+        "ba_cfree": ("cfree_vertices", "ba_degree", "slab_edges"),
+        "rmat": ("cfree_vertices", "cfree_edges", "rmat_a", "rmat_b",
+                 "rmat_c", "slab_edges"),
+        "er": ("cfree_vertices", "cfree_edges", "slab_edges"),
+    }
 
     def digest(self) -> str:
         """Fingerprint of every generation-relevant field (execution mode,

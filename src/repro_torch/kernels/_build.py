@@ -29,6 +29,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("gather", "resolve", "histogram", "band_compact", "pk_expand",
            "cfree_expand")
+#: The compiled kernels of each source, in the order its
+#: ``repro_<source>_kernel_attributes(k, out)`` numbers them.
+KERNELS = {
+    "gather": ("gather_rows_kernel",),
+    "resolve": ("resolve_roots_kernel",),
+    "histogram": tuple(f"histogram_kernel<{kind}, {masked}>"
+                       for kind in ("kBlock", "kCluster", "kGlobal")
+                       for masked in ("false", "true")),
+    "band_compact": ("count_kernel", "scatter_kernel<true>",
+                     "scatter_kernel<false>"),
+    "pk_expand": ("pk_expand_kernel<true>", "pk_expand_kernel<false>"),
+    "cfree_expand": ("cfree_expand_kernel_ba",
+                     "cfree_expand_kernel_quad<kRmat>",
+                     "cfree_expand_kernel_quad<kEr>"),
+}
+#: The ``cudaFuncAttributes`` fields each entry fills, in its order.
+ATTRIBUTES = ("numRegs", "sharedSizeBytes", "maxThreadsPerBlock",
+              "localSizeBytes")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -97,3 +115,44 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def kernel_attributes(name: str) -> dict[str, dict[str, int]]:
+    """The compiled attributes (:data:`ATTRIBUTES`) of every kernel of
+    ``csrc/<name>.cu`` on the current device, by kernel (building the
+    source on first use). Raises on a CUDA error."""
+    fn = getattr(library(name), f"repro_{name}_kernel_attributes")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = {}
+    for k, kernel in enumerate(KERNELS[name]):
+        vals = (ctypes.c_int * len(ATTRIBUTES))()
+        code = fn(k, vals)
+        if code:
+            raise RuntimeError(f"cudaFuncGetAttributes({kernel}) failed "
+                               f"({code})")
+        out[kernel] = dict(zip(ATTRIBUTES, vals))
+    return out
+
+
+def device_limits(index: int):
+    """What card ``index`` allows a launch, as a
+    ``kernels.geometry.Limits`` (read by ``cudaDeviceGetAttribute``)."""
+    from repro_torch.kernels.geometry import Limits
+    fn = library("gather").repro_device_limits
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 7)()
+    code = fn(index, vals)
+    if code:
+        raise RuntimeError(f"cudaDeviceGetAttribute on cuda:{index} failed "
+                           f"({code})")
+    threads, gx, gy, gz, optin, sms, cluster = vals
+    import torch
+
+    from repro_torch.kernels.edge_resolve import resident_blocks
+    return Limits(max_threads_per_block=threads, max_grid=(gx, gy, gz),
+                  smem_optin=optin, sms=sms,
+                  cluster_portable=8 if cluster else 1,
+                  gather_blocks_per_sm=resident_blocks(
+                      torch.device("cuda", index)) // sms)

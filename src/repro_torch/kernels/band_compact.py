@@ -20,7 +20,9 @@ Bound: bytes. The function must read ``band`` once (1 byte per entry),
 the kernel writes every output element once and adds the masks (an eighth
 of ``band``'s bytes, written and read once).
 
-The wrapper runs the plain version (``kernels/ref.py``) for a CPU tensor
+The launch's grid and block come from ``kernels/geometry.py``'s
+``band_compact``, which the kernel checker reads too. The wrapper runs
+the plain version (``kernels/ref.py``) for a CPU tensor
 and launches the kernel for a CUDA tensor (counted in :data:`launches`);
 it raises on anything the kernel does not take, allocates the outputs and
 the kernel's scratch with ``torch.empty``, launches on the current stream
@@ -32,7 +34,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, geometry
 from repro_torch.kernels.dispatch import mode
 # The plain version the wrapper runs for CPU tensors.
 from repro_torch.kernels.ref import band_compact_ref
@@ -48,8 +50,8 @@ def _fn():
     if _c_fn is None:
         lib = _build.library("band_compact")
         fn = lib.repro_band_compact_i32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5 \
+            + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         scratch = lib.repro_band_compact_scratch_bytes
         scratch.argtypes = [ctypes.c_int64] * 2
@@ -96,10 +98,12 @@ def band_compact(u: torch.Tensor, v: torch.Tensor, band: torch.Tensor,
     # int32 elements: the kernel's tile counts need 4-byte alignment.
     scratch = torch.empty(-(-scratch_bytes(rows, e) // 4), dtype=torch.int32,
                           device=u.device)
+    launch, _ = geometry.band_compact(rows, e)     # both passes alike
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(u.data_ptr(), v.data_ptr(), band.data_ptr(), uo.data_ptr(),
-                  vo.data_ptr(), scratch.data_ptr(), rows, e, cap, stream)
+                  vo.data_ptr(), scratch.data_ptr(), rows, e, cap,
+                  launch.grid[0], launch.grid[1], launch.block[0], stream)
     if code:
         raise RuntimeError(f"band_compact kernel launch failed: "
                            f"{err(code).decode()} ({code})")

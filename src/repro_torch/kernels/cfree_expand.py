@@ -21,10 +21,12 @@ vectors.
 
 Bound: bytes on the slabs (12 B per edge), integer operations for rmat.
 
-The wrapper runs the plain version (``kernels/ref.py``) for a CPU tensor
-and launches the kernel for a CUDA tensor (counted in :data:`launches`);
-it raises on anything the kernel does not take, allocates the outputs
-with ``torch.empty`` (at ``t``'s offset from 16 bytes, so that the three
+The launch (at most 8 blocks of 256 threads an SM, grid-stride) comes
+from ``kernels/geometry.py``'s ``cfree_expand``, which the kernel checker
+reads too. The wrapper runs the plain version (``kernels/ref.py``) for a
+CPU tensor and launches the kernel for a CUDA tensor (counted in
+:data:`launches`); it raises on anything the kernel does not take,
+allocates the outputs with ``torch.empty`` (at ``t``'s offset from 16 bytes, so that the three
 share their vector boundaries), launches on the current stream and does
 not synchronise.
 """
@@ -35,7 +37,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, geometry
 from repro_torch.kernels.dispatch import mode
 from repro_torch.kernels.pk_expand import division_magic
 # The plain version the wrapper runs for CPU tensors.
@@ -59,7 +61,7 @@ def _fn():
                        + [ctypes.c_uint32] * 6
                        + [ctypes.c_int32, ctypes.c_int32]
                        + [ctypes.c_uint32] * 3
-                       + [ctypes.c_int64, ctypes.c_void_p])
+                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.repro_cfree_expand_error.argtypes = [ctypes.c_int]
         lib.repro_cfree_expand_error.restype = ctypes.c_char_p
@@ -72,9 +74,8 @@ _magic = functools.lru_cache(maxsize=None)(division_magic)
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks(index: int) -> int:
-    """At most 8 blocks of 256 threads per SM, grid-stride."""
-    return 8 * torch.cuda.get_device_properties(index).multi_processor_count
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def cfree_expand(t: torch.Tensor, words, *, model: str, n: int,
@@ -118,12 +119,13 @@ def cfree_expand(t: torch.Tensor, words, *, model: str, n: int,
     magic, shift = (_magic(ba_degree)
                     if model == "ba_cfree" and ba_degree > 1 else (0, 0))
     fn, err = _fn()
+    launch = geometry.cfree_expand(m, phase, model, _sms(dev.index))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(t.data_ptr(), u.data_ptr(), v.data_ptr(), m,
                   MODELS.index(model), *words, n, magic, shift,
-                  n.bit_length() - 1, ta, tb, tc, _blocks(dev.index),
-                  stream)
+                  n.bit_length() - 1, ta, tb, tc, launch.grid[0],
+                  launch.block[0], stream)
     if code:
         raise RuntimeError(f"cfree_expand kernel launch failed: "
                            f"{err(code).decode()} ({code})")

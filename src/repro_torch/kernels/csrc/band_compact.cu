@@ -312,21 +312,25 @@ extern "C" int64_t repro_band_compact_scratch_bytes(int64_t rows,
 // u, v: (rows, e) int32; band: (rows, e) bool (one byte, 0 or nonzero);
 // uo, vo: (rows, cap) int32, written in full; scratch:
 // repro_band_compact_scratch_bytes(rows, e) bytes, 4-byte aligned, any
-// contents. Launches two kernels on stream.
+// contents. (gx, gy, block): the launch of kernels/geometry.py's
+// band_compact, both passes: a block per tile along x (exactly the tiles),
+// rows along y. Launches two kernels on stream.
 extern "C" int repro_band_compact_i32(const void* u, const void* v,
                                       const void* band, void* uo, void* vo,
                                       void* scratch, int64_t rows,
-                                      int64_t e, int64_t cap, void* stream) {
+                                      int64_t e, int64_t cap, int64_t gx,
+                                      int64_t gy, int block, void* stream) {
   if (rows <= 0 || e <= 0 || cap <= 0) return 0;
   const int64_t nv_max = e >> 4;
   const int64_t n_tiles = nv_max > 0 ? (nv_max + kVecs - 1) / kVecs : 1;
   if (n_tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (block != kThreads || gx != n_tiles || gy < 1 || gy > 65535)
+    return (int)cudaErrorInvalidConfiguration;
   int64_t pad_chunk = (cap + n_tiles - 1) / n_tiles;
   pad_chunk = (pad_chunk + 3) & ~(int64_t)3;
   int32_t* tile_counts = (int32_t*)scratch;
   uint16_t* masks = (uint16_t*)(tile_counts + rows * n_tiles);
-  const int64_t by = rows < 65535 ? rows : 65535;
-  const dim3 grid((unsigned)n_tiles, (unsigned)by);
+  const dim3 grid((unsigned)gx, (unsigned)gy);
   cudaStream_t s = (cudaStream_t)stream;
   count_kernel<<<grid, kThreads, 0, s>>>((const uint8_t*)band, masks,
                                          tile_counts, rows, e, nv_max,
@@ -349,6 +353,29 @@ extern "C" int repro_band_compact_i32(const void* u, const void* v,
         tile_counts, (int32_t*)uo, (int32_t*)vo, rows, e, cap, nv_max,
         (int)n_tiles, pad_chunk);
   return (int)cudaGetLastError();
+}
+
+// The compiled attributes of kernel k (0: count_kernel, 1:
+// scatter_kernel<true>, 2: scatter_kernel<false>) into out: numRegs,
+// sharedSizeBytes, maxThreadsPerBlock, localSizeBytes. Returns a CUDA
+// error code, or -1 past the last kernel.
+extern "C" int repro_band_compact_kernel_attributes(int k, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (k == 0)
+    e = cudaFuncGetAttributes(&a, count_kernel);
+  else if (k == 1)
+    e = cudaFuncGetAttributes(&a, scatter_kernel<true>);
+  else if (k == 2)
+    e = cudaFuncGetAttributes(&a, scatter_kernel<false>);
+  else
+    return -1;
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }
 
 extern "C" const char* repro_band_compact_error(int code) {

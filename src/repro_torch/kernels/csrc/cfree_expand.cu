@@ -239,17 +239,21 @@ cfree_expand_kernel_quad(const int32_t* __restrict__ tb,
 // bytes (else cudaErrorMisalignedAddress). model: 0 ba_cfree, 1 rmat,
 // 2 er; words w0..w3; n vertices; ba_cfree: (magic, shift) of the degree
 // (pk_expand.division_magic; magic 0 for degree 1); rmat: levels = log2 n
-// and thresholds ta <= tb <= tc. blocks: the most blocks to launch (the
-// wrapper passes the card's resident blocks).
+// and thresholds ta <= tb <= tc. (grid, block): the launch of
+// kernels/geometry.py's cfree_expand (grid-stride: any grid of at least
+// one block).
 extern "C" int repro_cfree_expand_i32(const void* t, void* u, void* v,
                                       int64_t m, int32_t model, uint32_t w0,
                                       uint32_t w1, uint32_t w2, uint32_t w3,
                                       uint32_t n, uint32_t magic,
                                       int32_t shift, int32_t levels,
                                       uint32_t ta, uint32_t tb, uint32_t tc,
-                                      int64_t blocks, void* stream) {
+                                      int64_t grid, int block,
+                                      void* stream) {
   if (n < 1 || levels < 0 || shift < 0 || shift > 31)
     return (int)cudaErrorInvalidValue;
+  if (block != kThreads || grid < 1 || grid > 0x7fffffff)
+    return (int)cudaErrorInvalidConfiguration;
   if (m <= 0) return 0;
   const int phase = (int)(((uintptr_t)t >> 2) & 3);
   if ((int)(((uintptr_t)u >> 2) & 3) != phase ||
@@ -262,23 +266,19 @@ extern "C" int repro_cfree_expand_i32(const void* t, void* u, void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (model == kBaCfree) {
     const int64_t tiles = (end + kWarpTile - 1) / kWarpTile;
-    const int64_t need = (tiles + kWarps - 1) / kWarps;
-    const unsigned grid = (unsigned)(need < blocks ? need : blocks);
-    cfree_expand_kernel_ba<<<grid, kThreads, 0, s>>>(
+    cfree_expand_kernel_ba<<<(unsigned)grid, kThreads, 0, s>>>(
         tp, up, vp, m, phase, w0, w1, magic, shift, tiles);
     return (int)cudaGetLastError();
   }
   const int64_t quads = (end + 3) / 4;
-  const int64_t need = (quads + kThreads - 1) / kThreads;
-  const unsigned grid = (unsigned)(need < blocks ? need : blocks);
   switch (model) {
     case kRmat:
-      cfree_expand_kernel_quad<kRmat><<<grid, kThreads, 0, s>>>(
+      cfree_expand_kernel_quad<kRmat><<<(unsigned)grid, kThreads, 0, s>>>(
           tp, up, vp, m, phase, w0, w1, w2, w3, n, levels, ta, tb, tc,
           quads);
       break;
     case kEr:
-      cfree_expand_kernel_quad<kEr><<<grid, kThreads, 0, s>>>(
+      cfree_expand_kernel_quad<kEr><<<(unsigned)grid, kThreads, 0, s>>>(
           tp, up, vp, m, phase, w0, w1, w2, w3, n, levels, ta, tb, tc,
           quads);
       break;
@@ -286,6 +286,29 @@ extern "C" int repro_cfree_expand_i32(const void* t, void* u, void* v,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The compiled attributes of kernel k (0: cfree_expand_kernel_ba, 1:
+// cfree_expand_kernel_quad<kRmat>, 2: cfree_expand_kernel_quad<kEr>) into
+// out: numRegs, sharedSizeBytes, maxThreadsPerBlock, localSizeBytes.
+// Returns a CUDA error code, or -1 past the last kernel.
+extern "C" int repro_cfree_expand_kernel_attributes(int k, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (k == 0)
+    e = cudaFuncGetAttributes(&a, cfree_expand_kernel_ba);
+  else if (k == 1)
+    e = cudaFuncGetAttributes(&a, cfree_expand_kernel_quad<kRmat>);
+  else if (k == 2)
+    e = cudaFuncGetAttributes(&a, cfree_expand_kernel_quad<kEr>);
+  else
+    return -1;
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }
 
 extern "C" const char* repro_cfree_expand_error(int code) {

@@ -193,9 +193,21 @@ uint32_t* tile_counter(cudaStream_t stream, int* code) {
 
 }  // namespace
 
+// The card's resident blocks of gather_rows_kernel (SMs x blocks a SM),
+// the most a launch needs: kernels/geometry.py's gather caps the grid at
+// it. Returns a negative CUDA error code on failure.
+extern "C" int64_t repro_gather_resident_blocks() {
+  int code = 0;
+  const int cap = grid_cap(&code);
+  return code ? -(int64_t)code : (int64_t)cap;
+}
+
+// grid, block: the launch of kernels/geometry.py's gather (any grid of at
+// least one block: every block claims tiles until they run out).
 extern "C" int repro_gather_i32(const void* src, const void* idx, void* out,
                                 int64_t rows, int64_t m, int64_t n,
-                                int64_t src_stride, void* stream) {
+                                int64_t src_stride, int64_t grid, int block,
+                                void* stream) {
   if (rows <= 0 || n <= 0) return 0;
   const int64_t tiles_per_row =
       (n / kVec + kThreads - 1) / kThreads > 0
@@ -204,17 +216,50 @@ extern "C" int repro_gather_i32(const void* src, const void* idx, void* out,
   // The claim counter passes `tiles` by one per block and must not wrap.
   if (m < 1 || m > INT32_MAX || n > INT32_MAX || tiles > INT32_MAX)
     return (int)cudaErrorInvalidValue;
+  if (block != kThreads || grid < 1 || grid > INT32_MAX - tiles)
+    return (int)cudaErrorInvalidConfiguration;
   int code = 0;
-  const int64_t cap = grid_cap(&code);
-  if (code) return code;
   uint32_t* next_tile = tile_counter((cudaStream_t)stream, &code);
   if (code) return code;
-  gather_rows_kernel<<<(unsigned)(tiles < cap ? tiles : cap), kThreads, 0,
-                       (cudaStream_t)stream>>>(
+  gather_rows_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)src, (const int32_t*)idx, (int32_t*)out, next_tile,
       (int32_t)n, (int32_t)(m - 1), src_stride, (uint32_t)tiles,
       (uint32_t)tiles_per_row);
   return (int)cudaGetLastError();
+}
+
+// The compiled attributes of kernel k (0: gather_rows_kernel) into out:
+// numRegs, sharedSizeBytes, maxThreadsPerBlock, localSizeBytes. Returns a
+// CUDA error code, or -1 past the last kernel.
+extern "C" int repro_gather_kernel_attributes(int k, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (k == 0)
+    e = cudaFuncGetAttributes(&a, gather_rows_kernel);
+  else
+    return -1;
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
+}
+
+// What device `device` allows a launch, into out: maxThreadsPerBlock,
+// maxGridDim x, y, z, sharedMemPerBlockOptin, multiProcessorCount,
+// clusterLaunch. Returns a CUDA error code.
+extern "C" int repro_device_limits(int device, int* out) {
+  const cudaDeviceAttr attrs[7] = {
+      cudaDevAttrMaxThreadsPerBlock, cudaDevAttrMaxGridDimX,
+      cudaDevAttrMaxGridDimY, cudaDevAttrMaxGridDimZ,
+      cudaDevAttrMaxSharedMemoryPerBlockOptin,
+      cudaDevAttrMultiProcessorCount, cudaDevAttrClusterLaunch};
+  for (int i = 0; i < 7; ++i) {
+    const cudaError_t e = cudaDeviceGetAttribute(out + i, attrs[i], device);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 extern "C" const char* repro_gather_error(int code) {

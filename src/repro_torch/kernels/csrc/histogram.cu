@@ -267,10 +267,13 @@ __global__ void __launch_bounds__(kThreads, 1) histogram_kernel(Args a) {
 }
 
 template <int KIND, bool MASKED>
-int launch(const Args& a, int per_row, cudaStream_t s) {
-  const int64_t by = a.rows < 65535 ? a.rows : 65535;
-  const size_t smem = (MASKED ? kStageWords * 4 : 0) +
-                      (KIND == kGlobal ? 0 : (size_t)a.copies * a.slice * 4);
+int launch(const Args& a, int64_t gx, int64_t gy, int64_t smem,
+           cudaStream_t s) {
+  const int64_t need = (MASKED ? kStageWords * 4 : 0) +
+                       (KIND == kGlobal ? 0 : (int64_t)a.copies * a.slice * 4);
+  if (smem < need || gx < 1 || gx > 0x7fffffff || gx % a.cluster ||
+      gy < 1 || gy > 65535)
+    return (int)cudaErrorInvalidConfiguration;
   auto kernel = histogram_kernel<KIND, MASKED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -278,7 +281,7 @@ int launch(const Args& a, int per_row, cudaStream_t s) {
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)per_row, (unsigned)by);
+  cfg.gridDim = dim3((unsigned)gx, (unsigned)gy);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -310,15 +313,20 @@ extern "C" int repro_histogram_smem_optin(int device) {
 extern "C" int repro_histogram_threads() { return kThreads; }
 extern "C" int repro_histogram_stage_bytes() { return kStageWords * 4; }
 
-// kind: 0 block, 1 cluster (of `cluster` blocks), 2 global. per_row:
-// blocks per row (a multiple of the cluster). mask may be null.
+// kind: 0 block, 1 cluster (of `cluster` blocks), 2 global. (gx, gy,
+// block, smem): the launch of kernels/geometry.py's histogram: gx blocks
+// a row (a multiple of the cluster), rows along y, smem bytes of dynamic
+// shared memory (at least the staging and the bins the regime keeps).
+// mask may be null.
 extern "C" int repro_histogram_i32(const void* values, const void* mask,
                                    void* counts, int64_t rows, int64_t n,
                                    int32_t num_bins, int32_t kind,
                                    int32_t cluster, int32_t copies,
-                                   int32_t slice, int32_t per_row,
-                                   int32_t owned, void* stream) {
+                                   int32_t slice, int32_t owned, int64_t gx,
+                                   int64_t gy, int block, int64_t smem,
+                                   void* stream) {
   if (rows <= 0 || num_bins <= 0) return 0;
+  if (block != kThreads) return (int)cudaErrorInvalidConfiguration;
   const Args a = {(const int32_t*)values, (const uint8_t*)mask,
                   (int32_t*)counts, rows, n, num_bins, copies, slice, owned,
                   kind == kCluster ? cluster : 1};
@@ -326,16 +334,46 @@ extern "C" int repro_histogram_i32(const void* values, const void* mask,
   int code;
   const bool masked = mask != nullptr;
   if (kind == kBlock)
-    code = masked ? launch<kBlock, true>(a, per_row, s)
-                  : launch<kBlock, false>(a, per_row, s);
+    code = masked ? launch<kBlock, true>(a, gx, gy, smem, s)
+                  : launch<kBlock, false>(a, gx, gy, smem, s);
   else if (kind == kCluster)
-    code = masked ? launch<kCluster, true>(a, per_row, s)
-                  : launch<kCluster, false>(a, per_row, s);
+    code = masked ? launch<kCluster, true>(a, gx, gy, smem, s)
+                  : launch<kCluster, false>(a, gx, gy, smem, s);
   else
-    code = masked ? launch<kGlobal, true>(a, per_row, s)
-                  : launch<kGlobal, false>(a, per_row, s);
+    code = masked ? launch<kGlobal, true>(a, gx, gy, smem, s)
+                  : launch<kGlobal, false>(a, gx, gy, smem, s);
   if (code) return code;
   return (int)cudaGetLastError();
+}
+
+// The compiled attributes of kernel k (histogram_kernel<KIND, MASKED>, k =
+// 2 * KIND + MASKED: block, cluster, global, each unmasked then masked)
+// into out: numRegs, sharedSizeBytes, maxThreadsPerBlock, localSizeBytes.
+// Returns a CUDA error code, or -1 past the last kernel.
+extern "C" int repro_histogram_kernel_attributes(int k, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  switch (k) {
+    case 0: e = cudaFuncGetAttributes(&a, histogram_kernel<kBlock, false>);
+      break;
+    case 1: e = cudaFuncGetAttributes(&a, histogram_kernel<kBlock, true>);
+      break;
+    case 2: e = cudaFuncGetAttributes(&a, histogram_kernel<kCluster, false>);
+      break;
+    case 3: e = cudaFuncGetAttributes(&a, histogram_kernel<kCluster, true>);
+      break;
+    case 4: e = cudaFuncGetAttributes(&a, histogram_kernel<kGlobal, false>);
+      break;
+    case 5: e = cudaFuncGetAttributes(&a, histogram_kernel<kGlobal, true>);
+      break;
+    default: return -1;
+  }
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }
 
 extern "C" const char* repro_histogram_error(int code) {

@@ -176,15 +176,17 @@ extern "C" int repro_pk_expand_shared_entries() { return kSharedTab; }
 // in [0, e0)); seed_u, seed_v: (e0,) int32 device tables; flip: (L, m)
 // bool or null, redraw: (L, m) int32 digits in [0, e0) (used only with
 // flip); u, v: (m,) int32 outputs; (magic, shift): the round-up
-// multiplier of e0 (any value when e0 == 1). blocks: the most blocks the
-// grid may have (the grid is sized to the work up to it).
+// multiplier of e0 (any value when e0 == 1). (grid, block, smem): the
+// launch of kernels/geometry.py's pk_expand (grid-stride, so any grid of
+// at least one block; smem holds both seed tables when e0 <= kSharedTab).
 extern "C" int repro_pk_expand_i32(const void* t, const int32_t* base,
                                    const void* seed_u, const void* seed_v,
                                    const void* flip, const void* redraw,
                                    void* u, void* v, int64_t m, int32_t n0,
                                    int32_t e0, int32_t levels,
                                    uint32_t magic, int32_t shift,
-                                   int64_t blocks, void* stream) {
+                                   int64_t grid, int block, int64_t smem,
+                                   void* stream) {
   if (levels < 0 || levels > kMaxLevels || e0 < 1 || n0 < 1 || shift < 0 ||
       shift > 31)
     return (int)cudaErrorInvalidValue;
@@ -208,22 +210,44 @@ extern "C" int repro_pk_expand_i32(const void* t, const int32_t* base,
                                               : m / kVec;
     if (nvec < 0) nvec = 0;
   }
-  const int64_t threads = (m + kVec - 1) / kVec;
-  const int64_t need = (threads + kThreads - 1) / kThreads;
-  const unsigned grid = (unsigned)(need < blocks ? need : blocks);
+  if (block != kThreads || grid < 1 || grid > 0x7fffffff || smem < 0 ||
+      smem > 48 * 1024 ||
+      (e0 <= kSharedTab && smem < 2 * e0 * (int64_t)sizeof(int32_t)))
+    return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
   if (e0 <= kSharedTab) {
-    pk_expand_kernel<true><<<grid, kThreads, 2 * e0 * sizeof(int32_t), s>>>(
+    pk_expand_kernel<true><<<(unsigned)grid, kThreads, (size_t)smem, s>>>(
         (const int32_t*)t, (const int32_t*)seed_u, (const int32_t*)seed_v,
         (const uint8_t*)flip, (const int32_t*)redraw, (int32_t*)u,
         (int32_t*)v, m, nvec, rx, levels, p);
   } else {
-    pk_expand_kernel<false><<<grid, kThreads, 0, s>>>(
+    pk_expand_kernel<false><<<(unsigned)grid, kThreads, (size_t)smem, s>>>(
         (const int32_t*)t, (const int32_t*)seed_u, (const int32_t*)seed_v,
         (const uint8_t*)flip, (const int32_t*)redraw, (int32_t*)u,
         (int32_t*)v, m, nvec, rx, levels, p);
   }
   return (int)cudaGetLastError();
+}
+
+// The compiled attributes of kernel k (0: pk_expand_kernel<true>, the
+// tables in shared memory, 1: pk_expand_kernel<false>) into out: numRegs,
+// sharedSizeBytes, maxThreadsPerBlock, localSizeBytes. Returns a CUDA
+// error code, or -1 past the last kernel.
+extern "C" int repro_pk_expand_kernel_attributes(int k, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (k == 0)
+    e = cudaFuncGetAttributes(&a, pk_expand_kernel<true>);
+  else if (k == 1)
+    e = cudaFuncGetAttributes(&a, pk_expand_kernel<false>);
+  else
+    return -1;
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }
 
 extern "C" const char* repro_pk_expand_error(int code) {

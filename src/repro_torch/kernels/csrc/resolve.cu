@@ -90,16 +90,38 @@ __global__ void __launch_bounds__(kThreads)
 
 // ptr: (rows, m) int32 on the device, resolved in place; err: one int32
 // on the device, zeroed by the caller, set to 1 on a pointer outside
-// [0, its slot].
+// [0, its slot]. (gx, gy, block): the launch of kernels/geometry.py's
+// resolve_roots, which must cover every slot along x with kThreads
+// threads a block.
 extern "C" int repro_resolve_roots_i32(void* ptr, void* err, int64_t rows,
-                                       int64_t m, void* stream) {
+                                       int64_t m, int64_t gx, int64_t gy,
+                                       int block, void* stream) {
   if (rows <= 0 || m <= 0) return 0;
-  const int64_t bx = (m + kThreads - 1) / kThreads;
-  const int64_t by = rows < 65535 ? rows : 65535;
-  resolve_roots_kernel<<<dim3((unsigned)bx, (unsigned)by), kThreads, 0,
+  if (block != kThreads || gx * kThreads < m || gx > 0x7fffffff ||
+      gy < 1 || gy > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  resolve_roots_kernel<<<dim3((unsigned)gx, (unsigned)gy), kThreads, 0,
                          (cudaStream_t)stream>>>(
       (int32_t*)ptr, rows, m, (int32_t*)err);
   return (int)cudaGetLastError();
+}
+
+// The compiled attributes of kernel k (0: resolve_roots_kernel) into out:
+// numRegs, sharedSizeBytes, maxThreadsPerBlock, localSizeBytes. Returns a
+// CUDA error code, or -1 past the last kernel.
+extern "C" int repro_resolve_kernel_attributes(int k, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (k == 0)
+    e = cudaFuncGetAttributes(&a, resolve_roots_kernel);
+  else
+    return -1;
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }
 
 extern "C" const char* repro_resolve_error(int code) {

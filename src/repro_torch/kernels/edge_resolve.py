@@ -27,6 +27,9 @@ Bound: bytes. Gathers: a random 4-byte read of ``src`` per output plus a
 streamed read of ``idx`` and a streamed write of ``out``. Resolve: the
 pointer array read once and written once.
 
+Each launch's grid and block come from ``kernels/geometry.py``
+(``resolve_roots`` and ``gather``), which the kernel checker reads too.
+
 Each wrapper runs the plain version (from ``kernels/ref.py``) for a CPU
 tensor, launches the kernel for a CUDA tensor (counting the launch in
 :data:`launches`), and raises on anything the kernel does not take. It
@@ -40,7 +43,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, geometry
 from repro_torch.kernels.dispatch import mode
 # The plain versions the wrappers run for CPU tensors (and the kernel is
 # held against on the card).
@@ -64,8 +67,8 @@ def _resolve_fn():
     if _c_resolve is None:
         lib = _build.library("resolve")
         fn = lib.repro_resolve_roots_i32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
+            + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_resolve_error.argtypes = [ctypes.c_int]
         lib.repro_resolve_error.restype = ctypes.c_char_p
@@ -78,14 +81,33 @@ def _fn():
     if _c_fn is None:
         lib = _build.library("gather")
         fn = lib.repro_gather_i32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 5 \
+            + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_gather_error.argtypes = [ctypes.c_int]
         lib.repro_gather_error.restype = ctypes.c_char_p
-        _c_fn = (fn, lib.repro_gather_error)
+        lib.repro_gather_resident_blocks.restype = ctypes.c_int64
+        _c_fn = (fn, lib.repro_gather_error,
+                 lib.repro_gather_resident_blocks)
     return _c_fn
+
+
+_resident: dict[int, int] = {}
+
+
+def resident_blocks(device: torch.device) -> int:
+    """The gather kernel's resident blocks on ``device`` (SMs x blocks an
+    SM, from the occupancy API): the most a launch needs."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _resident:
+        with torch.cuda.device(index):
+            got = _fn()[2]()
+        if got <= 0:
+            raise RuntimeError(f"gather: cannot read the resident blocks "
+                               f"of cuda:{index} ({-got})")
+        _resident[index] = got
+    return _resident[index]
 
 
 def _check_operand(name: str, t: torch.Tensor, device) -> None:
@@ -107,11 +129,12 @@ def _launch(src: torch.Tensor, idx: torch.Tensor, rows: int, m: int,
         raise ValueError(f"gather: rows of {m} source entries and {n} "
                          "indices must stay below 2^31 (32-bit offsets)")
     out = torch.empty(idx.shape, dtype=torch.int32, device=idx.device)
-    fn, err = _fn()
+    fn, err, _ = _fn()
+    launch = geometry.gather(rows, n, resident_blocks(src.device))
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, m,
-                  n, src_stride, stream)
+                  n, src_stride, launch.grid[0], launch.block[0], stream)
     if code:
         raise RuntimeError(
             f"gather kernel launch failed: {err(code).decode()} ({code})")
@@ -138,10 +161,11 @@ def resolve_roots(ptr: torch.Tensor) -> torch.Tensor:
     rows = 1 if ptr.ndim == 1 else ptr.shape[0]
     err = torch.zeros(1, dtype=torch.int32, device=ptr.device)
     fn, err_str = _resolve_fn()
+    launch = geometry.resolve_roots(rows, ptr.shape[-1])
     with torch.cuda.device(ptr.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(ptr.data_ptr(), err.data_ptr(), rows, ptr.shape[-1],
-                  stream)
+                  launch.grid[0], launch.grid[1], launch.block[0], stream)
     if code:
         raise RuntimeError(f"resolve kernel launch failed: "
                            f"{err_str(code).decode()} ({code})")

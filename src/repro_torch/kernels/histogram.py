@@ -19,7 +19,9 @@ the row, or device memory.
 Bound: bytes, the values read once (with a mask: the mask once and the
 values where it is set), the counts written once.
 
-The wrapper runs the plain version for a CPU tensor and launches the
+The launch (grid, block, dynamic shared memory, cluster) comes from
+``kernels/geometry.py``'s ``histogram``, which the kernel checker reads
+too. The wrapper runs the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor (counted in :data:`launches`), on the current
 stream, without synchronising. Where one block or cluster owns each row
 it allocates the counts with ``torch.empty`` (the kernel writes every
@@ -32,7 +34,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, geometry
 from repro_torch.kernels.dispatch import mode
 # The plain version the wrapper runs for CPU tensors.
 from repro_torch.kernels.ref import histogram_ref
@@ -44,6 +46,9 @@ launches = {"histogram": 0}
 COPIES_BYTES = 16384
 #: The largest portable thread-block cluster.
 CLUSTER_MAX = 8
+#: Shared memory a masked step's flags take ahead of the bins (the
+#: source's ``kStageWords * 4``: 32 warps x 512 flags).
+STAGE_BYTES = 16384
 
 _KINDS = {"block": 0, "cluster": 1, "global": 2}
 
@@ -104,7 +109,8 @@ def _fn():
         lib = _build.library("histogram")
         fn = lib.repro_histogram_i32
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 \
-            + [ctypes.c_int32] * 7 + [ctypes.c_void_p]
+            + [ctypes.c_int32] * 6 + [ctypes.c_int64] * 2 \
+            + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_histogram_smem_optin.argtypes = [ctypes.c_int]
         lib.repro_histogram_smem_optin.restype = ctypes.c_int
@@ -112,9 +118,13 @@ def _fn():
         lib.repro_histogram_stage_bytes.restype = ctypes.c_int
         lib.repro_histogram_error.argtypes = [ctypes.c_int]
         lib.repro_histogram_error.restype = ctypes.c_char_p
-        _c_fn = (fn, lib.repro_histogram_smem_optin,
-                 (lib.repro_histogram_threads(),
-                  lib.repro_histogram_stage_bytes()),
+        layout = (lib.repro_histogram_threads(),
+                  lib.repro_histogram_stage_bytes())
+        if layout != (geometry.THREADS["histogram"], STAGE_BYTES):
+            raise RuntimeError(f"histogram: the library's (threads, staging "
+                               f"bytes) {layout} differ from "
+                               "kernels/geometry.py's")
+        _c_fn = (fn, lib.repro_histogram_smem_optin, layout,
                  lib.repro_histogram_error)
     return _c_fn
 
@@ -170,7 +180,8 @@ def histogram(values: torch.Tensor, num_bins: int,
     fn, _, layout, err = _fn()
     sms, optin = _limits(values.device)
     reg = regime(num_bins, optin, *layout)
-    per_row = blocks_per_row(rows, reg, sms)
+    launch = geometry.histogram(rows, num_bins, mask is not None, sms, optin)
+    per_row = launch.grid[0]
     owned = reg.kind != "global" and per_row == reg.blocks
     shape = values.shape[:-1] + (num_bins,)
     counts = (torch.empty if owned else torch.zeros)(
@@ -180,8 +191,9 @@ def histogram(values: torch.Tensor, num_bins: int,
         code = fn(values.data_ptr(),
                   None if mask is None else mask.data_ptr(),
                   counts.data_ptr(), rows, n, num_bins, _KINDS[reg.kind],
-                  reg.blocks, reg.copies, reg.slice, per_row, int(owned),
-                  stream)
+                  reg.blocks, reg.copies, reg.slice, int(owned),
+                  launch.grid[0], launch.grid[1], launch.block[0],
+                  launch.smem, stream)
     if code:
         raise RuntimeError(
             f"histogram kernel launch failed: {err(code).decode()} ({code})")

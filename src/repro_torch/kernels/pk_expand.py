@@ -22,11 +22,14 @@ Bound: bytes (t read, u and v written: 12 B per edge; with noise,
 flips touch), with the integer operations (nine per edge and level)
 close behind.
 
-The wrapper runs the plain version (``kernels/ref.py``) for a CPU tensor
-and launches the kernel for a CUDA tensor (counted in :data:`launches`);
-it raises on anything the kernel does not take, allocates the outputs
-with ``torch.empty``, launches on the current stream and does not
-synchronise.
+The launch (a block of 256 threads per 1024 edges, at most 8 blocks an
+SM, then grid-stride; the tables' shared memory) comes from
+``kernels/geometry.py``'s ``pk_expand``, which the kernel checker reads
+too. The wrapper runs the plain version (``kernels/ref.py``) for a CPU
+tensor and launches the kernel for a CUDA tensor (counted in
+:data:`launches`); it raises on anything the kernel does not take,
+allocates the outputs with ``torch.empty``, launches on the current
+stream and does not synchronise.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, geometry
 from repro_torch.kernels.dispatch import mode
 # The plain version the wrapper runs for CPU tensors.
 from repro_torch.kernels.ref import pk_expand_ref
@@ -54,6 +57,7 @@ def _fn():
         fn = lib.repro_pk_expand_i32
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] \
             + [ctypes.c_int32] * 3 + [ctypes.c_uint32, ctypes.c_int32,
+                                      ctypes.c_int64, ctypes.c_int,
                                       ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_pk_expand_error.argtypes = [ctypes.c_int]
@@ -140,14 +144,14 @@ def pk_expand(t_local: torch.Tensor, base_digits, seed_u: torch.Tensor,
     with torch.cuda.device(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         stream = torch.cuda.current_stream().cuda_stream
-        # A block of 256 threads per 1024 edges, at most 8 per SM (then
-        # grid-stride over the edges).
+        launch = geometry.pk_expand(m, e0, sms)
         code = fn(t_local.data_ptr(), digits, seed_u.data_ptr(),
                   seed_v.data_ptr(),
                   flip.data_ptr() if flip is not None else None,
                   redraw.data_ptr() if redraw is not None else None,
                   u.data_ptr(), v.data_ptr(), m, n0, e0, levels,
-                  magic & 0xFFFFFFFF, shift, 8 * sms, stream)
+                  magic & 0xFFFFFFFF, shift, launch.grid[0],
+                  launch.block[0], launch.smem, stream)
     if code:
         raise RuntimeError(f"pk_expand kernel launch failed: "
                            f"{err(code).decode()} ({code})")

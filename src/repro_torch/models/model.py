@@ -14,7 +14,7 @@ Sharded serving (``repro_torch.sharding``): ``init``, ``set_params`` and
 ``convert.params_from_numpy`` given ``rules`` keep only this rank's block
 of each leaf (``Rules.param_pspec``; the whole tree is the same function
 of the seed on every mesh), and ``prefill`` / ``decode_step`` /
-``forward`` run under ``sharding_ctx(rules, rules.mesh)``
+``forward`` run under ``sharding_ctx(rules, rules.mesh, d_model)``
 (``serve.make_serve_fns(model, rules=...)``): they take this rank's batch
 rows (the rules' batch axes) and return this rank's block of the
 vocabulary (``logits_btv``) and caches laid out by

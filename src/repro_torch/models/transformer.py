@@ -219,9 +219,10 @@ def with_remat(fn, policy: str = "nothing"):
 
     def call(*args):
         rules, mesh = shard.current_rules(), shard.current_mesh()
+        embed = shard.current_embed_dim()
 
         def body(*a):
-            with shard.sharding_ctx(rules, mesh):
+            with shard.sharding_ctx(rules, mesh, embed):
                 return fn(*a)
         return ckpt.checkpoint(body, *args, use_reentrant=False, **kwargs)
     return call

@@ -39,6 +39,21 @@ from repro_torch.runtime import spmd
 from repro_torch.runtime.topology import Topology, pod_groups, resolve
 
 
+#: Logical roles of the blocked-transpose entry points' axes (a copy of
+#: the JAX package's ``runtime/blocking.py`` table): ``lp`` this device's
+#: local proc, ``P`` the destination-rank axis, ``lp_dst`` / ``P_src``
+#: their post-transpose duals (my local proc / the source rank), ``...``
+#: trailing payload. ``analysis/flowcheck.py`` (FC002) pushes tagged
+#: tensors through each entry point and checks that every all_to_all hop
+#: moves exactly the ``dev_dst:<axis>`` role of its topology axis and that
+#: the output carries the ``out`` roles.
+AXIS_ROLES = {
+    "transpose_counts": {"in": ("lp", "P"), "out": ("lp_dst", "P_src")},
+    "transpose_payload": {"in": ("lp", "P", "..."),
+                          "out": ("lp_dst", "P_src", "...")},
+}
+
+
 def collective(topo: Topology) -> bool:
     """Whether ``topo``'s exchanges run through the process group: a
     device topology under an initialised group. Host topologies, and a

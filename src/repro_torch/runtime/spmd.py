@@ -13,12 +13,21 @@ is the one place that asks the group who and where this process is:
   :func:`check_backend`   the group's backend against the device
   :func:`device_memory_bytes`   the pair-capacity heuristic's budget
 
+and the group plumbing of the analysis tools (``repro_torch.analysis``,
+``launch/dryrun.py``), which may not touch ``torch.distributed``
+themselves (spmdlint TRP001):
+
+  :func:`init_group` / :func:`init_fake_group` / :func:`destroy_group`
+  :func:`group_ranks`     the global ranks of a c10d op's process group
+  :func:`gather_objects`  every rank's picklable object, on rank 0
+
 The JAX package's mesh and shard_map shims have no counterpart: the
 collectives are ``torch.distributed`` calls in ``runtime/blocking.py``.
 """
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -109,3 +118,51 @@ def device_memory_bytes(device) -> int:
             else torch.cuda.current_device()
         return int(torch.cuda.get_device_properties(index).total_memory)
     return _DEFAULT_DEVICE_MEMORY
+
+
+def init_group(backend: str, init_method: str, world: int,
+               rank_: int) -> None:
+    """Initialise the default process group (``backend`` "gloo" or
+    "nccl", a ``tcp://`` or ``file://`` rendezvous)."""
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank_)
+
+
+def init_fake_group(world: int, rank_: int = 0) -> None:
+    """Initialise the default group on torch's ``fake`` backend: this
+    process plays rank ``rank_`` of ``world`` and every collective returns
+    at once, its output untouched (under ``FakeTensorMode`` only its shape
+    exists). The dry run lays the production meshes out with it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), world_size=world,
+                            rank=rank_)
+
+
+def destroy_group() -> None:
+    """Tear the default group down (nothing when there is none)."""
+    if group_active():
+        dist.destroy_process_group()
+
+
+def group_ranks(group) -> Optional[tuple]:
+    """The global ranks of ``group``, a ``ProcessGroup`` or the script
+    object a c10d dispatcher op carries (None for anything else)."""
+    try:
+        pg = group if isinstance(group, dist.ProcessGroup) \
+            else dist.ProcessGroup.unbox(group)
+    except (RuntimeError, TypeError, AttributeError):
+        return None
+    try:
+        return tuple(dist.get_process_group_ranks(pg))
+    except (RuntimeError, ValueError):
+        return tuple(range(pg.size()))
+
+
+def gather_objects(obj) -> Optional[list]:
+    """Every rank's ``obj`` (picklable), in rank order, on rank 0; None on
+    the other ranks. With no group, ``[obj]``."""
+    if not group_active():
+        return [obj]
+    out = [None] * world_size() if rank() == 0 else None
+    dist.gather_object(obj, out, dst=0)
+    return out

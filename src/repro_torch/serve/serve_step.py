@@ -4,10 +4,11 @@ The port of the JAX package's ``serve/serve_step.py``. The reference jits
 the pair and donates the cache to ``decode`` so it updates in place; here
 the model writes its caches in place itself, so the steps are plain
 closures. Given ``rules`` (``repro_torch.sharding.Rules``), both run
-inside ``sharding_ctx(rules, rules.mesh)``: the model's parameters must
-be laid out by rules of the same mesh (``Model.init(..., rules=)``), each
-step takes this rank's batch rows and returns its block of the logits and
-the caches :func:`cache_shardings` lays out. As in the reference, one
+inside ``sharding_ctx(rules, rules.mesh, d_model)``: the model's
+parameters must be laid out by rules of the same mesh
+(``Model.init(..., rules=)``), each step takes this rank's batch rows and
+returns its block of the logits and the caches :func:`cache_shardings`
+lays out. As in the reference, one
 rules object (one mode) serves both steps: make a prefill pair and a
 decode pair from rules of each mode.
 """
@@ -31,13 +32,13 @@ def make_serve_fns(model: Model, rules=None, max_len: int = 0):
     def prefill(batch):
         if rules is None:
             return model.prefill(batch, max_len=max_len)
-        with sharding_ctx(rules, rules.mesh):
+        with sharding_ctx(rules, rules.mesh, model.cfg.d_model):
             return model.prefill(batch, max_len=max_len)
 
     def decode(tokens, caches, pos):
         if rules is None:
             return model.decode_step(tokens, caches, pos)
-        with sharding_ctx(rules, rules.mesh):
+        with sharding_ctx(rules, rules.mesh, model.cfg.d_model):
             return model.decode_step(tokens, caches, pos)
 
     return prefill, decode

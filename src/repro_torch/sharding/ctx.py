@@ -1,9 +1,9 @@
 """Activation-sharding context.
 
 The port of the JAX package's ``sharding/ctx.py``. Model code runs under
-``sharding_ctx(rules, mesh)`` to run sharded: each rank holds the blocks
-of the parameters, caches and activations that the rules give it
-(``rules.py``), computes on them, and changes layout through the mesh's
+``sharding_ctx(rules, mesh, d_model)`` to run sharded: each rank holds
+the blocks of the parameters, caches and activations that the rules give
+it (``rules.py``), computes on them, and changes layout through the mesh's
 collectives (``runtime/mesh.py``) where the reference's roles say the
 layout changes. Outside a context the model runs unsharded and every
 helper here is the identity.
@@ -51,14 +51,26 @@ def current_mesh():
     return getattr(_state, "mesh", None)
 
 
+def current_embed_dim() -> Optional[int]:
+    """The model's "embed" size the context was entered with (None
+    outside a context)."""
+    return getattr(_state, "embed_dim", None)
+
+
 @contextlib.contextmanager
-def sharding_ctx(rules, mesh):
-    prev = (current_rules(), current_mesh())
-    _state.rules, _state.mesh = rules, mesh
+def sharding_ctx(rules, mesh, embed_dim: int):
+    """Run the enclosed model code sharded by ``rules`` over ``mesh``.
+    ``embed_dim`` is the model's "embed" size (``d_model``), the global
+    size of every parameter dimension with the logical axis "embed":
+    :func:`gather_weight` hands it to ``rules.param_pspec``, because a
+    block's own size does not say how the rules split that dimension
+    (under ``no_tp`` over ("data", "model") or over "data" alone)."""
+    prev = (current_rules(), current_mesh(), current_embed_dim())
+    _state.rules, _state.mesh, _state.embed_dim = rules, mesh, embed_dim
     try:
         yield
     finally:
-        _state.rules, _state.mesh = prev
+        _state.rules, _state.mesh, _state.embed_dim = prev
 
 
 def active() -> bool:
@@ -151,8 +163,13 @@ def gather_weight(w, axes: tuple):
     if not active():
         return w
     mesh, rules = current_mesh(), current_rules()
+    # The rules choose the "embed" split from the global size, and a
+    # block's size can fit another choice too (1024 over 16 x 16 ranks
+    # under no_tp: a block of 4).
+    shape = tuple(current_embed_dim() if ax == "embed" else n
+                  for ax, n in zip(axes, w.shape))
     pspec = rules.param_pspec(types.SimpleNamespace(
-        axes=tuple(axes), shape=tuple(w.shape)))
+        axes=tuple(axes), shape=shape))
     batch = set(rules.batch_axes)
     for dim in range(w.dim()):
         other = tuple(a for a in pspec.axes_of(dim)

@@ -21,9 +21,10 @@ memory is the masters, the moments, the gradient buffers made so far
 and one microbatch's activations.
 
 Under ``rules`` (every family; ``Model.loss``) the step runs inside
-``sharding_ctx(rules, rules.mesh)`` on this rank's blocks of the masters
-and moments (``Rules.param_pspec``; the reference's ``o_sh = {"m": p_sh,
-"v": p_sh}``) and its rows of the batch (:func:`batch_shardings`).
+``sharding_ctx(rules, rules.mesh, d_model)`` on this rank's blocks of
+the masters and moments (``Rules.param_pspec``; the reference's
+``o_sh = {"m": p_sh, "v": p_sh}``) and its rows of the batch
+(:func:`batch_shardings`).
 Autograd sums each leaf's gradient over the axes its FSDP gather runs
 over (the gather's adjoint is a reduce-scatter); after the last
 microbatch :func:`reduce_grads` sums, per
@@ -156,7 +157,8 @@ def train_grads(model, params, batch, rules=None):
     specs = model.param_specs()
     if tree_paths(params) != tree_paths(specs):
         raise ValueError("parameter tree paths differ from the specs'")
-    ctx = shard.sharding_ctx(rules, rules.mesh) if rules is not None \
+    ctx = shard.sharding_ctx(rules, rules.mesh, model.cfg.d_model) \
+        if rules is not None \
         else contextlib.nullcontext()
     batch = {k: _on(model.device, v) for k, v in batch.items()}
     accum = next(iter(batch.values())).shape[0]

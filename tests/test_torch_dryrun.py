@@ -118,3 +118,185 @@ def test_overrides_and_the_no_tp_bounds(monkeypatch):
     big = dataclasses.replace(qwen, num_layers=200)
     assert big.num_params() >= dryrun.NO_TP_MAX_PARAMS
     assert not dryrun.no_tp_default(big, "train", 8, 4)
+
+
+# --- the dry run's lowering: lower_cell, main, restat ---------------------------
+#
+# The dry run's c10d calls are the real step's: at world 4 under the fake
+# backend (no memory, every collective returns at once) the recorder of
+# analysis/audit.py counts, call for call, what it counts on rank 0 of a
+# real gloo run of the same step and layout (chip_smoke.c10d_calls;
+# reduced configs: one GQA, one MoE, one SSD; a train step and a decode
+# step each). The same gloo ranks hold ctx.gather_weight's global "embed"
+# size under no_tp (a port fault the dry run found, ROADMAP Queue 3).
+
+import datetime  # noqa: E402
+import os  # noqa: E402
+import json  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import types  # noqa: E402
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
+
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import op_stats, restat  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+CELLS = [(arch, kind) for arch in ("qwen1.5-0.5b", "qwen3-moe-235b-a22b",
+                                   "mamba2-130m")
+         for kind in ("train", "decode")]
+CELL_SHAPE = {"seq_len": 16, "global_batch": 8}
+SPAWN_TIMEOUT_S = 240
+
+
+def _cell(arch, kind):
+    return get_config(arch).reduced(), ShapeConfig(f"t_{kind}", kind=kind,
+                                                   **CELL_SHAPE)
+
+
+def _fake_worker(rank, out):
+    from repro_torch.runtime import spmd
+    from repro_torch.runtime.mesh import ProcessMesh
+    torch.set_num_threads(1)
+    spmd.init_fake_group(4, 0)
+    try:
+        mesh = ProcessMesh(("data", "model"), (2, 2), "cpu")
+        got = {}
+        for arch, kind in CELLS:
+            _, extra = dryrun.run_cell(*_cell(arch, kind), mesh)
+            got[f"{arch}/{kind}"] = op_stats.collect_opcode_stats(
+                extra["calls"])
+        with open(out, "w") as f:
+            json.dump(got, f)
+    finally:
+        spmd.destroy_group()
+
+
+def _gloo_worker(rank, world, init_file, out):
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from repro_torch.runtime.mesh import ProcessMesh
+    from repro_torch.sharding import ctx, make_rules
+    from repro_torch.sharding.rules import local_slices
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = ProcessMesh(("data", "model"), (2, 2), "cpu")
+        got = {}
+        for arch, kind in CELLS:
+            run, _, _ = dryrun.prepare_cell(*_cell(arch, kind), mesh)
+            if rank == 0:
+                got[f"{arch}/{kind}"] = chip_smoke.c10d_calls(torch, run)
+            else:
+                run()
+        # no_tp splits an "embed" of 24 over ("data", "model"): blocks of 6
+        rules = make_rules(mesh, "train", 8, no_tp=True)
+        w = torch.arange(5 * 24, dtype=torch.float32).reshape(5, 24)
+        spec = types.SimpleNamespace(axes=("vocab", "embed"), shape=(5, 24))
+        block = w[local_slices(rules.param_pspec(spec), w.shape, mesh)]
+        with ctx.sharding_ctx(rules, mesh, 24):
+            whole = ctx.gather_weight(block, ("vocab", "embed"))
+        got["embed"] = {"block": list(block.shape),
+                        "equal": bool(torch.equal(whole, w))}
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(got, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _join(ctx):
+    deadline = datetime.datetime.now() + datetime.timedelta(
+        seconds=SPAWN_TIMEOUT_S)
+    while not ctx.join(timeout=2):
+        if datetime.datetime.now() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail("the ranks did not finish")
+
+
+@pytest.fixture(scope="module")
+def counted(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dryrun_counts")
+    fake = mp.spawn(_fake_worker, args=(str(tmp / "fake.json"),), nprocs=1,
+                    join=False)
+    gloo = mp.spawn(_gloo_worker, args=(4, str(tmp / "rdzv"),
+                                        str(tmp / "gloo.json")),
+                    nprocs=4, join=False)
+    _join(fake)
+    _join(gloo)
+    return (json.loads((tmp / "fake.json").read_text()),
+            json.loads((tmp / "gloo.json").read_text()))
+
+
+@pytest.mark.parametrize("arch,kind", CELLS)
+def test_fake_backend_counts_equal_a_gloo_run(counted, arch, kind):
+    fake, gloo = counted
+    label = f"{arch}/{kind}"
+    assert fake[label] == gloo[label]
+    assert fake[label]["c10d::_allgather_base_"] > 0
+
+
+def test_no_tp_gathers_the_global_embed(counted):
+    """ctx.gather_weight under no_tp: a block's size fits both splits the
+    rules choose between, so the context carries the model's d_model."""
+    embed = counted[1]["embed"]
+    assert embed == {"block": [5, 6], "equal": True}
+
+
+def _dryrun(tmp_path, *args):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--out", str(tmp_path / "rec"), "--calls", str(tmp_path / "calls"),
+         *args], capture_output=True, text=True, env=env, timeout=600)
+
+
+def test_main_writes_a_record_and_restat_recomputes_it(tmp_path):
+    proc = _dryrun(tmp_path, "--arch", "mamba2-130m", "--shape",
+                   "decode_32k", "--multi-pod", "0")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    tag = "mamba2-130m__decode_32k__sp"
+    rec = json.loads((tmp_path / "rec" / f"{tag}.json").read_text())
+    assert (rec["arch"], rec["shape"], rec["mesh"], rec["kind"]) == (
+        "mamba2-130m", "decode_32k", "16x16", "decode")
+    pd = rec["per_device"]
+    assert pd["temp_bytes"] is None and "allocator" in \
+        rec["notes"]["temp_bytes"]
+    assert pd["flops"] > 0 and pd["param_bytes"] > 0
+    assert pd["cache_bytes"] > 0 and pd["optimizer_bytes"] == 0
+    assert pd["collective_count_by_kind"]["all-gather"] > 0
+    assert pd["collective_bytes"] == sum(
+        pd["collective_bytes_by_kind"].get(k, 0)
+        for k in op_stats.COLLECTIVE_KINDS)
+    calls, flops, _ = op_stats.load_calls(
+        str(tmp_path / "calls" / f"{tag}.calls.json.gz"))
+    again = restat.restat(json.loads(json.dumps(rec)), calls, flops)
+    assert again == rec
+    # a second run skips the cell
+    proc = _dryrun(tmp_path, "--arch", "mamba2-130m", "--shape",
+                   "decode_32k", "--multi-pod", "0")
+    assert "[skip] " + tag in proc.stdout
+
+
+def test_a_failing_cell_writes_err_and_exits_1(tmp_path):
+    proc = _dryrun(tmp_path, "--arch", "mamba2-130m", "--shape",
+                   "no_such_shape", "--multi-pod", "1")
+    assert proc.returncode == 1
+    err = (tmp_path / "rec" / "mamba2-130m__no_such_shape__mp.json.err")
+    assert "KeyError: 'no_such_shape'" in err.read_text()
+
+
+def test_importing_the_dry_run_sets_no_environment():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run(
+        [sys.executable, "-c", "import os; before = dict(os.environ); "
+         "import repro_torch.launch.dryrun; print(dict(os.environ) == "
+         "before)"], capture_output=True, text=True, env=env, timeout=120)
+    assert out.stdout.strip() == "True"

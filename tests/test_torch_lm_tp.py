@@ -202,7 +202,7 @@ def _ep(res):
             v[e0:e1] if k in ("wi", "wg", "wo") else
             v[:, f0:f1] if k in ("shared_wi", "shared_wg") else
             v[f0:f1] if k == "shared_wo" else v) for k, v in p.items()}
-        with tctx.sharding_ctx(rules, mesh):
+        with tctx.sharding_ctx(rules, mesh, cfg.d_model):
             y, aux = tmoe.apply_moe(cfg, local, torch.from_numpy(x))
         res[f"ep_{arch}"] = y.numpy()
         res[f"ep_{arch}_aux"] = np.array(float(aux))
@@ -489,10 +489,11 @@ def test_training_and_layouts_refuse_under_rules():
             b["frames"] = torch.randn(
                 (2, cfg.encoder_len, cfg.d_model),
                 generator=torch.Generator().manual_seed(4))
-        with tctx.sharding_ctx(rules, mesh):
+        with tctx.sharding_ctx(rules, mesh, cfg.d_model):
             sharded = model.loss(b, params)
         assert torch.equal(sharded, model.loss(b, params)), arch
-    with tctx.sharding_ctx(trules.make_rules(mesh, "prefill", 2), mesh):
+    with tctx.sharding_ctx(trules.make_rules(mesh, "prefill", 2), mesh,
+                           cfg.d_model):
         with pytest.raises(ValueError, match="train rules"):
             model.loss(batch, params)
     fake = SimpleNamespace(shape={"data": 2, "model": 4},
@@ -501,7 +502,7 @@ def test_training_and_layouts_refuse_under_rules():
                            else 4 if a in ("model", ("model",)) else 8,
                            axis_index=lambda a: 1)
     prules = trules.make_rules(fake, "prefill", 4)
-    with tctx.sharding_ctx(prules, fake):
+    with tctx.sharding_ctx(prules, fake, 16):
         x = torch.zeros(2, 3, 16)
         assert tctx.constrain(x, "act_btd", (4, 12, 16)) is x
         with pytest.raises(ValueError, match="act_btd"):

@@ -223,7 +223,7 @@ def _aux_grads(res):
         p = {k: v[trules.local_slices(rules.param_pspec(specs[k]),
                                       specs[k].shape, mesh)].clone()
              .requires_grad_(True) for k, v in whole.items()}
-        with tctx.sharding_ctx(rules, mesh):
+        with tctx.sharding_ctx(rules, mesh, cfg.d_model):
             xl = tctx.split_seq(x).clone().requires_grad_(True)
             _, aux = tmoe.apply_moe(cfg, p, tctx.gather_seq(xl, x.shape[1]))
             aux.backward()
@@ -262,7 +262,7 @@ def _routing_sums_axes(res, shape):
                                     mesh.axis_index(bax)) \
             if bax else (0, x.shape[0])
         with torch.set_grad_enabled(label == "train"), \
-                tctx.sharding_ctx(rules, mesh):
+                tctx.sharding_ctx(rules, mesh, cfg.d_model):
             xl = tctx.split_seq(x[lo:hi])
             tmoe.apply_moe(cfg, p, tctx.gather_seq(xl, x.shape[1]))
         res[f"sums__{label}"] = np.array(json.dumps([a for a in seen if a]))

@@ -225,7 +225,7 @@ def _ssd_layer_grads(res):
         p = {k: v[trules.local_slices(rules.param_pspec(specs[k]),
                                       specs[k].shape, mesh)].clone()
              .requires_grad_(True) for k, v in whole.items()}
-        with tctx.sharding_ctx(rules, mesh):
+        with tctx.sharding_ctx(rules, mesh, cfg.d_model):
             xl = tctx.split_seq(x).clone().requires_grad_(True)
             y, _ = tssm.apply_ssm(cfg, p, tctx.gather_seq(xl, s))
             loss = (tctx.reduce_seq(y) * tctx.split_seq(r)).sum()

@@ -425,7 +425,7 @@ def test_train_step_refuses_sharding_rules_and_builds_batch_structs():
                                no_tp=no_tp)
             assert callable(tstep.make_train_step(model, topt.AdamWConfig(),
                                                   rules=rules))
-            with sharding_ctx(rules, mesh):
+            with sharding_ctx(rules, mesh, cfg.d_model):
                 sharded = model.loss(batch, params)
             assert torch.equal(sharded, plain), (arch, no_tp)
     for arch in ("qwen1.5-0.5b", "phi-3-vision-4.2b", "whisper-medium"):
