@@ -65,7 +65,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     (pk_3b cut to L=9: its L=10 edges and their int64 block ids would not
     fit beside each other); histogram at the block densities' cells
     (community_contrast's B = 16 on this graph, B = 5 and 25 on PK L=9)
-    held to its plain version and to torch.bincount; then 4 + 4 timed
+    held to its plain version and to torch.bincount; then 2 + 2 timed
     runs of the kernel and plain paths in turns, a per-stage timing run
     and a profiled run.
  5. streamed main path: the same preset at its own execution="streamed"
@@ -74,9 +74,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     forced_mode("ref") (identical edges); parity mode (auto_capacity=False:
     the host path's edge multiset); the host-driven stream (the device
     stream's digest); a profiled run; and the shard sink at reduced depth
-    (procs 64 -> 8: zlib's rate) with overlap on, read back, then resumed
+    (procs 64 -> 4: zlib's rate) with overlap on, read back, then resumed
     after two blocks are dropped from the manifest (only those two shards
-    rewritten; both reads equal to the 8-proc spec's in-memory digest),
+    rewritten; both reads equal to the 4-proc spec's in-memory digest),
     then with overlap off.
  6. PK and the communication-free family, each path with its launch
     counts set to 0 just before it and read just after, then rerun under
@@ -87,7 +87,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     into memory; the noise path, preset("pk_3b", levels=9,
     execution="host", noise=0.05, delete_prob=0.01); preset("ba_cfree_1b")
     (10^9 edges) on both stream executors (Topology.host() and flat(1),
-    which must agree; then 9 timed runs of each); and the shard sink at reduced depth (pk_3b at L=7,
+    which must agree, so flat(1)'s plain rerun is the host one's; then 9
+    timed runs of each); and the shard sink at reduced depth (pk_3b at L=7,
     ba_cfree at 2M vertices: zlib writes ~10 MB/s) with a two-shard resume.
  7. distributed: the torch.distributed code path through a world-size-1
     NCCL group over the card (file:// rendezvous in a temp dir,
@@ -205,10 +206,29 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
     memory, the launch bound, local memory) printed; phase 7's collective
     audits printed. (The sanitizer pass, KC001 and KC003, is
     scripts/torch_kernel_sanitize.py: compute-sanitizer refuses this
-    machine's card, PERF.md.) Then the seconds from the start to each
-    phase's end; the kernels line (with each kernel's launches in the
-    distributed runs and in the training corpus's build; histogram's also
-    in the analytics runs), then {"ok": true, "device": {...}} as the last
+    machine's card, PERF.md.)
+12. generate_cli: the paper's scenario through its command,
+    repro_torch.launch.generate (the port of examples/generate_massive.py):
+    its --preset paper_1b_5b --dry-run prints the full 1000-rank, 5B-edge
+    plan with no kernel launched; then paper_1b_5b at the paper's 1000
+    ranks with vertices_per_proc cut to 64,000 (320M edges, the size of
+    phase 4's cut) and pair_capacity pinned to the CPU plan's (83),
+    through the launcher's run_spec on flat(1) (the device stream: a
+    1000 x 1000 pair matrix, lp = 1000), with its launch counts set to 0
+    just before and read just after (resolve_roots 2, two gathers,
+    band_compact once a round, histogram once more than the rounds), 0
+    drops, its edges equal on the card to the same spec's under
+    forced_mode("ref") (every kernel at 1000 rows against its plain
+    version, no launch) and its digest to the host-driven stream's
+    (GEN_CLI_SHA256, read on an H100);
+    then paper_smoke's size (8 procs x 2000 vertices x k=4) streamed in
+    4 rounds into --out-dir, a shard file deleted and the same command
+    rerun: only that shard rewritten, the read back digest equal before
+    and after and to the memory sink's for the same spec. Then the seconds
+    from the start to each phase's end; the kernels line (with each
+    kernel's launches in the distributed runs, in the training corpus's
+    build and in phase 12's 1000-rank run; histogram's also in the
+    analytics runs), then {"ok": true, "device": {...}} as the last
     line.
 
 Exits with a non-zero code and prints no result when CUDA is not
@@ -249,7 +269,7 @@ BLOCK_CAP = 2_097_152       # min(E, P * C_r): a streamed round's block
 # The procs of the PBA shard sink's writes (overlap on, its resume, overlap
 # off): np.savez_compressed writes 4-10 MB/s, so a write of the 64-rank
 # cut's 1.39 GB takes 130-180 s of the script's 1200 s.
-SHARD_SINK_PROCS = 8
+SHARD_SINK_PROCS = 4
 SEED = 0                    # numpy seed of the kernel-case inputs
 M32 = 0xFFFFFFFF
 
@@ -1442,12 +1462,13 @@ def pk_cfree_kernel_cases(torch, dev) -> list[dict]:
 
 def run_and_check(torch, api, dispatch, ops, dev, label: str, spec,
                   kernel: str, expect_launches=None, expect_dropped=0,
-                  profile: bool = True) -> dict:
+                  profile: bool = True, plain: bool = True) -> dict:
     """One main path of the slice: the spec through the front door with
     the launch counts set to 0 just before and read just after, then a
-    profiled run, then the same spec under forced_mode("ref") (identical
-    edges, compared on the card). Returns the phase's row, with the
-    kernel path's (src, dst) under "edges" when not profiled."""
+    profiled run, then (with ``plain``) the same spec under
+    forced_mode("ref") (identical edges, compared on the card). Returns
+    the phase's row, with the kernel path's (src, dst) under "edges" when
+    not profiled."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
@@ -1499,6 +1520,10 @@ def run_and_check(torch, api, dispatch, ops, dev, label: str, spec,
             if busy else None,
             "top_device_ops": prof["top_device_ops"][:6]}
         torch.cuda.empty_cache()
+    if not plain:
+        emit(row)
+        row["edges"] = (ksrc, kdst)
+        return row
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1638,7 +1663,7 @@ def pk_cfree_phases(torch, api, dispatch, ops, edge_digest, dev) -> dict:
                          "ba_cfree_1b_stream_flat1",
                          spec.replace(topology=api.Topology.flat(1)),
                          "cfree_expand", expect_launches=row["launches"]
-                         ["cfree_expand"], profile=False)
+                         ["cfree_expand"], profile=False, plain=False)
     same = torch.equal(flat["edges"][0], host_edges[0]) and \
         torch.equal(flat["edges"][1], host_edges[1])
     emit({"phase": "ba_cfree_1b_executors_agree", "host_executor":
@@ -3892,6 +3917,167 @@ def analysis_phase(torch, dev) -> None:
                              "failed")
 
 
+GEN_CLI_PROCS = 1000                # the paper's ranks, not cut
+GEN_CLI_VPP = 64_000                # 1000 x 64,000 x k=5: the 64-rank cut's
+                                    # 320M edges at the paper's rank count
+GEN_CLI_PAIR_CAPACITY = 83          # the CPU plan's for that spec (the
+                                    # launcher's --dry-run --device cpu)
+# The host-driven stream's edge digest of that spec, read on an H100
+# (equal to the device stream's there): a pin the 1000-rank run must
+# keep without rerunning the ~46 s host-driven stream.
+GEN_CLI_SHA256 = ("fc8b9830936a0eec0457c087e923728e"
+                  "8bbcb344ae5ab6080fd843e4b61b0215")
+
+
+def generate_cli_phase(torch, np, api, dispatch, ops, edge_digest,
+                       dev) -> dict:
+    """Phase 12: the paper's scenario through its command
+    (``repro_torch.launch.generate``): the full paper_1b_5b plan from its
+    --dry-run, the 1000-rank structure on the card through ``run_spec``
+    against the same spec on the plain path (``forced_mode("ref")``,
+    compared on the card) and a pinned digest, and --out-dir's restart
+    after a shard is deleted. Returns the kernel launches of the
+    1000-rank run."""
+    import io
+    from repro_torch.core import storage
+    from repro_torch.launch import generate
+    t_phase = time.perf_counter()
+
+    # (a) the full plan, no work done
+    ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = generate.main(["--preset", "paper_1b_5b", "--dry-run"])
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    dry = {"phase": "generate_cli_dry_run", "rc": rc,
+           "launches": ops.launch_counts(),
+           "plan_lines": len(text.splitlines())}
+    emit(dry)
+    if rc != 0 or "5,000,000,000 edges" not in text or \
+            "P = lp*D = 1000 * 1 = 1000" not in text or \
+            any(dry["launches"].values()):
+        raise AssertionError("the launcher's --dry-run did not print the "
+                             "full plan, or did work")
+
+    # (b) the 1000-rank structure on the card
+    spec = api.preset("paper_1b_5b", procs=GEN_CLI_PROCS,
+                      vertices_per_proc=GEN_CLI_VPP,
+                      pair_capacity=GEN_CLI_PAIR_CAPACITY)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res, wall = generate.run_spec(
+        spec.replace(topology=api.Topology.flat(1)), device=dev)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = res.stats
+    got = edge_digest(res.edges.src, res.edges.dst)
+    executor = res.plan.executor
+    ksrc, kdst = res.edges.src, res.edges.dst
+    del res
+    # the same spec with every kernel wrapper on its plain version: the
+    # kernels at 1000 rows held against plain PyTorch, on the card
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dispatch.forced_mode("ref"):
+        ref = api.generate(spec.replace(topology=api.Topology.flat(1)),
+                           device=dev)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    ref_peak = torch.cuda.max_memory_allocated(dev)
+    plain_launched = ops.launch_counts() != launches
+    same = torch.equal(ref.edges.src, ksrc) and \
+        torch.equal(ref.edges.dst, kdst)
+    del ksrc, kdst
+    row = {"phase": "generate_cli_1000_ranks", "spec": "paper_1b_5b",
+           "overrides": {"procs": GEN_CLI_PROCS,
+                         "vertices_per_proc": GEN_CLI_VPP,
+                         "pair_capacity": GEN_CLI_PAIR_CAPACITY,
+                         "topology": "flat_1"},
+           "reduced": "vertices_per_proc 1,000,000 -> %d" % GEN_CLI_VPP,
+           "executor": executor, "plain_executor": ref.plan.executor,
+           "requested_edges": st.requested_edges,
+           "emitted_edges": st.emitted_edges,
+           "dropped_edges": st.dropped_edges,
+           "exchange_rounds": st.exchange_rounds,
+           "fallback_counts": st.fallback_counts, "launches": launches,
+           "wall_s": wall, "edges_per_s": st.emitted_edges / wall,
+           "peak_allocated_bytes": peak, "plain_wall_s": ref_wall,
+           "plain_peak_allocated_bytes": ref_peak,
+           "plain_dropped_edges": ref.stats.dropped_edges,
+           "plain_launched_a_kernel": plain_launched,
+           "sha256": got, "identical_to_plain_path": same,
+           "matches_host_driven_stream_pin": got == GEN_CLI_SHA256}
+    emit(row)
+    del ref
+    torch.cuda.empty_cache()
+    rounds = st.exchange_rounds
+    if not same or plain_launched or got != GEN_CLI_SHA256 or \
+            st.dropped_edges != 0 or row["plain_dropped_edges"] != 0 \
+            or st.fallback_counts != {} or executor != "pba_stream_sharded":
+        raise AssertionError("the launcher's 1000-rank run differs from "
+                             "the plain path's or from the pinned digest, "
+                             "or dropped edges")
+    # grants and receives: one gather each a round (grants through the
+    # chunked entry point once a pool row reaches its bound)
+    if launches["resolve_roots"] != URNS_PER_PBA_RUN or \
+            launches["gather"] + launches["gather_chunked"] != 2 * rounds \
+            or launches["gather"] < rounds or \
+            launches["band_compact"] != rounds or \
+            launches["histogram"] != 1 + rounds:
+        raise AssertionError(f"the 1000-rank run's launches {launches} "
+                             f"do not match its {rounds} rounds")
+
+    # (c) --out-dir: delete a shard, rerun, only it is rewritten
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--procs", "8", "--vertices-per-proc", "2000",
+                "--edges-per-vertex", "4", "--exchange-rounds", "4",
+                "--pair-capacity", "256", "--out-dir", d,
+                "--ckpt", os.path.join(d, "ckpt.json")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate.main(argv)
+        out_dir = os.path.join(d, "pba")
+        src, dst, man = storage.read_shards(out_dir)
+        first = edge_digest(src, dst)
+        n = man["num_shards"]
+        gone = n // 2
+
+        def shard(i):
+            return os.path.join(out_dir, f"shard_{i:05d}.npz")
+
+        os.remove(shard(gone))
+        stamps = {i: os.stat(shard(i)).st_mtime_ns for i in range(n)
+                  if i != gone}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate.main(argv)
+        resume_wall = time.perf_counter() - t0
+        rewritten = [i for i in range(n) if i == gone or
+                     os.stat(shard(i)).st_mtime_ns != stamps[i]]
+        src, dst, _ = storage.read_shards(out_dir)
+        again = edge_digest(src, dst)
+        args = generate.parser(1).parse_args(argv)
+        with open(args.ckpt) as f:
+            pba_spec = generate.build_specs(args, json.load(f), 1)[0]
+        mem = api.generate(pba_spec.replace(sink="memory", out_dir=None),
+                           device=dev)
+        want = edge_digest(mem.edges.src, mem.edges.dst)
+        del src, dst, mem
+    shards = {"phase": "generate_cli_out_dir", "argv": argv[:10],
+              "num_shards": n, "deleted": gone, "rewritten": rewritten,
+              "resume_wall_s": resume_wall, "sha256": first,
+              "matches_memory_sink": first == want,
+              "resumed_matches": again == first}
+    emit(shards)
+    if first != want or again != first or rewritten != [gone]:
+        raise AssertionError("--out-dir's restart rewrote other shards "
+                             "or read back another graph")
+    emit({"phase": "generate_cli", "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4070,7 +4256,7 @@ def main() -> int:
     cases += pk_cells
 
     # Kernel path vs plain path end to end, in turns, on the same card.
-    order = ["kernel", "plain", "plain", "kernel"] * 2
+    order = ["kernel", "plain", "plain", "kernel"]
     walls = {"kernel": [], "plain": []}
     for which in order:
         torch.cuda.synchronize()
@@ -4132,9 +4318,14 @@ def main() -> int:
     lm_sharded_phase(torch, np, dev)
     phase_done("10_lm_sharded")
 
-    # 11. the analysis tools on the card, then the kernels line
+    # 11. the analysis tools on the card
     analysis_phase(torch, dev)
     phase_done("11_analysis")
+
+    # 12. the paper's scenario through its command, then the kernels line
+    cli_launches = generate_cli_phase(torch, np, api, dispatch, ops,
+                                      edge_digest, dev)
+    phase_done("12_generate_cli")
     emit({"phase": "phase_ends", "seconds_from_start": phase_ends})
 
     table = {
@@ -4209,6 +4400,8 @@ def main() -> int:
         kernels[-1]["launches_distributed"] = {
             k: v[name] for k, v in dist_launches.items() if v.get(name)}
         kernels[-1]["launches_train"] = train["launches"].get(name, 0)
+        kernels[-1]["launches_generate_cli_1000_ranks"] = \
+            cli_launches.get(name, 0)
     hist = next(k for k in kernels if k["name"] == "histogram")
     hist["launches_analytics"] = {
         "main_path_analytics": degrees["launches"]["histogram"],

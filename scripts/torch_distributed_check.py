@@ -77,6 +77,26 @@ with --cpu) and runs, through the front door with no device given:
       within one quantization step of the exact mean. ``--only dp_sync``
       runs this case alone.
 
+  paper_full          the paper's own graph, preset paper_1b_5b not cut:
+      1000 ranks x 1,000,000 vertices x k=5 (5,000,000,000 edges), R=8,
+      seed 7, streamed into memory, pair_capacity pinned to
+      PAPER_FULL_PAIR_CAPACITY (what the launcher's --dry-run prints for
+      the preset), run through repro_torch.launch.generate.run_spec on
+      flat(N) and then pods(2, N/2), each twice (cold, then warm). Gates:
+      0 dropped edges; the edges kept, summed over the group as an int64,
+      equal to the 5,000,000,000 requested on every rank; every rank's
+      digest equal between the two topologies; and, when rank 0 could
+      hold it before the group existed, every rank's digest equal to the
+      one-device host-driven stream's edges whose u falls in that rank's
+      vertex range, in the same order (paper_full_reference; a line says
+      why when the host could not hold it, with the RSS reached).
+      Readings, one line each: the walls, edges/s, rounds, peak device
+      memory a card, peak host RSS a rank, rank 0's device idle share (a
+      profiled run on flat), gamma_mle at kmin 5 and the max degree of the
+      whole graph (launch.generate.degree_summary: the sharded degree
+      count, fitted on rank 0 alone). ``--only paper_full`` runs this case alone (``--cpu``: the
+      1000 ranks with vertices_per_proc cut to 40).
+
 The sharded PBA cases then run the sharded analytics on every rank's
 share (degree_counts_sharded, edge_count_sharded, max_degree_sharded),
 which must give every rank the one-device host path's degree counts,
@@ -255,7 +275,8 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=3,
                     help="timed runs of each case (the first includes "
                     "NCCL's setup of the case's communicators)")
-    ap.add_argument("--only", choices=("dp_sync", "lm_tp", "lm_train_tp"),
+    ap.add_argument("--only", choices=("dp_sync", "lm_tp", "lm_train_tp",
+                                       "paper_full"),
                     default=None,
                     help="run this case alone")
     ap.add_argument("--runs", default=None,
@@ -305,6 +326,9 @@ def main() -> int:
                              cfree_vertices=1 << chip_smoke.RMAT_SCALE,
                              cfree_edges=16 << chip_smoke.RMAT_SCALE,
                              seed=7)
+    if args.only == "paper_full":
+        return paper_full(torch, np, api, chip_smoke, edge_digest, args, rank,
+                          world, device, backend)
     hub = api.preset("hub_stress", execution="streamed")
     specs = {"pba": pba, "pk": pk, "rmat": rmat, "hub": hub}
     gpu = device.type == "cuda"
@@ -1252,6 +1276,263 @@ def routing_flips(everyone: list) -> list:
     counted = [r["flips"] for r in everyone if r["flips"] is not None]
     return [[sum(f[i][j] for f in counted) for j in (0, 1)]
             for i in range(len(counted[0]))]
+
+
+# --- paper_full: the paper's 1000-rank, 1B-vertex, 5B-edge graph -----------------
+
+PAPER_FULL_PAIR_CAPACITY = 1308   # --dry-run's for paper_1b_5b (the CPU's
+                                  # and an H100's plans agree: 8E / min s)
+PAPER_FULL_CPU_VPP = 40           # --cpu: the 1000 ranks, few vertices
+PAPER_FULL_HOST_BYTES_PER_EDGE = 40   # the host-driven stream's peak host
+                                      # memory per requested edge (its (P,
+                                      # E) tags, ranks, pools, v, the sort's
+                                      # int64 order and the sorted u, v)
+PAPER_FULL_GROUP_TIMEOUT_S = 1200     # rank 0's reference runs first
+
+
+def paper_full_spec(api, cpu: bool):
+    """The case's spec: preset paper_1b_5b, memory sink, pair capacity
+    pinned (--cpu: vertices_per_proc cut, the CPU plan's capacity)."""
+    spec = api.preset("paper_1b_5b", sink="memory",
+                      pair_capacity=PAPER_FULL_PAIR_CAPACITY)
+    if cpu:
+        spec = spec.replace(vertices_per_proc=PAPER_FULL_CPU_VPP,
+                            pair_capacity=None)
+        spec = spec.replace(pair_capacity=api.plan(
+            spec, device="cpu").pair_capacity)
+    return spec
+
+
+def _mem_available() -> int:
+    """The host's available memory in bytes (/proc/meminfo), or -1."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return -1
+
+
+def _peak_rss() -> int:
+    """This process's peak resident set, bytes."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def paper_full_reference(torch, np, api, spec, world: int, device) -> dict:
+    """Rank 0, before the group exists: each rank's expected digest, from
+    the one-device host-driven stream (PBAStream) of ``spec``: the stream's
+    edges whose u falls in rank d's vertex range, in the stream's order.
+    Within a block the edges run in (proc, slot) order, so u is sorted
+    and each rank's share of a block is one slice. Returns the digests,
+    or why the host or the card could not hold the stream."""
+    import hashlib
+    from repro_torch.core.stream import PBAStream
+    pl = api.plan(spec.replace(topology=api.Topology.host()), device=device)
+    need = PAPER_FULL_HOST_BYTES_PER_EDGE * pl.requested_edges
+    out = {"executor": pl.executor, "host_bytes_needed_estimate": need,
+           "host_bytes_available": _mem_available()}
+    if 0 <= out["host_bytes_available"] < need:
+        out.update(held=False, reason="the host's available memory is "
+                   "below the host-driven stream's estimated peak",
+                   peak_rss_bytes=_peak_rss())
+        return out
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    try:
+        stream = PBAStream(pl.config, pl.table,
+                           auto_capacity=spec.auto_capacity, device=device)
+    except (torch.cuda.OutOfMemoryError, MemoryError) as e:
+        out.update(held=False, reason=f"{type(e).__name__}: {e}"[:400],
+                   peak_rss_bytes=_peak_rss(),
+                   peak_device_bytes=torch.cuda.max_memory_allocated(device)
+                   if device.type == "cuda" else None,
+                   wall_s=time.perf_counter() - t0)
+        return out
+    setup = time.perf_counter() - t0
+    span = (pl.num_procs // world) * spec.vertices_per_proc
+    hashes = [hashlib.sha256() for _ in range(world)]
+    kept = 0
+    for part in (0, 1):
+        for i in range(stream.num_blocks):
+            u, v = stream.block(i)
+            kept += u.size if part == 0 else 0
+            cuts = np.searchsorted(u, np.arange(1, world) * span)
+            for d, piece in enumerate(np.split((u, v)[part], cuts)):
+                hashes[d].update(np.ascontiguousarray(
+                    piece, dtype="<i4").tobytes())
+    out.update(held=True, digests=[h.hexdigest() for h in hashes],
+               emitted_edges=int(kept), rounds=stream.num_blocks,
+               setup_s=setup, wall_s=time.perf_counter() - t0,
+               peak_rss_bytes=_peak_rss(),
+               peak_device_bytes=torch.cuda.max_memory_allocated(device)
+               if device.type == "cuda" else None)
+    del stream
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def paper_full(torch, np, api, chip_smoke, edge_digest, args, rank: int,
+               world: int, device, backend: str) -> int:
+    """The paper_full case (module docstring); returns the exit code."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.launch import generate
+    gpu = device.type == "cuda"
+    spec = paper_full_spec(api, args.cpu)
+    ref = None
+    if rank == 0:
+        ref = paper_full_reference(torch, np, api, spec, world, device)
+        gc.collect()
+    timeout = datetime.timedelta(seconds=PAPER_FULL_GROUP_TIMEOUT_S)
+    if gpu:
+        dist.init_process_group(backend, device_id=device, timeout=timeout)
+    else:
+        dist.init_process_group(backend, timeout=timeout)
+    objs = [ref]
+    dist.broadcast_object_list(objs, src=0)
+    ref = objs[0]
+
+    def gathered(obj):
+        got = [None] * world
+        dist.all_gather_object(got, obj)
+        return got
+
+    def say(obj):
+        if rank == 0:
+            print(json.dumps({"phase": "distributed_cards",
+                              "case": "paper_full", **obj}), flush=True)
+
+    run_dev = None if gpu else device
+    say({"reading": "setup", "world_size": world, "backend": backend,
+         "spec": {"preset": "paper_1b_5b", "procs": spec.procs,
+                  "vertices_per_proc": spec.vertices_per_proc,
+                  "edges_per_vertex": spec.edges_per_vertex,
+                  "exchange_rounds": spec.exchange_rounds,
+                  "seed": spec.seed, "pair_capacity": spec.pair_capacity,
+                  "sink": spec.sink},
+         "reduced": "vertices_per_proc 1,000,000 -> %d" % PAPER_FULL_CPU_VPP
+         if args.cpu else None,
+         "device": torch.cuda.get_device_name(device) if gpu else "cpu",
+         "nvidia_smi": subprocess.run(
+             ["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"], capture_output=True, text=True,
+             check=True, timeout=60).stdout.strip().splitlines()
+         if gpu else None})
+    say({"reading": "reference", **{k: v for k, v in ref.items()
+                                    if k != "digests"}})
+    ok = True
+    digests = {}
+    for label, topo in (("flat", api.Topology.flat(world)),
+                        ("pods", api.Topology.pods(2, world // 2))):
+        runs = []
+        for attempt in ("cold", "warm"):
+            res = None
+            gc.collect()
+            if gpu:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+            res, wall = generate.run_spec(spec.replace(topology=topo),
+                                          device=run_dev)
+            runs.append({"wall_s": wall,
+                         "peak_device_bytes":
+                         torch.cuda.max_memory_allocated(device)
+                         if gpu else None,
+                         "peak_rss_bytes": _peak_rss()})
+        kept = torch.tensor([res.edges.src.numel()], dtype=torch.int64,
+                            device=res.edges.src.device)
+        dist.all_reduce(kept)
+        mine = {"digest": edge_digest(res.edges.src, res.edges.dst),
+                "stats": res.stats.__dict__, "kept_sum": int(kept),
+                "kept_sum_dtype": str(kept.dtype), "runs": runs,
+                "lp": res.plan.lp, "executor": res.plan.executor}
+        summary = None
+        if label == "flat":
+            t0 = time.perf_counter()
+            gamma, top = generate.degree_summary(res, kmin=5)
+            summary = {"gamma_mle": gamma, "max_degree": top,
+                       "wall_s": time.perf_counter() - t0}
+        del res, kept
+        everyone = gathered(mine)
+        digests[label] = [g["digest"] for g in everyone]
+        st = everyone[0]["stats"]
+        requested = st["requested_edges"]
+        checks = {
+            "dropped_edges_0": all(g["stats"]["dropped_edges"] == 0
+                                   for g in everyone),
+            "stats_equal_on_every_rank": all(g["stats"] == st
+                                             for g in everyone),
+            "kept_sum_int64_equals_requested_on_every_rank": all(
+                g["kept_sum"] == requested == g["stats"]["emitted_edges"]
+                and g["kept_sum_dtype"] == "torch.int64" for g in everyone),
+            "requested_edges": requested}
+        if ref["held"]:
+            checks["matches_one_device_stream"] = [
+                g == w for g, w in zip(digests[label], ref["digests"])]
+        good = checks["dropped_edges_0"] and \
+            checks["stats_equal_on_every_rank"] and \
+            checks["kept_sum_int64_equals_requested_on_every_rank"] and \
+            all(checks.get("matches_one_device_stream", [True])) and \
+            st["fallback_counts"] == {}
+        if label == "pods":
+            checks["flat_equals_pods_rank_by_rank"] = [
+                a == b for a, b in zip(digests["flat"], digests["pods"])]
+            good = good and all(checks["flat_equals_pods_rank_by_rank"])
+        ok = ok and good
+        walls = [[r["wall_s"] for r in g["runs"]] for g in everyone]
+        say({"reading": "run", "topology": topo.label,
+             "executor": mine["executor"], "lp": mine["lp"],
+             "exchange_rounds": st["exchange_rounds"],
+             "pair_capacity": st["pair_capacity"], **checks,
+             "walls_s_rank0_cold_warm": walls[0],
+             "ok": good})
+        say({"reading": "wall_s", "topology": topo.label,
+             "cold": walls[0][0], "warm": walls[0][1]})
+        say({"reading": "edges_per_s", "topology": topo.label,
+             "cold": requested / walls[0][0],
+             "warm": requested / walls[0][1]})
+        say({"reading": "rounds", "topology": topo.label,
+             "exchange_rounds": st["exchange_rounds"]})
+        say({"reading": "peak_device_bytes_per_card",
+             "topology": topo.label,
+             "by_rank": [max(r["peak_device_bytes"] or 0
+                             for r in g["runs"]) for g in everyone]})
+        say({"reading": "peak_host_rss_bytes_per_rank",
+             "topology": topo.label,
+             "by_rank": [g["runs"][-1]["peak_rss_bytes"]
+                         for g in everyone]})
+        if summary is not None:
+            say({"reading": "gamma_mle_kmin_5", "value":
+                 summary["gamma_mle"]})
+            say({"reading": "max_degree", "value": summary["max_degree"],
+                 "degree_summary_wall_s": summary["wall_s"]})
+
+    # rank 0's idle share: one more run on flat, profiled there
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+    pl = api.plan(spec.replace(topology=api.Topology.flat(world)),
+                  device=run_dev)
+    dist.barrier()
+    if rank == 0 and gpu:
+        idle = device_idle_share(torch, chip_smoke,
+                                 lambda: api.generate(pl))
+    else:
+        api.generate(pl)
+        idle = None
+    dist.barrier()
+    say({"reading": "device_idle_share_rank0", **(idle or {})})
+    verdict = [ok]
+    dist.broadcast_object_list(verdict, src=0)
+    dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps({"ok": bool(verdict[0]), "world_size": world,
+                          "backend": backend}), flush=True)
+    return 0 if verdict[0] else 1
 
 
 def shard_sink_case(api, storage, edge_digest, hub, ref, rank, world, gpu,

@@ -93,28 +93,50 @@ class GenPlan:
     rank: int = 0               # this process's device index (0 on host)
 
     def describe(self) -> str:
-        """Human-readable resolved plan."""
+        """Human-readable resolved plan (the launcher's --dry-run output):
+        the JAX package's text, with the device in the executor's line
+        and, over D > 1 devices, this rank's logical procs."""
         d = self.topology.num_devices
         lines = [
             f"GraphSpec[{self.model}] seed={self.config.seed} -> "
             f"{self.num_vertices:,} vertices, "
             f"{self.requested_edges:,} edges",
-            f"  executor:  {self.executor} (execution={self.execution}, "
-            f"sink={self.sink}, device={self.device})",
+            f"  executor:  {self.executor} "
+            f"(execution={self.execution}, sink={self.sink}"
+            + (f", out_dir={self.spec.out_dir}" if self.spec.out_dir
+               else "") + f", device={self.device})",
             f"  topology:  {self.topology.label}  "
             f"P = lp*D = {self.lp} * {d} = {self.num_procs}"
             + (f"; rank {self.rank} of {d} holds logical procs "
                f"[{self.rank * self.lp}, {(self.rank + 1) * self.lp})"
                if d > 1 else ""),
-            f"  exchange:  pair_capacity={self.pair_capacity}, "
-            f"rounds={self.exchange_rounds}, C_r={self.round_capacity}, "
-            f"urn_budget={self.urn_budget}",
         ]
+        if self.model == "pba":
+            lines.append(
+                f"  exchange:  pair_capacity={self.pair_capacity}, "
+                f"rounds={self.exchange_rounds}, "
+                f"C_r={self.round_capacity}, "
+                f"urn_budget={self.urn_budget}")
+        elif self.model == "pk":
+            lines.append(
+                f"  expansion: levels={self.config.levels}, "
+                f"seed {self.seed_graph.num_vertices}v/"
+                f"{self.seed_graph.num_edges}e, zero communication")
+        else:
+            lines.append(
+                "  cfree:     edge t is a pure function of (seed, t) — "
+                "zero exchange rounds, any partition bit-identical")
         if self.execution == "streamed":
             lines.append(
                 f"  stream:    block ~{_fmt_bytes(self.block_bytes)}/round"
                 + (f", overlap buffer ~{_fmt_bytes(self.overlap_bytes)}"
                    if self.overlap_bytes else ", overlap off"))
+            if self.model == "pba" and self.spec.auto_capacity:
+                lines.append(
+                    "  caveat:    auto_capacity pools are demand-sized at "
+                    "run time (worst case ~P*E on hub layouts); byte "
+                    "estimates assume the static urn budget — pin "
+                    "total_capacity_factor for exact planning")
         lines.append(
             f"  bytes:     device ~{_fmt_bytes(self.device_bytes)}, "
             f"host ~{_fmt_bytes(self.host_bytes)}, "
@@ -522,6 +544,24 @@ def _make_stream(pl: GenPlan):
                                 device=pl.device)
 
 
+def _shards_on_root(pl: GenPlan) -> GenResult:
+    """A plan that runs on one device (the host topology) into shards,
+    under a process group: rank 0 alone generates and writes the shard
+    set, so the ranks never write one directory at once; every rank
+    returns its manifest and stats."""
+    def write():
+        res = _execute(pl)
+        return {"manifest": res.manifest,
+                "stats": dataclasses.asdict(res.stats),
+                "stream_meta": res.stream_meta}
+
+    out = blocking.run_on_root(write, Topology.flat(spmd.world_size()),
+                               pl.device)
+    return GenResult(plan=pl, stats=GenStats(**out["stats"]),
+                     manifest=out["manifest"], out_dir=pl.spec.out_dir,
+                     stream_meta=out["stream_meta"])
+
+
 def generate(plan_or_spec: Union[GenPlan, GraphSpec], *,
              device=None) -> GenResult:
     """Execute a plan (or plan a spec for ``device`` and execute it).
@@ -529,7 +569,9 @@ def generate(plan_or_spec: Union[GenPlan, GraphSpec], *,
     Bit-identical to the JAX package's ``generate`` for the same spec and
     pair capacity: over a process group, the concatenation of the ranks'
     edges in rank order. A plan runs on the device it was made for;
-    passing another ``device`` with a plan raises.
+    passing another ``device`` with a plan raises. A plan on the host
+    topology into shards, under a process group, is written by rank 0
+    alone (every rank returns the manifest).
     """
     if isinstance(plan_or_spec, GenPlan):
         pl = plan_or_spec
@@ -539,8 +581,15 @@ def generate(plan_or_spec: Union[GenPlan, GraphSpec], *,
                 "spec again for that device")
     else:
         pl = plan(plan_or_spec, device=device)
-    spec = pl.spec
+    if pl.sink == "shards" and spmd.group_active() \
+            and not blocking.collective(pl.topology):
+        return _shards_on_root(pl)
+    return _execute(pl)
 
+
+def _execute(pl: GenPlan) -> GenResult:
+    """Run a plan on this process (its part of a group's run)."""
+    spec = pl.spec
     if pl.execution == "streamed":
         stream = _make_stream(pl)
         if pl.sink == "shards":

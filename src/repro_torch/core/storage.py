@@ -132,8 +132,9 @@ class ShardWriter:
 
     A stream (``core/stream.py``) produces deterministic block ``i`` on
     demand, so the writer only needs to say which blocks are still
-    missing: a restart regenerates exactly those. Shard files and the
-    manifest are both written atomically.
+    missing: a restart regenerates exactly those (the manifest's
+    incomplete blocks, and any complete one whose shard file is gone).
+    Shard files and the manifest are both written atomically.
     """
 
     def __init__(self, out_dir: str, num_vertices: int, num_shards: int,
@@ -153,6 +154,16 @@ class ShardWriter:
         else:
             _check_resume(man, num_vertices, num_shards, meta)
             man.setdefault("counts", {})
+            # A shard the manifest calls complete but whose file is gone
+            # (deleted by hand) is missing again: a restart rewrites it.
+            gone = [i for i in man["complete"] if not os.path.exists(
+                os.path.join(out_dir, f"shard_{i:05d}.npz"))]
+            if gone:
+                man["complete"] = [i for i in man["complete"]
+                                   if i not in gone]
+                for i in gone:
+                    man["counts"].pop(str(i), None)
+                _dump_manifest(out_dir, man)
         self.manifest = man
         # O(1) membership for is_complete; the manifest list stays the
         # on-disk source of truth.

@@ -122,6 +122,22 @@ def _pba_stream_meta(cfg: PBAConfig, table: FactionTable,
             "spec_digest": spec_digest(cfg, table, auto_capacity)}
 
 
+#: Bytes of device memory (and of host int64 temporaries) a block of
+#: rows of the host-driven stream may take per edge slot: phase 1's urn,
+#: its int64 gather index, the sort's values and indices.
+_HOST_STREAM_BYTES_PER_SLOT = 48
+
+
+def host_chunk_rows(edges_per_proc: int, device) -> int:
+    """Rows of (P, E) state the host-driven stream handles at once: as
+    many as fit a quarter of ``device``'s memory budget
+    (``spmd.device_memory_bytes``) at
+    :data:`_HOST_STREAM_BYTES_PER_SLOT` bytes a slot, at least one."""
+    budget = spmd.device_memory_bytes(device) // 4
+    return max(1, budget // (_HOST_STREAM_BYTES_PER_SLOT
+                             * max(edges_per_proc, 1)))
+
+
 def _narrow_keys(keys: np.ndarray, num_keys: int) -> np.ndarray:
     """``keys`` in [0, num_keys) in the narrowest unsigned type: a stable
     argsort then gives the same order by radix sort."""
@@ -163,13 +179,24 @@ class PBAStream:
         e_local = cfg.edges_per_proc
 
         ranks = torch.arange(num_procs, dtype=torch.int32, device=device)
-        a, counts = pba._phase1(ranks, torch.from_numpy(table.procs).to(
-            device), torch.from_numpy(table.s).to(device), cfg, num_procs)
-        occ = pba.occurrence_rank(a)
-        prov = a.cpu().numpy()
-        occ_h = occ.cpu().numpy()
-        counts_h = counts.cpu().numpy()        # (requester, provider)
-        del a, occ, counts
+        procs = torch.from_numpy(table.procs).to(device)
+        s = torch.from_numpy(table.s).to(device)
+        # Phase 1 in blocks of rows (each processor's urn is its own), so
+        # the device holds one block's urn and its temporaries, not P's.
+        rows = host_chunk_rows(e_local, device)
+        prov = np.empty((num_procs, e_local), np.int32)
+        occ_h = np.empty((num_procs, e_local), np.int32)
+        counts_h = np.empty((num_procs, num_procs), np.int32)
+        for lo in range(0, num_procs, rows):
+            hi = min(lo + rows, num_procs)
+            a, counts = pba._phase1(ranks[lo:hi], procs[lo:hi], s[lo:hi],
+                                    cfg, num_procs)
+            occ = pba.occurrence_rank(a)
+            prov[lo:hi] = a.cpu().numpy()
+            occ_h[lo:hi] = occ.cpu().numpy()
+            counts_h[lo:hi] = counts.cpu().numpy()  # (requester, provider)
+            del a, occ, counts
+        del procs, s
         self.num_blocks = streaming.rounds_needed(
             max(int(counts_h.max()), 1), self.round_cap)
 
@@ -196,19 +223,25 @@ class PBAStream:
         # Resolve every edge's endpoint once: the edge (i, j) with tag
         # a[i, j] = p and occurrence rank occ[i, j] was granted provider
         # p's pool slot offsets[p, i] + occ[i, j] (offsets from the
-        # unclipped demand, the addressing of _grant_round).
+        # unclipped demand, the addressing of _grant_round). In blocks of
+        # rows, so the int64 temporaries stay a block's.
         recv = counts_h.T.astype(np.int64)     # (provider, requester)
         offsets = np.cumsum(recv, axis=1) - recv
-        slot = offsets[prov, np.arange(num_procs)[:, None]] + occ_h
-        in_budget = slot < self.urn_budget
-        idx = row_start[prov] + e_local + np.where(in_budget, slot, 0)
-        del slot, prov
-        v = np.where(in_budget, pool_flat[idx], -1).astype(np.int32)
-        del idx, in_budget, pool_flat
-        u = (np.arange(num_procs, dtype=np.int32)[:, None]
-             * np.int32(cfg.vertices_per_proc)
-             + (np.arange(e_local, dtype=np.int32)
-                // cfg.edges_per_vertex)[None, :])
+        del recv
+        # The large gathers run as torch CPU ops, on every core.
+        v = np.empty((num_procs, e_local), np.int32)
+        pool_t = torch.from_numpy(pool_flat)
+        for lo in range(0, num_procs, rows):
+            hi = min(lo + rows, num_procs)
+            pr = prov[lo:hi]
+            slot = offsets[pr, np.arange(lo, hi)[:, None]] + occ_h[lo:hi]
+            in_budget = slot < self.urn_budget
+            idx = row_start[pr] + e_local + np.where(in_budget, slot, 0)
+            del slot
+            v[lo:hi] = np.where(in_budget,
+                                pool_t[torch.from_numpy(idx)].numpy(), -1)
+            del idx, in_budget
+        del prov, pool_t, pool_flat, offsets
 
         # Bucket edges by round once, so block(i) is a slice.
         block_id = _narrow_keys((occ_h // self.round_cap).ravel(),
@@ -219,9 +252,19 @@ class PBAStream:
             [[0], np.cumsum(np.bincount(block_id,
                                         minlength=self.num_blocks))])
         del block_id
-        self._u_sorted = u.ravel()[order]
-        del u
-        self._v_sorted = v.ravel()[order]
+        order_t = torch.from_numpy(order)
+        self._v_sorted = torch.from_numpy(v.reshape(-1))[order_t].numpy()
+        del v
+        # u[i, j] = i * V + j // k, read at the sorted positions a slice
+        # at a time
+        self._u_sorted = np.empty(order.size, np.int32)
+        step = rows * e_local
+        for lo in range(0, order.size, step):
+            at = order_t[lo:lo + step]
+            self._u_sorted[lo:lo + step] = (
+                (at // e_local) * cfg.vertices_per_proc
+                + (at % e_local) // cfg.edges_per_vertex).numpy()
+        del order, order_t
 
     @property
     def exchange_rounds(self) -> int:

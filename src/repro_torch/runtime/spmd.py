@@ -13,11 +13,13 @@ is the one place that asks the group who and where this process is:
   :func:`check_backend`   the group's backend against the device
   :func:`device_memory_bytes`   the pair-capacity heuristic's budget
 
-and the group plumbing of the analysis tools (``repro_torch.analysis``,
-``launch/dryrun.py``), which may not touch ``torch.distributed``
+and the group plumbing of the analysis tools and launchers
+(``repro_torch.analysis``, ``launch/dryrun.py``, ``launch/generate.py``),
+which may not touch ``torch.distributed``
 themselves (spmdlint TRP001):
 
   :func:`init_group` / :func:`init_fake_group` / :func:`destroy_group`
+  :func:`barrier`         every rank of the group waits for the others
   :func:`group_ranks`     the global ranks of a c10d op's process group
   :func:`gather_objects`  every rank's picklable object, on rank 0
 
@@ -121,11 +123,26 @@ def device_memory_bytes(device) -> int:
 
 
 def init_group(backend: str, init_method: str, world: int,
-               rank_: int) -> None:
+               rank_: int, *, device_id=None,
+               timeout_s: Optional[float] = None) -> None:
     """Initialise the default process group (``backend`` "gloo" or
-    "nccl", a ``tcp://`` or ``file://`` rendezvous)."""
+    "nccl", a ``tcp://``, ``file://`` or ``env://`` rendezvous);
+    ``device_id`` binds an NCCL group to its card at once, ``timeout_s``
+    bounds each collective's wait."""
+    extra = {}
+    if device_id is not None:
+        extra["device_id"] = torch.device(device_id)
+    if timeout_s is not None:
+        import datetime
+        extra["timeout"] = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(backend, init_method=init_method,
-                            world_size=world, rank=rank_)
+                            world_size=world, rank=rank_, **extra)
+
+
+def barrier() -> None:
+    """Wait for every rank of the default group (nothing with none)."""
+    if group_active():
+        dist.barrier()
 
 
 def init_fake_group(world: int, rank_: int = 0) -> None:
